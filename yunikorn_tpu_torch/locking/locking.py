@@ -1,0 +1,191 @@
+"""Deadlock-detecting lock wrappers.
+
+Role-equivalent to the reference's pkg/locking/locking.go:38-44, which wraps every
+mutex in the codebase with `sasha-s/go-deadlock` and toggles detection via the
+DEADLOCK_DETECTION_ENABLED / DEADLOCK_TIMEOUT_SECONDS / DEADLOCK_EXIT env vars
+(reference Makefile:586-589). Here, when detection is enabled, acquisitions use a
+timeout; on timeout the holder's stack is dumped and a DeadlockError is raised
+(or the process aborted when DEADLOCK_EXIT is set).
+"""
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import traceback
+from typing import Optional
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+DETECTION_ENABLED = _env_bool("DEADLOCK_DETECTION_ENABLED")
+TIMEOUT_SECONDS = float(os.environ.get("DEADLOCK_TIMEOUT_SECONDS", "60"))
+EXIT_ON_DEADLOCK = _env_bool("DEADLOCK_EXIT")
+
+
+class DeadlockError(RuntimeError):
+    pass
+
+
+def _on_timeout(kind: str, holder_info: str) -> None:
+    msg = f"POTENTIAL DEADLOCK: failed to acquire {kind} within {TIMEOUT_SECONDS}s\n{holder_info}"
+    frames = []
+    for tid, frame in sys._current_frames().items():
+        frames.append(f"--- thread {tid} ---\n" + "".join(traceback.format_stack(frame)))
+    msg += "\n" + "\n".join(frames)
+    if EXIT_ON_DEADLOCK:
+        print(msg, file=sys.stderr)
+        os._exit(2)
+    raise DeadlockError(msg)
+
+
+class Mutex:
+    """Reentrancy-free mutex with optional deadlock detection."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._holder: Optional[str] = None
+
+    def acquire(self) -> None:
+        if DETECTION_ENABLED:
+            if not self._lock.acquire(timeout=TIMEOUT_SECONDS):
+                _on_timeout("Mutex", f"held by: {self._holder}")
+            # holder tracking is diagnostic-only; current_thread() per
+            # acquisition is measurable on the pump's hot path, so production
+            # (detection off) skips it
+            self._holder = threading.current_thread().name
+        else:
+            self._lock.acquire()
+
+    def release(self) -> None:
+        if DETECTION_ENABLED:
+            self._holder = None
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+
+class RMutex(Mutex):
+    """Reentrant mutex (threading.RLock analog) with optional detection.
+
+    The reference wraps every mutex in the codebase (locking.go:38-44);
+    components whose call graphs re-enter their own lock use this variant.
+    """
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._holder: Optional[str] = None
+
+    def release(self) -> None:
+        # unlike Mutex, keep _holder: under nesting the outer frames still
+        # hold the lock; the name is diagnostic only either way
+        self._lock.release()
+
+
+class RWMutex:
+    """Reader-writer lock with optional deadlock detection.
+
+    Matches the usage pattern of the reference's locking.RWMutex: many informer /
+    dispatcher threads take RLock, state mutation takes Lock.
+
+    Fast path (detection OFF, the production default): a single reentrant
+    lock for both sides. Under the GIL, pure-Python critical sections never
+    actually read in parallel, so the Condition-based writer-preferring
+    implementation buys nothing while costing ~µs per acquisition and
+    serializing readers behind writer pressure — profiled as the dominant
+    term of the 50k-pod shim benchmark (1.9M acquisitions). The RLock is
+    also strictly more permissive (reader-inside-writer nesting works).
+    Detection ON keeps the instrumented reader/writer implementation.
+    """
+
+    def __init__(self):
+        if not DETECTION_ENABLED:
+            self._rlock = threading.RLock()
+            return
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    # -- write side --
+    def acquire(self) -> None:
+        if not DETECTION_ENABLED:
+            self._rlock.acquire()
+            return
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                if not self._cond.wait_for(
+                    lambda: not self._writer and self._readers == 0,
+                    timeout=TIMEOUT_SECONDS,
+                ):
+                    _on_timeout("RWMutex(write)", f"readers={self._readers} writer={self._writer}")
+                self._writer = True
+            finally:
+                self._writers_waiting -= 1
+
+    def release(self) -> None:
+        if not DETECTION_ENABLED:
+            self._rlock.release()
+            return
+        with self._cond:
+            self._writer = False
+            self._cond.notify_all()
+
+    # -- read side --
+    def r_acquire(self) -> None:
+        if not DETECTION_ENABLED:
+            self._rlock.acquire()
+            return
+        with self._cond:
+            if not self._cond.wait_for(
+                lambda: not self._writer and self._writers_waiting == 0,
+                timeout=TIMEOUT_SECONDS,
+            ):
+                _on_timeout("RWMutex(read)", f"writer held={self._writer}")
+            self._readers += 1
+
+    def r_release(self) -> None:
+        if not DETECTION_ENABLED:
+            self._rlock.release()
+            return
+        with self._cond:
+            self._readers -= 1
+            if self._readers == 0:
+                self._cond.notify_all()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    class _ReadGuard:
+        __slots__ = ("_rw",)
+
+        def __init__(self, rw: "RWMutex"):
+            self._rw = rw
+
+        def __enter__(self):
+            self._rw.r_acquire()
+            return self
+
+        def __exit__(self, *exc):
+            self._rw.r_release()
+            return False
+
+    def reader(self) -> "RWMutex._ReadGuard":
+        return RWMutex._ReadGuard(self)

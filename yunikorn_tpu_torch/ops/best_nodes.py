@@ -1,0 +1,177 @@
+"""Every pod's best node: fused fit + group mask + score + argmax.
+
+The port's counterpart of the JAX package's ops/pallas_kernels.py. On CUDA
+tensors `best_nodes` launches the hand-written kernel in
+`csrc/best_nodes.cu`; on CPU tensors it takes `best_nodes_reference`, the
+plain PyTorch version of the same function. There is no fallback between the
+two: a CUDA call launches the kernel or raises.
+
+Modes (a static choice, as the two solve paths of the JAX package are):
+  exact      bit-equal to the plain argmax of ops/assign `_best_nodes_chunked`
+             — the solve's default.
+  quantized  bit-equal to the Pallas kernel `pallas_best_nodes`: scores
+             quantized to 1/128 and packed with the node index into one int32
+             — what `use_pallas=True` selects.
+
+has_soft=False leaves the [G, M] soft matrix out (the kernel takes no soft
+pointer); the solve selects it only when the soft matrix is all zeros.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yunikorn_tpu_torch.utils import torchtools
+
+NEG_INF = -3.0e38
+SCORE_SCALE = 128.0
+PACKED_MIN = -(1 << 30)
+MODES = ("exact", "quantized")
+_POD_CHUNK = 512
+_SMEM_BUDGET = 48 * 1024
+_MAX_NODE_TILE = 256
+
+
+def index_span(m: int) -> int:
+    """Room for node indices below the quantized score: the smallest power
+    of two strictly greater than m, at least 2^10 (the Pallas kernel's
+    `_index_span`)."""
+    return 1 << max(10, m.bit_length())
+
+
+def best_nodes_reference(req, group_id, group_feas, group_soft, free,
+                         base_scores, *, mode: str = "exact",
+                         has_soft: bool = True, chunk: int = _POD_CHUNK):
+    """Plain PyTorch version of both modes, chunked over pods so no [N, M]
+    tensor is built. Returns (best [N] int32, feasible [N] bool)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    N, R = req.shape
+    M = free.shape[0]
+    span = index_span(M)
+    col = torch.arange(M, device=req.device, dtype=torch.int64)
+    best_parts, feas_parts = [], []
+    for start in range(0, N, chunk):
+        creq = req[start:start + chunk]
+        cgid = group_id[start:start + chunk].long()
+        ok = group_feas[cgid]                                      # [C, M]
+        for r in range(R):
+            ok = ok & (free[:, r][None, :] >= creq[:, r][:, None])
+        if has_soft:
+            scores = base_scores[None, :] + group_soft[cgid]
+        else:
+            scores = base_scores[None, :].expand(creq.shape[0], M)
+        if mode == "exact":
+            masked = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+            best = torch.argmax(masked, dim=1)
+            feasible = ok.any(dim=1)
+        else:
+            q = torch.round(scores * SCORE_SCALE).to(torch.int32).long()
+            packed = q * span + (M - col)[None, :]
+            packed = (packed + 2**31) % 2**32 - 2**31              # int32 wrap
+            packed = torch.where(ok, packed,
+                                 torch.full_like(packed, PACKED_MIN))
+            top = packed.max(dim=1).values if M else torch.full(
+                (creq.shape[0],), PACKED_MIN, dtype=torch.int64,
+                device=req.device)
+            feasible = top > PACKED_MIN
+            best = torch.where(feasible, M - torch.remainder(top, span),
+                               torch.zeros_like(top))
+        best_parts.append(best.to(torch.int32))
+        feas_parts.append(feasible)
+    if not best_parts:
+        return (torch.zeros((0,), dtype=torch.int32, device=req.device),
+                torch.zeros((0,), dtype=torch.bool, device=req.device))
+    return torch.cat(best_parts), torch.cat(feas_parts)
+
+
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def node_tile(n_nodes: int, n_groups: int, n_res: int, has_soft: bool) -> int:
+    """Nodes staged per shared-memory tile: as many as fit the 48 KB a block
+    gets without opting in, at most 256."""
+    per_node = 4 * n_res + 4 + n_groups * (5 if has_soft else 1)
+    return max(1, min(_MAX_NODE_TILE, _SMEM_BUDGET // per_node,
+                      max(n_nodes, 1)))
+
+
+def _library():
+    lib = torchtools.load_library("best_nodes")
+    if not getattr(lib, "_yk_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                      i, p, p, p]
+        lib.yk_best_nodes.restype = i
+        lib.yk_best_nodes_max_res.restype = i
+        lib.yk_cuda_error_string.argtypes = [i]
+        lib.yk_cuda_error_string.restype = ctypes.c_char_p
+        lib._yk_typed = True
+    return lib
+
+
+def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
+               mode: str = "exact", has_soft: bool = True,
+               chunk: int = _POD_CHUNK):
+    """Best node per pod. Shapes: req [N, R] int32, group_id [N] int32,
+    group_feas [G, M] bool, group_soft [G, M] float32 (ignored when
+    has_soft=False), free [M, R] int32, base_scores [M] float32.
+
+    Returns (best [N] int32, feasible [N] bool), best = 0 where no node is
+    feasible. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (and add one to `best_nodes.launches`)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    device = req.device
+    if device.type == "cpu":
+        return best_nodes_reference(req, group_id, group_feas, group_soft,
+                                    free, base_scores, mode=mode,
+                                    has_soft=has_soft, chunk=chunk)
+    if device.type != "cuda":
+        raise ValueError(f"best_nodes runs on cuda or cpu tensors, not "
+                         f"{device.type}")
+    N, R = req.shape
+    G, M = group_feas.shape
+    _check("req", req, torch.int32, (N, R), device)
+    _check("group_id", group_id, torch.int32, (N,), device)
+    _check("group_feas", group_feas, torch.bool, (G, M), device)
+    if has_soft:
+        _check("group_soft", group_soft, torch.float32, (G, M), device)
+    _check("free", free, torch.int32, (M, R), device)
+    _check("base_scores", base_scores, torch.float32, (M,), device)
+    if G < 1:
+        raise ValueError("group_feas needs at least one group row")
+    lib = _library()
+    if R > lib.yk_best_nodes_max_res():
+        raise ValueError(f"best_nodes takes at most "
+                         f"{lib.yk_best_nodes_max_res()} resource columns, "
+                         f"got {R}")
+    best = torch.empty((N,), dtype=torch.int32, device=device)
+    feasible = torch.empty((N,), dtype=torch.bool, device=device)
+    tile = node_tile(M, G, R, has_soft)
+    rc = lib.yk_best_nodes(
+        req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
+        group_soft.data_ptr() if has_soft else None, free.data_ptr(),
+        base_scores.data_ptr(), N, M, G, R, tile, int(has_soft),
+        int(mode == "quantized"), index_span(M), best.data_ptr(),
+        feasible.data_ptr(), torchtools.current_stream_handle(device))
+    if rc != 0:
+        raise RuntimeError("best_nodes kernel launch failed: "
+                           + lib.yk_cuda_error_string(rc).decode())
+    best_nodes.launches += 1
+    return best, feasible
+
+
+best_nodes.launches = 0
