@@ -10,7 +10,9 @@ phase fails, and when no CUDA device is present):
           (one nvcc process per source, started together)
   kernel  each kernel against its plain PyTorch version on the card at the
           main path's shapes, both modes and soft variants, plus
-          all-infeasible, forced-tie and ragged-M cases: bit-equal
+          all-infeasible, forced-tie and ragged-M cases, masks of requested
+          rows (30%, none, 129 rows), ties that straddle the kernel's
+          node-slice boundaries, and R = 12 (the wide variant): bit-equal
   cut     the whole solve at 2,000 nodes x 10,000 pods of the slice's mixed
           workload, on `cuda` (kernel) and on `cpu` (plain): bit-identical
           assigned / accept_round / free_after / rounds
@@ -18,9 +20,18 @@ phase fails, and when no CUDA device is present):
           the port's encoder and solve_batch on `cuda`, with the kernel
           launch counts read around that one run; 16 rounds and 45,977 pods
           placed (the JAX package's result on the same workload), no node
-          oversubscribed, every placement feasible; timings
-  kernels one line per kernel: launches, error against the plain version,
-          kernel / plain / bound milliseconds
+          oversubscribed, every placement feasible; timings; for each odd
+          round the rows it requested and the kernel's CUDA-event ms at that
+          round's inputs, their sum over the solve, the full-function ms
+          (every row) at the first odd round's inputs, and the bound and its
+          share for each (the bound from the card's clocks.max.sm); a
+          device profile of one solve, and one of the solve's best_nodes
+          calls (each call runs a memset and three kernels: prep, main,
+          finish)
+  kernels one line per kernel: launches (the wrapper's count of calls in
+          the main path's run), error against the plain version, kernel /
+          plain / bound milliseconds (at the first odd round's inputs, as
+          the main path calls it)
 
 The last two lines are the card's name and power limit, and the result.
 """
@@ -39,10 +50,17 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 operations/s
-# outside the tensor cores, applied to the kernel's 32-bit lane operations
+# H100 SXM (NVIDIA data sheet; CUDA C++ Programming Guide, "Throughput of
+# Native Arithmetic Instructions", compute capability 9.0): HBM bytes/s, SMs,
+# and results per clock per SM of 32-bit compares, min/max and bitwise ops
+# (64) and of f32 adds (128). The clock is the card's clocks.max.sm.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+SMS = 132
+CMP_PER_CLK_SM = 64
+FADD_PER_CLK_SM = 128
+# the float32 peak outside the tensor cores, used by the first slice's bound
+# (kept to restate that bound beside the corrected one)
+OLD_PEAK_OPS_S = 67e12
 MAIN_NODES, MAIN_PODS = 10_000, 50_000
 CUT_NODES, CUT_PODS = 2_000, 10_000
 # the JAX package's result on the same workloads (rounds, pods placed)
@@ -61,10 +79,15 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps runs, after one warm-up."""
+    """Mean device milliseconds of fn() over reps runs, after one warm-up.
+    The runs queue behind a ~20 ms sleep kernel, so that the host is ahead
+    of the device and the events time the device rather than the host's
+    launch rate."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -73,22 +96,63 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def best_nodes_bound_ms(req, group_feas, has_soft: bool) -> tuple:
+def pair_counts(req, group_id, group_feas, free, rows=None,
+                chunk: int = 1024):
+    """Over the requested rows (every row when rows is None): the (row,
+    node) pairs whose group row admits the node, and those of them where
+    the node's free row covers the request."""
+    N, R = req.shape
+    G = group_feas.shape[0]
+    gid = group_id.long().clamp(0, G - 1)
+    idx = (rows.nonzero().squeeze(1) if rows is not None
+           else torch.arange(N, device=req.device))
+    admitted = int(group_feas.sum(dim=1)[gid[idx]].sum())
+    fitting = 0
+    for s in range(0, idx.shape[0], chunk):
+        i = idx[s:s + chunk]
+        ok = group_feas[gid[i]]
+        for r in range(R):
+            ok &= free[:, r][None, :] >= req[i, r][:, None]
+        fitting += int(ok.sum())
+    return int(idx.shape[0]), admitted, fitting
+
+
+def best_nodes_bound_ms(req, group_id, group_feas, free, has_soft: bool,
+                        clock_hz: float, rows=None) -> dict:
     """Least time for one best-node call: inputs read once and outputs
-    written once over HBM bandwidth, against the operations of every (pod,
-    node) pair over the float32 peak outside the tensor cores: R fit
-    compares, R ANDs (R - 1 joining the fit, one with the group mask), the
-    score add when there is a soft matrix, and one compare-select of the
-    running max. The peak counts a fused multiply-add as two operations and
-    each of these as one, so the bound is optimistic by up to 2x."""
+    written once over HBM bandwidth, against the operations these inputs
+    need at the compare/logic rate. Each admitted pair (a requested row and
+    a node its group admits) costs R fit compares; each compare also ANDs
+    the running fit predicate, in the same instruction on this card
+    (ISETP takes a predicate input). Each fitting pair costs one max. The
+    score add is one f32 add per (group, node) at the f32 rate. Also
+    returns the first slice's formula (every pod x every node, 2R + 1 +
+    soft lane operations over the 67 TFLOP/s float32 peak) as `old_ms`."""
     N, R = req.shape
     G, M = group_feas.shape
     nbytes = (N * R * 4 + N * 4 + G * M + (G * M * 4 if has_soft else 0)
               + M * R * 4 + M * 4 + N * 4 + N)
-    ops = N * M * (2 * R + 1 + int(has_soft))
+    n_rows, admitted, fitting = pair_counts(req, group_id, group_feas, free,
+                                            rows)
+    cmp_s = (admitted * R + fitting) / (CMP_PER_CLK_SM * SMS * clock_hz)
+    add_s = (G * M if has_soft else 0) / (FADD_PER_CLK_SM * SMS * clock_hz)
+    t_ops = (cmp_s + add_s) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    old_ms = max(N * M * (2 * R + 1 + int(has_soft)) / OLD_PEAK_OPS_S * 1e3,
+                 t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": by,
+            "rows": n_rows, "pairs": admitted, "fitting_pairs": fitting,
+            "old_ms": old_ms}
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def random_kernel_inputs(rng, N, M, G, R, dev):
@@ -119,35 +183,70 @@ def phase_build():
     return {"build_s": time.perf_counter() - t0, "ptxas": ptxas}
 
 
+def slice_edge_ties(inp, S):
+    """Equal scores everywhere, and each group admits only the nodes just
+    around every multiple of S, where the kernel may split the node range
+    across blocks: ties that straddle slice boundaries."""
+    G, M = inp["group_feas"].shape
+    edge = torch.zeros_like(inp["group_feas"])
+    for b in range(S, M, S):
+        edge[:, b - 2:b + 2] = True
+    return dict(inp, group_feas=edge,
+                base_scores=torch.full_like(inp["base_scores"], 0.5),
+                group_soft=torch.zeros_like(inp["group_soft"]))
+
+
+def random_rows(rng, N, count, dev):
+    rows = np.zeros(N, bool)
+    rows[rng.choice(N, count, replace=False)] = True
+    return torch.from_numpy(rows).to(dev)
+
+
 def phase_kernel(dev):
-    from yunikorn_tpu_torch.ops.best_nodes import best_nodes, best_nodes_reference
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference,
+                                                   slice_nodes)
 
     rng = np.random.default_rng(20261016)
     cases = []
     N, M, R = 65_536, 16_384, 8
     for G in (4, 8):
         base = random_kernel_inputs(rng, N, M, G, R, dev)
-        variants = [("random", base)]
+        variants = [("random", base, {})]
         if G == 4:
             none = dict(base, group_feas=torch.zeros_like(base["group_feas"]))
             tie = dict(base, base_scores=torch.full_like(base["base_scores"], 0.5),
                        group_soft=torch.zeros_like(base["group_soft"]))
             ragged = random_kernel_inputs(rng, 4_000, M - 77, G, R, dev)
-            variants += [("all_infeasible", none), ("forced_tie", tie),
-                         ("ragged_m", ragged)]
-        for label, inp in variants:
+            some = random_rows(rng, N, N * 3 // 10, dev)
+            variants += [
+                ("all_infeasible", none, {}), ("forced_tie", tie, {}),
+                ("ragged_m", ragged, {}),
+                ("rows_30pct", base, {"rows": some}),
+                ("rows_none", base, {"rows": torch.zeros_like(some)}),
+                ("rows_129", base, {"rows": random_rows(rng, N, 129, dev)}),
+                ("slice_edge_ties", slice_edge_ties(base, slice_nodes()),
+                 {"rows": some})]
+        else:
+            wide = random_kernel_inputs(rng, N, M, G, 12, dev)
+            variants += [
+                ("r12", wide, {}),
+                ("r12_slice_edge_ties", slice_edge_ties(wide, slice_nodes()),
+                 {"rows": random_rows(rng, N, 5_000, dev)})]
+        for label, inp, kw in variants:
             for mode in ("exact", "quantized"):
                 for has_soft in (True, False):
-                    got = best_nodes(**inp, mode=mode, has_soft=has_soft)
+                    got = best_nodes(**inp, mode=mode, has_soft=has_soft, **kw)
                     torch.cuda.synchronize()
                     ref = best_nodes_reference(**inp, mode=mode,
-                                               has_soft=has_soft)
+                                               has_soft=has_soft, **kw)
                     equal = (bool(torch.equal(got[0], ref[0]))
                              and bool(torch.equal(got[1], ref[1])))
                     err = int((got[0].long() - ref[0].long()).abs().max())
                     cases.append({"case": label, "G": G,
                                   "N": inp["req"].shape[0],
-                                  "M": inp["free"].shape[0], "mode": mode,
+                                  "M": inp["free"].shape[0],
+                                  "R": inp["req"].shape[1], "mode": mode,
                                   "has_soft": has_soft, "equal": equal,
                                   "max_abs_err": err,
                                   "feasible": int(got[1].sum())})
@@ -155,6 +254,7 @@ def phase_kernel(dev):
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
     return {"cases": len(cases), "all_equal": True, "tolerance": 0,
+            "labels": sorted({c["case"] for c in cases}),
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
@@ -226,7 +326,7 @@ def check_placements(batch, enc, res, n, dev):
         raise AssertionError("a padding row was placed")
 
 
-def phase_main(dev, stats):
+def phase_main(dev, stats, clock_hz):
     from yunikorn_tpu_torch.ops import assign, best_nodes as bn_mod
     from yunikorn_tpu_torch.ops.best_nodes import best_nodes
 
@@ -234,8 +334,9 @@ def phase_main(dev, stats):
     captured = []
 
     def spy(*args, **kwargs):
-        if not captured:
-            captured.append(([a.clone() for a in args], dict(kwargs)))
+        captured.append(([a.clone() for a in args],
+                         {k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in kwargs.items()}))
         return best_nodes(*args, **kwargs)
 
     assign.best_nodes = spy
@@ -273,40 +374,94 @@ def phase_main(dev, stats):
     prepare_ms = (time.perf_counter() - t0) * 1e3
     profile = profile_solve(
         lambda: assign.solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW))
+    # what the card runs for the solve's best_nodes calls: each call is a
+    # memset of the row count, then the prep, main and finish kernels
+    pieces = profile_solve(
+        lambda: [best_nodes(*a, **kw) for a, kw in captured])
+    piece_rows = pieces.get("top", [])
+    device_launches = sum(r["count"] for r in piece_rows
+                          if not r["name"].startswith("Memset"))
+    memsets = sum(r["count"] for r in piece_rows
+                  if r["name"].startswith("Memset"))
+
+    # each odd round's call again, at its own inputs: CUDA-event ms and the
+    # corrected bound for the rows it requested
+    odd_rounds = []
+    for k, (args, kwargs) in enumerate(captured):
+        b = best_nodes_bound_ms(args[0], args[1], args[2], args[4],
+                                kwargs.get("has_soft", True), clock_hz,
+                                rows=kwargs.get("rows"))
+        ms = cuda_ms(lambda: best_nodes(*args, **kwargs), 10)
+        odd_rounds.append({"round": 2 * k + 1, "rows": b["rows"], "ms": ms,
+                           "bound_ms": b["bound_ms"], "pairs": b["pairs"],
+                           "fitting_pairs": b["fitting_pairs"]})
+    solve_kernel_ms = sum(r["ms"] for r in odd_rounds)
+    solve_bound_ms = sum(r["bound_ms"] for r in odd_rounds)
 
     args, kwargs = captured[0]
+    full_kwargs = {k: v for k, v in kwargs.items() if k != "rows"}
     kernel_ms = cuda_ms(lambda: best_nodes(*args, **kwargs), 20)
+    full_ms = cuda_ms(lambda: best_nodes(*args, **full_kwargs), 20)
     plain_ms = cuda_ms(lambda: bn_mod.best_nodes_reference(*args, **kwargs), 3)
-    got = best_nodes(*args, **kwargs)
-    ref = bn_mod.best_nodes_reference(*args, **kwargs)
-    err = int((got[0].long() - ref[0].long()).abs().max())
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        raise AssertionError("kernel differs from plain on main-path inputs")
-    bound_ms, bound_by = best_nodes_bound_ms(args[0], args[2],
-                                             kwargs.get("has_soft", True))
+    err = 0
+    for kw in (kwargs, full_kwargs):
+        got = best_nodes(*args, **kw)
+        ref = bn_mod.best_nodes_reference(*args, **kw)
+        err = max(err, int((got[0].long() - ref[0].long()).abs().max()))
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError("kernel differs from plain on main-path "
+                                 "inputs")
+    has_soft = kwargs.get("has_soft", True)
+    masked_b = best_nodes_bound_ms(args[0], args[1], args[2], args[4],
+                                   has_soft, clock_hz, rows=kwargs.get("rows"))
+    full_b = best_nodes_bound_ms(args[0], args[1], args[2], args[4], has_soft,
+                                 clock_hz)
     stats["best_nodes"] = {
         "launches": launches["best_nodes"], "max_abs_err": err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": masked_b["bound_ms"], "bound_by": masked_b["bound_by"],
+        "library_ms": None,
     }
     N, R = args[0].shape
     G, M = args[2].shape
     return {"nodes": MAIN_NODES, "pods": MAIN_PODS, "N": N, "M": M, "G": G,
             "R": R, "rounds": res.rounds, "placed": placed,
             "placed_per_round": per_round,
-            "launches": launches, "encode_ms": encode_ms,
+            "launches": launches,
+            "best_nodes_card_work": {
+                "calls": len(captured), "kernel_launches": device_launches,
+                "memsets": memsets,
+                "device_ms": pieces.get("device_busy_ms"),
+                "share_of_solve_device_busy": (
+                    pieces["device_busy_ms"] / profile["device_busy_ms"]
+                    if "device_busy_ms" in pieces
+                    and profile.get("device_busy_ms") else None),
+                "pieces": piece_rows},
+            "encode_ms": encode_ms,
             "first_solve_ms": first_ms,
             "warm_solve_ms_median": statistics.median(solve_ms),
-            "warm_solve_ms": solve_ms, "kernel_ms_per_launch": kernel_ms,
-            "plain_on_card_ms": plain_ms, "mode": kwargs.get("mode"),
+            "warm_solve_ms": solve_ms, "mode": kwargs.get("mode"),
+            "clock_max_sm_mhz": clock_hz / 1e6,
+            "odd_rounds": odd_rounds,
+            "kernel_ms_per_solve": solve_kernel_ms,
+            "bound_ms_per_solve": solve_bound_ms,
+            "share_per_solve": solve_bound_ms / solve_kernel_ms,
+            "masked": {"rows": masked_b["rows"], "ms": kernel_ms,
+                       "bound_ms": masked_b["bound_ms"],
+                       "share": masked_b["bound_ms"] / kernel_ms},
+            "full": {"rows": full_b["rows"], "ms": full_ms,
+                     "bound_ms": full_b["bound_ms"],
+                     "share": full_b["bound_ms"] / full_ms,
+                     "first_slice_formula_bound_ms": full_b["old_ms"]},
+            "plain_on_card_ms": plain_ms,
             "host_prepare_ms": prepare_ms, "profile": profile}
 
 
 def profile_solve(fn, top: int = 15):
-    """Device time by kernel over one warm solve (torch.profiler), the
-    device-busy sum and the idle share of the profiled wall time. The
-    profiler's own overhead lengthens the wall time; the warm solve times
-    above are taken without it."""
+    """Device time by kernel over one run of fn, such as one warm solve
+    (torch.profiler), the device-busy sum and the idle share of the
+    profiled wall time. The profiler's own overhead lengthens the wall
+    time; the warm solve times above are taken without it."""
     from torch.profiler import ProfilerActivity, profile
 
     try:
@@ -360,7 +515,7 @@ def main() -> int:
     phases = [("build", lambda: phase_build()),
               ("kernel", lambda: phase_kernel(dev)),
               ("cut", lambda: phase_cut(dev)),
-              ("main", lambda: phase_main(dev, stats))]
+              ("main", lambda: phase_main(dev, stats, max_sm_clock_hz()))]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -80,6 +80,49 @@ def test_pressure_workload_bit_identical():
     assert (as_np(got.assigned)[len(asks):] == -1).all()
 
 
+WORKLOADS = {"mixed": lambda pkg: build_mixed(pkg, n_nodes=20, n_pods=100),
+             "pressure": lambda pkg: build_pressure(pkg, 40, 800)}
+
+
+@pytest.mark.parametrize("workload", sorted(WORKLOADS))
+def test_odd_rounds_request_only_unplaced_rows(monkeypatch, workload):
+    """Each odd round asks the best-node computation for exactly the active
+    pods whose water-fill proposal does not fit, and uses nothing of the
+    other rows: spoiling them leaves the solve bit-identical to the JAX
+    package's."""
+    enc_j, batch_j, _ = WORKLOADS[workload]("yunikorn_tpu")
+    enc_t, batch_t, _ = WORKLOADS[workload]("yunikorn_tpu_torch")
+    want = jassign.solve_batch(batch_j, enc_j.nodes)
+    needed, calls = [], []
+    real_proposals, real_best = tassign._water_fill_proposals, tassign.best_nodes
+
+    def proposals_spy(req, group_id, pod_order, active, group_feas, free,
+                      *rest):
+        prop = real_proposals(req, group_id, pod_order, active, group_feas,
+                              free, *rest)
+        M = free.shape[0]
+        real = prop < M
+        fits = real & (free[prop.clamp(0, M - 1)] >= req).all(dim=1)
+        needed.append(active & ~fits)
+        return prop
+
+    def best_spy(*args, rows=None, **kwargs):
+        assert rows is not None and torch.equal(rows, needed[-1])
+        best, feasible = real_best(*args, rows=rows, **kwargs)
+        calls.append(int(rows.sum()))
+        M = args[4].shape[0]
+        junk = torch.arange(rows.shape[0], dtype=torch.int32) % M
+        return (torch.where(rows, best, junk),
+                torch.where(rows, feasible, torch.ones_like(feasible)))
+
+    monkeypatch.setattr(tassign, "_water_fill_proposals", proposals_spy)
+    monkeypatch.setattr(tassign, "best_nodes", best_spy)
+    got = tassign.solve_batch(batch_t, enc_t.nodes, device="cpu")
+    assert_same_result(want, got)
+    assert len(calls) == got.rounds // 2          # one call per odd round
+    assert 0 < max(calls) < int(batch_t.valid.sum())
+
+
 def round_inputs(seed, N=128, M=64, G=4, R=8):
     rng = np.random.default_rng(seed)
     req = rng.integers(1, 60, (N, R)).astype(np.int32)

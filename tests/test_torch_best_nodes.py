@@ -1,7 +1,11 @@
 """The port's best-node computation against the JAX package's two versions:
 the plain `exact` mode bit-equal to the XLA argmax `_best_nodes_chunked`, the
-plain `quantized` mode bit-equal to the Pallas kernel run in interpret mode.
-The CUDA kernel is held against the plain version on the card."""
+plain `quantized` mode bit-equal to the Pallas kernel run in interpret mode,
+with and without a mask of requested rows. The CUDA kernel is held against
+the plain version on the card in test_torch_best_nodes_card.py, which runs
+without JAX."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +41,30 @@ def torch_args(req, gid, feas, soft, free, base, device="cpu"):
             for a in (req, gid, feas, soft, free, base)]
 
 
+@functools.lru_cache(maxsize=None)
+def jax_best(seed, variant, mode):
+    """The JAX package's answer for every row of problem(seed, variant)."""
+    req, gid, feas, soft, free, base = problem(seed, variant)
+    if mode == "exact":
+        out = jax.jit(lambda *a: j_best_nodes_chunked(
+            *a, chunk=128, policy="binpacking"))(
+            req, gid, feas, soft, free, free, base)
+    else:
+        out = pallas_best_nodes(
+            jnp.asarray(req), jnp.asarray(gid), jnp.asarray(feas),
+            jnp.asarray(soft), jnp.asarray(free), jnp.asarray(base),
+            interpret=True, has_soft=True)
+    return np.asarray(out[0]), np.asarray(out[1])
+
+
+def row_mask(kind, n, seed=0):
+    if kind == "empty":
+        return np.zeros(n, bool)
+    if kind == "full":
+        return np.ones(n, bool)
+    return np.random.default_rng(seed).random(n) < 0.3
+
+
 @pytest.mark.parametrize("variant", ["random", "tie", "infeasible"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_exact_matches_xla_argmax(seed, variant):
@@ -67,6 +95,24 @@ def test_quantized_matches_pallas_interpret(variant, has_soft):
     np.testing.assert_array_equal(np.asarray(want_feas), feasible.numpy())
 
 
+@pytest.mark.parametrize("mask", ["empty", "full", "random"])
+@pytest.mark.parametrize("variant", ["random", "tie", "infeasible"])
+@pytest.mark.parametrize("mode", tbn.MODES)
+def test_rows_mask_matches_jax_on_requested_rows(mode, variant, mask):
+    """Requested rows equal the JAX package's answer; the others are 0 and
+    False."""
+    args = torch_args(*problem(8, variant))
+    want_best, want_feas = jax_best(8, variant, mode)
+    rows = row_mask(mask, want_best.shape[0])
+    best, feasible = tbn.best_nodes(*args, mode=mode,
+                                    rows=torch.from_numpy(rows))
+    np.testing.assert_array_equal(np.where(rows, want_best, 0), best.numpy())
+    np.testing.assert_array_equal(rows & want_feas, feasible.numpy())
+    assert best.dtype == torch.int32 and feasible.dtype == torch.bool
+    if variant == "random" and mask != "empty":
+        assert feasible.any()
+
+
 def test_exact_breaks_negative_zero_tie_to_lowest_index():
     """-0.0 and +0.0 tie (argmax compares values): the lower node wins."""
     req = torch.ones((2, 1), dtype=torch.int32)
@@ -90,19 +136,3 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError):
         tbn.best_nodes(*torch_args(req, gid, feas, soft, free, base),
                        mode="approximate")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", tbn.MODES)
-@pytest.mark.parametrize("has_soft", [True, False])
-def test_kernel_matches_plain_on_card(mode, has_soft):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for seed, variant in [(5, "random"), (6, "tie"), (7, "infeasible")]:
-        args = torch_args(*problem(seed, variant), device="cuda")
-        before = tbn.best_nodes.launches
-        got = tbn.best_nodes(*args, mode=mode, has_soft=has_soft)
-        torch.cuda.synchronize()
-        assert tbn.best_nodes.launches == before + 1
-        ref = tbn.best_nodes_reference(*args, mode=mode, has_soft=has_soft)
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

@@ -1,44 +1,104 @@
-// Fused fit + group mask + score + argmax: every pod's best node.
+// Fused fit + group mask + score + argmax: the best node of each requested pod.
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas_kernels.py
 // (`_best_node_kernel` behind `pallas_best_nodes`), on the odd rounds of the
-// assignment solve (ops/assign.py `_solve_rounds`). For each pod i and node j:
+// assignment solve (ops/assign.py `_solve_rounds`). For each requested pod i
+// and node j:
 //
 //   ok(i, j)    = feas[gid[i], j]  AND  free[j, r] >= req[i, r] for every r
 //   score(i, j) = base[j] + soft[gid[i], j]          (soft only if kSoft)
 //   best[i]     = the ok node of highest score, ties to the lowest j
 //   feasible[i] = any ok node; best[i] = 0 when there is none
 //
-// Two modes, chosen at compile time:
-//   exact      bit-equal to the plain argmax (the default solve path): the
-//              key is a uint64 with the order-preserving bits of the f32
-//              score (after -0.0 -> +0.0, as argmax treats them as equal)
-//              high and M-1-j low, so one max picks the best score and, on
-//              ties, the lowest node.
-//   quantized  bit-equal to the Pallas kernel: q = rint(score * 128) packed as
-//              q * index_span + (M - j) in int32 (wrapping), masked nodes at
-//              -2^30, best = M - (packed mod index_span).
+// Pods that are not requested come back as best 0, feasible 0.
 //
-// What bounds it on an H100: at the main-path shape (N = 65,536 pods,
-// M = 16,384 nodes, R = 8) the work is N * M * (2R + 2) ~ 1.9e10 32-bit lane
-// operations (R compares, R ANDs, the score add, the running max) against
-// ~3.5 MB of traffic, so the non-tensor ALU rate bounds it, not memory:
-// ~0.29 ms at the 67 TFLOP/s float32 peak, ~0.001 ms of bytes at 3.35 TB/s.
-// The design keeps every operand of the inner loop on chip:
-// one thread per pod holds its request row in registers and its running best
-// in a register; the block stages a tile of nodes (free rows, base scores and
-// the G group rows of feas/soft) in shared memory, where every thread of a
-// warp reads the same free/base word (a broadcast). No reduction crosses
-// threads or blocks. Later work: skip pods that are already placed, split
-// the node range across blocks with a second pass, warp-level reductions.
+// Two modes, chosen at compile time, both a max over one key per
+// (group, node):
+//   exact      bit-equal to the plain argmax (the default solve path): a
+//              uint64 with the order-preserving bits of the f32 score (after
+//              -0.0 -> +0.0, as argmax treats them as equal) high and M-1-j
+//              low, so one max picks the best score and, on ties, the lowest
+//              node. 0 marks an excluded node: the bits are never 0 for a
+//              non-NaN score.
+//   quantized  bit-equal to the Pallas kernel: q = rint(score * 128) packed as
+//              q * index_span + (M - j) in int32 (wrapping); excluded nodes
+//              and packings at or below -2^30 hold -2^30, which no max picks;
+//              best = M - (packed mod index_span).
+// Keys are unique per node, so the max is the same in any order.
+//
+// What bounds it on an H100: compares. Each (pod, admitted node) pair costs
+// R integer compares, each ANDing the running fit predicate in the same
+// instruction (ISETP takes a predicate input), and each pair that fits one
+// max; the card issues compares, min/max and bitwise ops at 64 results per
+// clock per SM (half its f32 add rate), against ~1 MB of node state that
+// sits in L2.
+// There are no products, so wgmma and the tensor cores have no role.
+// What the design does about it, in three launches:
+//   prep    once per call, over (group, node): folds base, soft and the group
+//           mask into the key (the score add is done G*M times, not N*M) and
+//           into 32-node bit words of admitted nodes per group. Its first N
+//           threads reset the per-row merge slots and compact the caller's
+//           row mask into a row list, counting it in device memory with one
+//           atomicAdd per block: nothing is read back to the host.
+//   main    a grid of (64-node slice, 256-row tile) blocks: thousands of
+//           blocks for the 132 SMs already at ~4,000 rows. Rows are requested
+//           rows only, and their count stays on the device: the grid has at
+//           most 128 row tiles, blocks past the count return at once, and
+//           each block loops over the tiles past the grid. Each
+//           block stages its slice's free rows in shared memory with
+//           cp.async, one commit group per 32-node word, and starts on the
+//           first word while the rest lands; several blocks per SM overlap
+//           one block's copy with the others' compares. A thread owns 2 pods
+//           whose request rows stay in registers, so one 16-byte broadcast
+//           load of a free row serves both; the R compares chain through the
+//           predicate AND. A warp walks only the nodes some pod of the warp
+//           admits: the OR over the warp of its pods' group words (the row
+//           list keeps batch order within blocks of 256, so a warp mostly
+//           holds one app and one group) skips padding columns and excluded
+//           nodes 32 at a time and visits the rest one set bit at a time.
+//           The key is read (from L1/L2) only for a pair that fits. Each
+//           pod's best over the slice merges into its row's slot with one
+//           atomicMax.
+//   finish  decodes each row's slot into (best, feasible).
+// Tried on an H100 at the main path's inputs: 2 pods a thread beat 4 and 8
+// (fewer registers, more warps in flight) at ~4,500 rows and tie at 65,536;
+// 64-node slices beat 128, 256 and 512 at ~4,500 rows (more, shorter
+// blocks) and lose a little to 128 at 65,536; 64 or 256 threads a block,
+// loading all of a slice's group words up front, and sizing the grid from a
+// host-side bound on the requested rows rather than 128 row tiles, changed
+// nothing.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kPodsPerBlock = 128;
+constexpr int kThreads = 128;
+constexpr int kChunks = 2;
 constexpr int kPackedMin = -(1 << 30);
 constexpr float kScoreScale = 128.0f;
+
+template <bool kQuantized>
+struct Key {
+  using T = unsigned long long;
+  static constexpr T kNone = 0ull;
+};
+template <>
+struct Key<true> {
+  using T = int;
+  static constexpr T kNone = kPackedMin;
+};
+
+// Nodes per block slice: kChunks copy stages of one 32-node word each.
+constexpr int kSlice = 32 * kChunks;
+constexpr int kPrepThreads = 256;
+// Row tiles in the main launch's grid; blocks loop over the tiles past it.
+constexpr int kGridRowTiles = 128;
+
+template <int kMaxR>
+__host__ __device__ constexpr int pods_per_thread() {
+  return kMaxR <= 8 ? 2 : 1;
+}
 
 __device__ __forceinline__ uint32_t ordered_bits(float s) {
   s = s + 0.0f;  // -0.0 -> +0.0
@@ -46,142 +106,302 @@ __device__ __forceinline__ uint32_t ordered_bits(float s) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int kMaxR, bool kSoft, bool kQuantized>
-__global__ void __launch_bounds__(kPodsPerBlock)
-best_nodes_kernel(const int32_t* __restrict__ req,
-                  const int32_t* __restrict__ group_id,
-                  const uint8_t* __restrict__ feas,
-                  const float* __restrict__ soft,
-                  const int32_t* __restrict__ free_,
-                  const float* __restrict__ base,
-                  int n_pods, int n_nodes, int n_groups, int n_res, int tile,
-                  int index_span,
-                  int32_t* __restrict__ best_out,
-                  uint8_t* __restrict__ feasible_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* s_free = reinterpret_cast<int32_t*>(smem);             // [tile, R]
-  float* s_base = reinterpret_cast<float*>(s_free + tile * n_res);  // [tile]
-  float* s_soft = s_base + tile;                                    // [G, tile]
-  uint8_t* s_feas = reinterpret_cast<uint8_t*>(
-      s_soft + (kSoft ? n_groups * tile : 0));                      // [G, tile]
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
 
-  const int pod = blockIdx.x * kPodsPerBlock + threadIdx.x;
-  const bool live = pod < n_pods;
-  int g = live ? group_id[pod] : 0;
-  g = min(max(g, 0), n_groups - 1);  // a gather clamps, as XLA's does
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
 
-  int32_t rq[kMaxR];
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    rq[r] = (live && r < n_res) ? req[(size_t)pod * n_res + r] : 0;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  uint64_t best_key = 0;
-  bool found = false;
-  int32_t best_packed = kPackedMin;
-
-  for (int t0 = 0; t0 < n_nodes; t0 += tile) {
-    const int tn = min(tile, n_nodes - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < tn * n_res; i += kPodsPerBlock) {
-      s_free[i] = free_[(size_t)t0 * n_res + i];
-    }
-    for (int i = threadIdx.x; i < tn; i += kPodsPerBlock) {
-      s_base[i] = base[t0 + i];
-    }
-    for (int i = threadIdx.x; i < n_groups * tn; i += kPodsPerBlock) {
-      const int gg = i / tn;
-      const int j = i - gg * tn;
-      const size_t src = (size_t)gg * n_nodes + t0 + j;
-      s_feas[gg * tile + j] = feas[src];
-      if (kSoft) s_soft[gg * tile + j] = soft[src];
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    const uint8_t* f_row = s_feas + g * tile;
-    const float* so_row = s_soft + g * tile;
-    for (int j = 0; j < tn; ++j) {
-      bool ok = f_row[j] != 0;
-      const int32_t* fr = s_free + j * n_res;
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) {
-        if (r < n_res) ok = ok && (fr[r] >= rq[r]);
-      }
-      if (!ok) continue;
-      const float s = kSoft ? s_base[j] + so_row[j] : s_base[j];
-      const int col = t0 + j;
-      if (kQuantized) {
-        const int32_t q = (int32_t)rintf(s * kScoreScale);
-        const int32_t packed = (int32_t)((uint32_t)q * (uint32_t)index_span +
-                                         (uint32_t)(n_nodes - col));
-        best_packed = max(best_packed, packed);
-      } else {
-        const uint64_t key = ((uint64_t)ordered_bits(s) << 32) |
-                             (uint64_t)(uint32_t)(n_nodes - 1 - col);
-        if (!found || key > best_key) {
-          best_key = key;
-          found = true;
-        }
-      }
-    }
-  }
-  if (!live) return;
-  if (kQuantized) {
-    const bool feasible = best_packed > kPackedMin;
-    const int32_t frac = best_packed & (index_span - 1);
-    best_out[pod] = feasible ? n_nodes - frac : 0;
-    feasible_out[pod] = feasible ? 1 : 0;
-  } else {
-    best_out[pod] =
-        found ? n_nodes - 1 - (int32_t)(uint32_t)(best_key & 0xffffffffu) : 0;
-    feasible_out[pod] = found ? 1 : 0;
+// wait until at most n of this thread's commit groups are still in flight
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
   }
 }
 
-template <int kMaxR, bool kSoft, bool kQuantized>
-cudaError_t launch(const void* req, const void* group_id, const void* feas,
-                   const void* soft, const void* free_, const void* base,
-                   int n_pods, int n_nodes, int n_groups, int n_res, int tile,
-                   int index_span, void* best, void* feasible,
-                   cudaStream_t stream) {
-  auto kernel = best_nodes_kernel<kMaxR, kSoft, kQuantized>;
-  const size_t smem = (size_t)tile * n_res * 4 + (size_t)tile * 4 +
-                      (kSoft ? (size_t)n_groups * tile * 4 : 0) +
-                      (size_t)n_groups * tile;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+// One thread per (group, padded node): keys [G, 32W], words [G, W]. The
+// first n_rows threads also reset the merge slots and, given a row mask,
+// append their row to the compacted list: one atomicAdd on the count per
+// block, so rows keep their order inside each block of 256.
+template <bool kSoft, bool kQuantized>
+__global__ void __launch_bounds__(kPrepThreads)
+prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
+            const float* __restrict__ base, const uint8_t* __restrict__ mask,
+            int n_nodes, int n_groups, int n_words, int index_span,
+            int n_rows, typename Key<kQuantized>::T* keys, uint32_t* words,
+            typename Key<kQuantized>::T* row_best, int32_t* row_list,
+            int32_t* row_count) {
+  using K = Key<kQuantized>;
+  using T = typename K::T;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n_rows) row_best[t] = K::kNone;
+  if (mask != nullptr && (int)(blockIdx.x * blockDim.x) < n_rows) {
+    __shared__ int s_warp[kPrepThreads / 32];
+    __shared__ int s_base;
+    const bool want = t < n_rows && mask[t];
+    const unsigned ballot = __ballot_sync(0xffffffffu, want);
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int total = 0;
+      for (int w = 0; w < kPrepThreads / 32; ++w) {
+        const int c = s_warp[w];
+        s_warp[w] = total;
+        total += c;
+      }
+      s_base = atomicAdd(row_count, total);
+    }
+    __syncthreads();
+    if (want) {
+      row_list[s_base + s_warp[warp] + __popc(ballot & ((1u << lane) - 1u))] =
+          t;
+    }
   }
-  const int blocks = (n_pods + kPodsPerBlock - 1) / kPodsPerBlock;
-  kernel<<<blocks, kPodsPerBlock, smem, stream>>>(
-      static_cast<const int32_t*>(req), static_cast<const int32_t*>(group_id),
-      static_cast<const uint8_t*>(feas), static_cast<const float*>(soft),
-      static_cast<const int32_t*>(free_), static_cast<const float*>(base),
-      n_pods, n_nodes, n_groups, n_res, tile, index_span,
-      static_cast<int32_t*>(best), static_cast<uint8_t*>(feasible));
+  const int padded = n_words * 32;
+  // padded is a multiple of 32, so this exit is uniform over each warp
+  if (t >= n_groups * padded) return;
+  const int g = t / padded;
+  const int j = t - g * padded;
+  T key = K::kNone;
+  if (j < n_nodes && feas[(size_t)g * n_nodes + j]) {
+    const float s = kSoft ? base[j] + soft[(size_t)g * n_nodes + j] : base[j];
+    if constexpr (kQuantized) {
+      const int32_t q = (int32_t)rintf(s * kScoreScale);
+      const int32_t packed = (int32_t)((uint32_t)q * (uint32_t)index_span +
+                                       (uint32_t)(n_nodes - j));
+      key = max(packed, kPackedMin);
+    } else {
+      key = ((T)ordered_bits(s) << 32) | (T)(uint32_t)(n_nodes - 1 - j);
+    }
+  }
+  keys[t] = key;
+  const unsigned bits = __ballot_sync(0xffffffffu, key > K::kNone);
+  if ((t & 31) == 0) words[t >> 5] = bits;
+}
+
+template <int kMaxR, bool kQuantized>
+__global__ void __launch_bounds__(kThreads)
+best_nodes_kernel(const int32_t* __restrict__ req,
+                  const int32_t* __restrict__ group_id,
+                  const int32_t* __restrict__ free_,
+                  const typename Key<kQuantized>::T* __restrict__ keys,
+                  const uint32_t* __restrict__ words,
+                  const int32_t* __restrict__ rows,
+                  const int32_t* __restrict__ row_count, int n_rows,
+                  int n_nodes, int n_groups, int n_res, int n_words,
+                  typename Key<kQuantized>::T* __restrict__ row_best) {
+  using K = Key<kQuantized>;
+  using T = typename K::T;
+  constexpr int kPods = pods_per_thread<kMaxR>();
+  constexpr int kRowsPerTile = kThreads * kPods;
+  extern __shared__ __align__(16) int32_t s_free[];  // [kSlice, res4]
+
+  const int count = row_count ? min(*row_count, n_rows) : n_rows;
+  if ((int)blockIdx.y * kRowsPerTile >= count) return;  // uniform
+  const int res4 = (n_res + 3) & ~3;
+  const int s0 = blockIdx.x * kSlice;
+  const int sn = min(kSlice, n_nodes - s0);
+  const int padded = n_words * 32;
+  const bool vec =
+      (n_res & 3) == 0 && (reinterpret_cast<uintptr_t>(free_) & 15) == 0;
+
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int j0 = c * 32;
+    const int jn = max(0, min(32, sn - j0));
+    const int32_t* src = free_ + (size_t)(s0 + j0) * n_res;
+    int32_t* dst = s_free + j0 * res4;
+    if (vec) {  // res4 == n_res: rows are contiguous in both places
+      for (int i = threadIdx.x * 4; i < jn * n_res; i += kThreads * 4) {
+        cp_async16(dst + i, src + i);
+      }
+    } else {
+      for (int i = threadIdx.x; i < jn * res4; i += kThreads) {
+        const int j = i / res4;
+        const int r = i - j * res4;
+        if (r < n_res) {
+          cp_async4(dst + i, src + (size_t)j * n_res + r);
+        } else {
+          dst[i] = INT_MAX;  // padding columns fit every request (req 0)
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  const int n_tiles = (count + kRowsPerTile - 1) / kRowsPerTile;
+  const int w_base = blockIdx.x * kChunks;
+  bool staged = false;
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    int row[kPods], w_off[kPods], k_off[kPods];
+    int32_t rq[kPods][kMaxR];
+    T best[kPods];
+#pragma unroll
+    for (int p = 0; p < kPods; ++p) {
+      const int i = tile * kRowsPerTile + p * kThreads + threadIdx.x;
+      row[p] = i < count ? (rows ? rows[i] : i) : -1;
+      int g = row[p] >= 0 ? group_id[row[p]] : 0;
+      g = min(max(g, 0), n_groups - 1);  // a gather clamps, as XLA's does
+      w_off[p] = g * n_words;
+      k_off[p] = g * padded + s0;
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        rq[p][r] = (row[p] >= 0 && r < n_res)
+                       ? req[(size_t)row[p] * n_res + r] : 0;
+      }
+      best[p] = K::kNone;
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (!staged) {  // the first tile waits for each word's rows in turn
+        cp_async_wait_pending(kChunks - 1 - c);
+        __syncthreads();
+      }
+      const int gw = w_base + c;
+      uint32_t m[kPods];
+      uint32_t any = 0;
+#pragma unroll
+      for (int p = 0; p < kPods; ++p) {
+        m[p] = (row[p] >= 0 && gw < n_words) ? __ldg(words + w_off[p] + gw)
+                                             : 0u;
+        any |= m[p];
+      }
+      uint32_t todo = __reduce_or_sync(0xffffffffu, any);
+      while (todo) {
+        const int b = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int j = c * 32 + b;
+        const int32_t* fr = s_free + j * res4;
+        bool ok[kPods];
+#pragma unroll
+        for (int p = 0; p < kPods; ++p) ok[p] = (m[p] >> b) & 1u;
+#pragma unroll
+        for (int r = 0; r < kMaxR; r += 4) {
+          if (r < res4) {
+            const int4 f = *reinterpret_cast<const int4*>(fr + r);
+#pragma unroll
+            for (int p = 0; p < kPods; ++p) {
+              ok[p] = ok[p] & (f.x >= rq[p][r]) & (f.y >= rq[p][r + 1]) &
+                      (f.z >= rq[p][r + 2]) & (f.w >= rq[p][r + 3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < kPods; ++p) {
+          if (ok[p]) {
+            const T k = __ldg(keys + k_off[p] + j);
+            if (k > best[p]) best[p] = k;
+          }
+        }
+      }
+    }
+    staged = true;
+#pragma unroll
+    for (int p = 0; p < kPods; ++p) {
+      if (row[p] >= 0 && best[p] != K::kNone) {
+        atomicMax(row_best + row[p], best[p]);
+      }
+    }
+  }
+}
+
+template <bool kQuantized>
+__global__ void finish_kernel(const typename Key<kQuantized>::T* row_best,
+                              int n_rows, int n_nodes, int index_span,
+                              int32_t* __restrict__ best,
+                              uint8_t* __restrict__ feasible) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rows) return;
+  const auto k = row_best[i];
+  bool found;
+  int32_t b;
+  if constexpr (kQuantized) {
+    found = k > kPackedMin;
+    b = n_nodes - (k & (index_span - 1));
+  } else {
+    found = k != 0ull;
+    b = n_nodes - 1 - (int32_t)(uint32_t)(k & 0xffffffffull);
+  }
+  best[i] = found ? b : 0;
+  feasible[i] = found ? 1 : 0;
+}
+
+struct Args {
+  const void *req, *group_id, *feas, *soft, *free_, *base, *mask;
+  int n_rows, n_nodes, n_groups, n_res, index_span;
+  void *keys, *words, *row_best, *row_list, *row_count, *best, *feasible;
+};
+
+template <int kMaxR, bool kSoft, bool kQuantized>
+cudaError_t run(const Args& a, cudaStream_t stream) {
+  using T = typename Key<kQuantized>::T;
+  constexpr int kRowsPerTile = kThreads * pods_per_thread<kMaxR>();
+  const int n_words = (a.n_nodes + 31) / 32;
+  const int prep_threads = a.n_groups * n_words * 32 > a.n_rows
+                               ? a.n_groups * n_words * 32 : a.n_rows;
+  cudaError_t err;
+  if (a.mask != nullptr &&
+      (err = cudaMemsetAsync(a.row_count, 0, sizeof(int32_t), stream)) !=
+          cudaSuccess) {
+    return err;
+  }
+  prep_kernel<kSoft, kQuantized>
+      <<<(prep_threads + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0,
+         stream>>>(
+          static_cast<const uint8_t*>(a.feas),
+          static_cast<const float*>(a.soft), static_cast<const float*>(a.base),
+          static_cast<const uint8_t*>(a.mask), a.n_nodes, a.n_groups, n_words,
+          a.index_span, a.n_rows, static_cast<T*>(a.keys),
+          static_cast<uint32_t*>(a.words), static_cast<T*>(a.row_best),
+          static_cast<int32_t*>(a.row_list),
+          static_cast<int32_t*>(a.row_count));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (a.n_nodes > 0) {
+    const int res4 = (a.n_res + 3) & ~3;
+    int tiles = (a.n_rows + kRowsPerTile - 1) / kRowsPerTile;
+    tiles = tiles > kGridRowTiles ? kGridRowTiles : tiles;
+    const dim3 grid((a.n_nodes + kSlice - 1) / kSlice, tiles);
+    const size_t smem = (size_t)kSlice * res4 * sizeof(int32_t);
+    const bool masked = a.mask != nullptr;
+    best_nodes_kernel<kMaxR, kQuantized><<<grid, kThreads, smem, stream>>>(
+        static_cast<const int32_t*>(a.req),
+        static_cast<const int32_t*>(a.group_id),
+        static_cast<const int32_t*>(a.free_), static_cast<const T*>(a.keys),
+        static_cast<const uint32_t*>(a.words),
+        masked ? static_cast<const int32_t*>(a.row_list) : nullptr,
+        masked ? static_cast<const int32_t*>(a.row_count) : nullptr,
+        a.n_rows, a.n_nodes, a.n_groups, a.n_res, n_words,
+        static_cast<T*>(a.row_best));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  finish_kernel<kQuantized><<<(a.n_rows + 255) / 256, 256, 0, stream>>>(
+      static_cast<const T*>(a.row_best), a.n_rows, a.n_nodes, a.index_span,
+      static_cast<int32_t*>(a.best), static_cast<uint8_t*>(a.feasible));
   return cudaGetLastError();
 }
 
 template <int kMaxR>
-cudaError_t dispatch(int has_soft, int quantized, const void* req,
-                     const void* group_id, const void* feas, const void* soft,
-                     const void* free_, const void* base, int n_pods,
-                     int n_nodes, int n_groups, int n_res, int tile,
-                     int index_span, void* best, void* feasible,
-                     cudaStream_t stream) {
-#define YK_LAUNCH(S, Q)                                                      \
-  return launch<kMaxR, S, Q>(req, group_id, feas, soft, free_, base, n_pods, \
-                             n_nodes, n_groups, n_res, tile, index_span,    \
-                             best, feasible, stream)
+cudaError_t dispatch(int has_soft, int quantized, const Args& a,
+                     cudaStream_t s) {
   if (has_soft) {
-    if (quantized) YK_LAUNCH(true, true);
-    YK_LAUNCH(true, false);
+    return quantized ? run<kMaxR, true, true>(a, s)
+                     : run<kMaxR, true, false>(a, s);
   }
-  if (quantized) YK_LAUNCH(false, true);
-  YK_LAUNCH(false, false);
-#undef YK_LAUNCH
+  return quantized ? run<kMaxR, false, true>(a, s)
+                   : run<kMaxR, false, false>(a, s);
 }
 
 }  // namespace
@@ -191,22 +411,30 @@ extern "C" {
 // Widest request row the kernel keeps in registers.
 int yk_best_nodes_max_res() { return 64; }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Nodes per block slice: the node range splits across blocks at multiples
+// of this.
+int yk_best_nodes_slice_nodes() { return kSlice; }
+
+// mask: [n_rows] bool of the rows to compute (nullptr = every row).
+// keys [G, 32 * ceil(M / 32)]
+// and row_best [n_rows] are int64 (exact) or int32 (quantized) scratch,
+// words [G, ceil(M / 32)] uint32, row_list [n_rows] and row_count [1] int32.
+// Returns the first CUDA error of the launches (0 = launched).
 int yk_best_nodes(const void* req, const void* group_id, const void* feas,
                   const void* soft, const void* free_, const void* base,
-                  int n_pods, int n_nodes, int n_groups, int n_res, int tile,
-                  int has_soft, int quantized, int index_span, void* best,
+                  const void* mask, int n_rows, int n_nodes,
+                  int n_groups, int n_res, int has_soft, int quantized,
+                  int index_span, void* keys, void* words, void* row_best,
+                  void* row_list, void* row_count, void* best,
                   void* feasible, void* stream) {
-  if (n_pods <= 0) return 0;
+  if (n_rows <= 0) return 0;
+  const Args a{req,      group_id, feas,       soft,     free_,
+               base,     mask,     n_rows,     n_nodes,  n_groups,
+               n_res,    index_span, keys,     words,    row_best,
+               row_list, row_count, best,      feasible};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_res <= 8) {
-    return (int)dispatch<8>(has_soft, quantized, req, group_id, feas, soft,
-                            free_, base, n_pods, n_nodes, n_groups, n_res,
-                            tile, index_span, best, feasible, s);
-  }
-  return (int)dispatch<64>(has_soft, quantized, req, group_id, feas, soft,
-                           free_, base, n_pods, n_nodes, n_groups, n_res, tile,
-                           index_span, best, feasible, s);
+  if (n_res <= 8) return (int)dispatch<8>(has_soft, quantized, a, s);
+  return (int)dispatch<64>(has_soft, quantized, a, s);
 }
 
 const char* yk_cuda_error_string(int code) {

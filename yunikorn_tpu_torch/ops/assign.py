@@ -14,6 +14,9 @@ PyTorch): all pending pods are assigned in a few data-parallel rounds.
   terminate when a round accepts nothing twice in a row, everyone is
   assigned, or max_rounds.
 
+The odd rounds ask the best-node kernel only for the active pods whose
+proposal does not fit: the result of every other row is discarded.
+
 Resources are int32 device units. Prefix sums run in int64, which equals the
 reference's wrapping int32 prefix as long as one node segment's sum stays
 below 2^31 (the same bound the reference states). The round loop is a Python
@@ -264,7 +267,8 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                 best, feasible = best_nodes(
                     req, group_id, group_feas, group_soft, cur_free,
                     base_scores, mode=mode,
-                    has_soft=pallas_soft or not use_pallas, chunk=chunk)
+                    has_soft=pallas_soft or not use_pallas, chunk=chunk,
+                    rows=active & ~prop_fits)
             merged = torch.where(prop_fits, proposals, best.long())
             cand = active & (feasible | prop_fits)
         else:

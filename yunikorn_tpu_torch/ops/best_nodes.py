@@ -15,10 +15,15 @@ Modes (a static choice, as the two solve paths of the JAX package are):
 
 has_soft=False leaves the [G, M] soft matrix out (the kernel takes no soft
 pointer); the solve selects it only when the soft matrix is all zeros.
+
+rows, a [N] bool mask, restricts the work to the rows the caller needs
+(the solve's odd rounds pass the active pods whose proposal does not fit);
+the other rows come back as best 0, feasible False on both devices.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,8 +34,6 @@ SCORE_SCALE = 128.0
 PACKED_MIN = -(1 << 30)
 MODES = ("exact", "quantized")
 _POD_CHUNK = 512
-_SMEM_BUDGET = 48 * 1024
-_MAX_NODE_TILE = 256
 
 
 def index_span(m: int) -> int:
@@ -42,11 +45,21 @@ def index_span(m: int) -> int:
 
 def best_nodes_reference(req, group_id, group_feas, group_soft, free,
                          base_scores, *, mode: str = "exact",
-                         has_soft: bool = True, chunk: int = _POD_CHUNK):
+                         has_soft: bool = True, chunk: int = _POD_CHUNK,
+                         rows: Optional[torch.Tensor] = None):
     """Plain PyTorch version of both modes, chunked over pods so no [N, M]
     tensor is built. Returns (best [N] int32, feasible [N] bool)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    if rows is not None:
+        # the requested rows at their places, 0 / False elsewhere
+        best = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
+        feasible = torch.zeros(rows.shape, dtype=torch.bool,
+                               device=rows.device)
+        best[rows], feasible[rows] = best_nodes_reference(
+            req[rows], group_id[rows], group_feas, group_soft, free,
+            base_scores, mode=mode, has_soft=has_soft, chunk=chunk)
+        return best, feasible
     N, R = req.shape
     M = free.shape[0]
     span = index_span(M)
@@ -100,45 +113,48 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def node_tile(n_nodes: int, n_groups: int, n_res: int, has_soft: bool) -> int:
-    """Nodes staged per shared-memory tile: as many as fit the 48 KB a block
-    gets without opting in, at most 256."""
-    per_node = 4 * n_res + 4 + n_groups * (5 if has_soft else 1)
-    return max(1, min(_MAX_NODE_TILE, _SMEM_BUDGET // per_node,
-                      max(n_nodes, 1)))
-
-
 def _library():
     lib = torchtools.load_library("best_nodes")
     if not getattr(lib, "_yk_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                      i, p, p, p]
+        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                      i, p, p, p, p, p, p, p, p]
         lib.yk_best_nodes.restype = i
         lib.yk_best_nodes_max_res.restype = i
+        lib.yk_best_nodes_slice_nodes.restype = i
         lib.yk_cuda_error_string.argtypes = [i]
         lib.yk_cuda_error_string.restype = ctypes.c_char_p
         lib._yk_typed = True
     return lib
 
 
+def slice_nodes() -> int:
+    """Nodes per block slice of the kernel: it splits the node range across
+    blocks at multiples of this."""
+    return _library().yk_best_nodes_slice_nodes()
+
+
 def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
                mode: str = "exact", has_soft: bool = True,
-               chunk: int = _POD_CHUNK):
+               chunk: int = _POD_CHUNK, rows: Optional[torch.Tensor] = None):
     """Best node per pod. Shapes: req [N, R] int32, group_id [N] int32,
     group_feas [G, M] bool, group_soft [G, M] float32 (ignored when
-    has_soft=False), free [M, R] int32, base_scores [M] float32.
+    has_soft=False), free [M, R] int32, base_scores [M] float32; rows
+    (optional) [N] bool, the rows to compute (the kernel counts them on the
+    device: nothing is read back).
 
     Returns (best [N] int32, feasible [N] bool), best = 0 where no node is
-    feasible. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (and add one to `best_nodes.launches`)."""
+    feasible or the row was not requested. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and add one to
+    `best_nodes.launches`)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     device = req.device
     if device.type == "cpu":
         return best_nodes_reference(req, group_id, group_feas, group_soft,
                                     free, base_scores, mode=mode,
-                                    has_soft=has_soft, chunk=chunk)
+                                    has_soft=has_soft, chunk=chunk,
+                                    rows=rows)
     if device.type != "cuda":
         raise ValueError(f"best_nodes runs on cuda or cpu tensors, not "
                          f"{device.type}")
@@ -151,6 +167,8 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
         _check("group_soft", group_soft, torch.float32, (G, M), device)
     _check("free", free, torch.int32, (M, R), device)
     _check("base_scores", base_scores, torch.float32, (M,), device)
+    if rows is not None:
+        _check("rows", rows, torch.bool, (N,), device)
     if G < 1:
         raise ValueError("group_feas needs at least one group row")
     lib = _library()
@@ -160,13 +178,27 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
                          f"got {R}")
     best = torch.empty((N,), dtype=torch.int32, device=device)
     feasible = torch.empty((N,), dtype=torch.bool, device=device)
-    tile = node_tile(M, G, R, has_soft)
+    if N == 0:
+        return best, feasible
+    key_dtype = torch.int32 if mode == "quantized" else torch.int64
+    n_words = (M + 31) // 32
+    keys = torch.empty((G, n_words * 32), dtype=key_dtype, device=device)
+    words = torch.empty((G, n_words), dtype=torch.int32, device=device)
+    row_best = torch.empty((N,), dtype=key_dtype, device=device)
+    # the kernel compacts the requested rows into row_list, counting them in
+    # row_count, on the device: nothing is read back to the host
+    row_list = torch.empty((N if rows is not None else 0,),
+                           dtype=torch.int32, device=device)
+    row_count = torch.empty((1,), dtype=torch.int32, device=device)
     rc = lib.yk_best_nodes(
         req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
         group_soft.data_ptr() if has_soft else None, free.data_ptr(),
-        base_scores.data_ptr(), N, M, G, R, tile, int(has_soft),
-        int(mode == "quantized"), index_span(M), best.data_ptr(),
-        feasible.data_ptr(), torchtools.current_stream_handle(device))
+        base_scores.data_ptr(), None if rows is None else rows.data_ptr(),
+        N, M, G, R, int(has_soft), int(mode == "quantized"),
+        index_span(M), keys.data_ptr(), words.data_ptr(),
+        row_best.data_ptr(), row_list.data_ptr(), row_count.data_ptr(),
+        best.data_ptr(), feasible.data_ptr(),
+        torchtools.current_stream_handle(device))
     if rc != 0:
         raise RuntimeError("best_nodes kernel launch failed: "
                            + lib.yk_cuda_error_string(rc).decode())
