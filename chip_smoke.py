@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port of the scheduler's batched assignment solve on
-one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port of the scheduler on one NVIDIA GPU and check
+it: the batched assignment solve and its kernel, then the core scheduling
+cycle around them.
 
     python3 chip_smoke.py
 
@@ -28,6 +29,20 @@ phase fails, and when no CUDA device is present):
           device profile of one solve, and one of the solve's best_nodes
           calls (each call runs a memset and three kernels: prep, main,
           finish)
+  core    the port's CoreScheduler on `cuda`, the scheduling cycle users
+          call (quota gate, rank, encode, solve, commit), in three parts:
+          bench.py's core-cycle shape (10,000 kwok nodes x 50,000 sleep pods
+          in 5 queues: a 512-pod warm-up cycle, a release, a cold 50,000-pod
+          cycle, a release, a warm one; all 50,000 placed in each, every
+          solve on the ladder's device tier, pods/s, the cold first cycle,
+          the warm cycle's stage split and its kernel launches); the
+          pressure mix through the core (10,000 x 50,000, one cycle:
+          best_nodes launched, no node oversubscribed, every binding
+          satisfying its pod's selector and taints, placements equal to a
+          direct solve_batch on the batch the core encoded); and at the cut
+          (2,000 x 10,000, the pressure mix) one cycle on `cuda` and one on
+          `cpu` binding identically by pod name, with the JAX package's
+          core's placed count
   kernels one line per kernel: launches (the wrapper's count of calls in
           the main path's run), error against the plain version, kernel /
           plain / bound milliseconds (at the first odd round's inputs, as
@@ -66,6 +81,9 @@ CUT_NODES, CUT_PODS = 2_000, 10_000
 # the JAX package's result on the same workloads (rounds, pods placed)
 EXPECTED = {(MAIN_NODES, MAIN_PODS): (16, 45_977),
             (CUT_NODES, CUT_PODS): (16, 9_455)}
+# pods placed by the JAX package's CoreScheduler (CPU) in one cycle of the
+# pressure mix at the cut, driven as phase_core drives the port's
+EXPECTED_CORE_CUT = 9_455
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -457,6 +475,287 @@ def phase_main(dev, stats, clock_hz):
             "host_prepare_ms": prepare_ms, "profile": profile}
 
 
+class NullCallback:
+    """The core's ResourceManagerCallback as bench.py's core cycle uses it:
+    it keeps the placements (allocation key -> node) and counts the rest."""
+
+    def __init__(self):
+        self.bound = {}
+        self.skipped = 0
+
+    def update_allocation(self, response):
+        for a in response.new:
+            self.bound[a.allocation_key] = a.node_id
+        for r in response.released:
+            self.bound.pop(r.allocation_key, None)
+
+    def update_application(self, response):
+        pass
+
+    def update_node(self, response):
+        pass
+
+    def predicates(self, args):
+        return None
+
+    def preemption_predicates(self, args):
+        return None
+
+    def send_event(self, events):
+        pass
+
+    def update_container_scheduling_state(self, request):
+        self.skipped += 1
+
+    def get_state_dump(self):
+        return "{}"
+
+
+def make_core(device, nodes, apps):
+    """A port CoreScheduler on `device` with `nodes` registered in its cache
+    and at the core, and `apps` as (app id, queue) on dynamic queues (no
+    queues.yaml, as bench.py's core cycle)."""
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.common import si
+    from yunikorn_tpu_torch.core.scheduler import CoreScheduler
+
+    cache = SchedulerCache()
+    core = CoreScheduler(cache, device=device)
+    cb = NullCallback()
+    core.register_resource_manager(si.RegisterResourceManagerRequest(
+        rm_id="smoke", policy_group="queues"), cb)
+    infos = []
+    for n in nodes:
+        cache.update_node(n)
+        infos.append(si.NodeInfo(node_id=n.name, action=si.NodeAction.CREATE))
+    core.update_node(si.NodeRequest(nodes=infos))
+    for app_id, queue in apps:
+        core.update_application(si.ApplicationRequest(new=[
+            si.AddApplicationRequest(application_id=app_id, queue_name=queue,
+                                     user=si.UserGroupInfo(user="smoke"))]))
+    return cache, core, cb
+
+
+def asks_of(pods):
+    from yunikorn_tpu_torch.common.resource import get_pod_resource
+    from yunikorn_tpu_torch.common.si import AllocationAsk
+
+    return [AllocationAsk(p.uid, p.metadata.labels["applicationId"],
+                          get_pod_resource(p), pod=p) for p in pods]
+
+
+def core_cycle(core, asks):
+    """Submit asks and run one schedule_once: (placed, host seconds)."""
+    from yunikorn_tpu_torch.common.si import AllocationRequest
+
+    core.update_allocation(AllocationRequest(asks=list(asks)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = core.schedule_once()
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - t0
+
+
+def release_all(core, asks):
+    from yunikorn_tpu_torch.common.si import (AllocationRelease,
+                                              AllocationRequest,
+                                              TerminationType)
+
+    core.update_allocation(AllocationRequest(releases=[
+        AllocationRelease(a.application_id, a.allocation_key,
+                          TerminationType.STOPPED_BY_RM) for a in asks]))
+    core.schedule_once()
+
+
+def check_tiers(core, where):
+    """Every assign solve of the core served by its device tier, no cycle
+    failed and the solve's circuit closed."""
+    m = core.metrics
+    tiers = m.get("solve_tier_total") or {}
+    if set(tiers) != {"tier=device"}:
+        raise AssertionError(f"{where}: solves served by tiers {tiers}")
+    if m.get("scheduling_cycle_failures_total"):
+        raise AssertionError(f"{where}: failed cycles "
+                             f"{m['scheduling_cycle_failures_total']}")
+    circuits = core.supervisor.snapshot()["assign"]["circuits"]
+    if circuits != {"device": {"state": "closed", "failures": 0}}:
+        raise AssertionError(f"{where}: assign circuits {circuits}")
+    return int(sum(tiers.values()))
+
+
+def cycle_split(core):
+    entry = dict(core.metrics["last_cycle"]["default"])
+    return {k: entry.get(k) for k in (
+        "pods", "gate_ms", "gate_rank_ms", "gate_admit_ms", "encode_ms",
+        "solve_ms", "commit_ms", "post_ms", "total_ms", "pipelined",
+        "solve_tier", "gate_path")}
+
+
+def core_bench_shape(dev):
+    """bench.py's core cycle (bench.py:806-859) on the port's core."""
+    from yunikorn_tpu_torch.client.synthetic import (make_kwok_nodes,
+                                                     make_sleep_pods)
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    queues = [(f"bench-app-{q}", f"root.q{q}") for q in range(5)]
+    _, core, _ = make_core(dev, make_kwok_nodes(MAIN_NODES), queues)
+    pods = []
+    for app, queue in queues:
+        pods += make_sleep_pods(MAIN_PODS // 5, app, queue=queue,
+                                name_prefix=queue.split(".")[-1])
+    asks = asks_of(pods)
+    n_warmup, warmup_s = core_cycle(core, asks[:512])
+    warmup_split = cycle_split(core)
+    release_all(core, asks[:512])
+    n_cold, cold_s = core_cycle(core, asks)
+    cold_split = cycle_split(core)
+    release_all(core, asks)
+    before = best_nodes.launches
+    n_warm, warm_s = core_cycle(core, asks)
+    warm_launches = best_nodes.launches - before
+    split = cycle_split(core)
+    if (n_warmup, n_cold, n_warm) != (512, MAIN_PODS, MAIN_PODS):
+        raise AssertionError(f"placed {(n_warmup, n_cold, n_warm)}, expected "
+                             f"(512, {MAIN_PODS}, {MAIN_PODS})")
+    # one more warm cycle under torch.profiler: the device's busy time and
+    # idle share over a whole cycle (the profiler lengthens the host side)
+    from yunikorn_tpu_torch.common.si import AllocationRequest
+
+    release_all(core, asks)
+    core.update_allocation(AllocationRequest(asks=list(asks)))
+    profile = profile_solve(core.schedule_once, top=8)
+    solves = check_tiers(core, "core-cycle shape")
+    return {"nodes": MAIN_NODES, "pods": MAIN_PODS,
+            "placed": {"warmup": n_warmup, "cold": n_cold, "warm": n_warm},
+            "pods_per_s": n_warm / warm_s, "warm_cycle_ms": warm_s * 1e3,
+            "cold_cycle_ms": cold_s * 1e3, "warmup_cycle_ms": warmup_s * 1e3,
+            "cold_first_cycle_ms": core.metrics.get("cold_first_cycle_ms"),
+            "warm_split": split, "cold_split": cold_split,
+            "warmup_split": warmup_split, "solves": solves, "tiers": "device",
+            "degradations": 0, "warm_best_nodes_launches": warm_launches,
+            "profiled_warm_cycle": profile}
+
+
+def check_bindings(cache, bound, asks):
+    """No node oversubscribed (the bound requests on each node fit its
+    allocatable) and every binding satisfies its pod's node selector and
+    hard taints."""
+    from yunikorn_tpu_torch.common.resource import Resource
+    from yunikorn_tpu_torch.ops.host_predicates import (node_selector_matches,
+                                                        tolerates_node_taints)
+
+    by_key = {a.allocation_key: a for a in asks}
+    used = {}
+    for key, node in bound.items():
+        ask = by_key[key]
+        info = cache.get_node(node)
+        if not (node_selector_matches(ask.pod, info.node)
+                and tolerates_node_taints(ask.pod, info.node)):
+            raise AssertionError(f"{ask.pod.metadata.name} bound to {node} "
+                                 "against its selector or taints")
+        used[node] = used.get(node, Resource()).add(ask.resource)
+    for node, total in used.items():
+        if not total.fits_in(cache.get_node(node).allocatable):
+            raise AssertionError(f"node {node} oversubscribed: {total}")
+    return len(used)
+
+
+def core_pressure(dev):
+    """The pressure mix through the core: one cycle, the kernel's launches
+    read around it, and the placements held against a direct solve_batch
+    on the batch the core encoded."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core import scheduler as sched
+    from yunikorn_tpu_torch.ops import assign
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    cache, core, cb = make_core(dev, make_pressure_nodes(MAIN_NODES), apps)
+    asks = asks_of(make_pressure_pods(MAIN_PODS))
+    calls = []
+
+    def spy(batch, node_arrays, **kw):
+        res = assign.solve_batch(batch, node_arrays, **kw)
+        calls.append((batch, node_arrays, kw, res.assigned.cpu(), res.rounds))
+        return res
+
+    sched.solve_batch = spy
+    try:
+        best_nodes.launches = 0
+        n, cycle_s = core_cycle(core, asks)
+        launches = best_nodes.launches
+    finally:
+        sched.solve_batch = assign.solve_batch
+    if launches < 1:
+        raise AssertionError("the core's pressure cycle launched no "
+                             "best_nodes kernel")
+    check_tiers(core, "pressure")
+    if len(calls) != 1:
+        raise AssertionError(f"{len(calls)} solves in one cycle")
+    batch, nodes, kw, assigned, rounds = calls[0]
+    if kw.get("device") != dev:
+        raise AssertionError(f"the core solved on {kw.get('device')}")
+    direct = assign.solve_batch(batch, nodes, **kw)
+    if not torch.equal(direct.assigned.cpu(), assigned):
+        raise AssertionError("the core's solve differs from a direct "
+                             "solve_batch on the batch it encoded")
+    rows = assigned[:batch.num_pods].tolist()
+    expect = {batch.ask_keys[i]: nodes.name_of(r)
+              for i, r in enumerate(rows) if r >= 0}
+    if cb.bound != expect:
+        raise AssertionError("the core's bindings differ from the direct "
+                             "solve's placements")
+    used_nodes = check_bindings(cache, cb.bound, asks)
+    if n != len(cb.bound):
+        raise AssertionError(f"schedule_once said {n}, bound {len(cb.bound)}")
+    expected = EXPECTED[(MAIN_NODES, MAIN_PODS)]
+    if (rounds, n) != expected:
+        raise AssertionError(f"the core's (rounds, placed) {(rounds, n)} != "
+                             f"the JAX package's {expected}")
+    return {"nodes": MAIN_NODES, "pods": MAIN_PODS, "placed": n,
+            "rounds": rounds, "expected": list(expected),
+            "best_nodes_launches": launches,
+            "cycle_ms": cycle_s * 1e3, "split": cycle_split(core),
+            "skipped": cb.skipped, "nodes_used": used_nodes,
+            "equals_direct_solve": True, "oversubscribed": 0}
+
+
+def core_cut(dev):
+    """One cycle of the pressure mix at the cut on `cuda` and on `cpu`:
+    identical bindings as pod name -> node (pod uids embed a process-wide
+    counter, so names are the comparable key)."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    out, binds = {}, {}
+    for label, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        _, core, cb = make_core(device, make_pressure_nodes(CUT_NODES), apps)
+        pods = make_pressure_pods(CUT_PODS)
+        names = {p.uid: p.metadata.name for p in pods}
+        n, cycle_s = core_cycle(core, asks_of(pods))
+        check_tiers(core, f"cut on {label}")
+        binds[label] = {names[k]: v for k, v in cb.bound.items()}
+        out[label] = {"placed": n, "cycle_ms": cycle_s * 1e3}
+    if binds["cuda"] != binds["cpu"]:
+        diff = sum(binds["cuda"].get(k) != v for k, v in binds["cpu"].items())
+        raise AssertionError(f"cuda and cpu cores bind differently ({diff} "
+                             "pods)")
+    if out["cuda"]["placed"] != EXPECTED_CORE_CUT:
+        raise AssertionError(f"placed {out['cuda']['placed']} != the JAX "
+                             f"core's {EXPECTED_CORE_CUT}")
+    return {"nodes": CUT_NODES, "pods": CUT_PODS, "identical": True,
+            "expected_placed": EXPECTED_CORE_CUT, **out}
+
+
+def phase_core(dev):
+    return {"bench_shape": core_bench_shape(dev),
+            "pressure": core_pressure(dev), "cut": core_cut(dev)}
+
+
 def profile_solve(fn, top: int = 15):
     """Device time by kernel over one run of fn, such as one warm solve
     (torch.profiler), the device-busy sum and the idle share of the
@@ -515,7 +814,8 @@ def main() -> int:
     phases = [("build", lambda: phase_build()),
               ("kernel", lambda: phase_kernel(dev)),
               ("cut", lambda: phase_cut(dev)),
-              ("main", lambda: phase_main(dev, stats, max_sm_clock_hz()))]
+              ("main", lambda: phase_main(dev, stats, max_sm_clock_hz())),
+              ("core", lambda: phase_core(dev))]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -36,13 +36,14 @@ import numpy as np
 import torch
 
 from yunikorn_tpu_torch.models.policies import alignment_scores, node_base_scores
-from yunikorn_tpu_torch.ops.best_nodes import NEG_INF, best_nodes
+from yunikorn_tpu_torch.ops.best_nodes import LIBRARY, NEG_INF, best_nodes
 from yunikorn_tpu_torch.ops.predicates import (
     group_feasibility,
     group_preferred_bonus,
     group_soft_penalty,
 )
-from yunikorn_tpu_torch.utils.torchtools import resolve_device
+from yunikorn_tpu_torch.utils.torchtools import (build_all, load_library,
+                                                resolve_device)
 
 CAP = 2**30 - 1              # saturation cap of the water-fill prefix sums
 MAX_SOLVE_PODS = 65536
@@ -56,6 +57,8 @@ SOLVE_ARG_NAMES = (
 _ARG_RANK = SOLVE_ARG_NAMES.index("rank")
 _ARG_LOC = SOLVE_ARG_NAMES.index("loc")
 _ARG_TOPO = SOLVE_ARG_NAMES.index("topo")
+# the CUDA kernel libraries the solve launches (csrc/<name>.cu)
+KERNELS = (LIBRARY,)
 
 
 @dataclasses.dataclass
@@ -68,18 +71,27 @@ class SolveResult:
     accept_round: Optional[torch.Tensor] = None
 
 
-def _not_ported(what: str, item: int, name: str):
+def not_ported(what: str, item: int, name: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP item {item}: {name})")
 
 
+def load_kernels() -> None:
+    """Build every kernel library the solve launches (one nvcc process per
+    source, started together) and load each. Raises when nvcc or a load
+    fails: a missing kernel is never served by another path."""
+    build_all(KERNELS)
+    for name in KERNELS:
+        load_library(name)
+
+
 def _check_scope(loc=None, topo=None, learned=None):
     if loc is not None:
-        _not_ported("locality (loc)", 5, "locality in the solve")
+        not_ported("locality (loc)", 5, "locality in the solve")
     if topo is not None:
-        _not_ported("topology steering (topo)", 9, "topology steering")
+        not_ported("topology steering (topo)", 9, "topology steering")
     if learned is not None:
-        _not_ported("the learned policy (learned)", 12, "learned policy")
+        not_ported("the learned policy (learned)", 12, "learned policy")
 
 
 def _tensor(x, device):
@@ -468,15 +480,15 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     port any group requests becomes a capacity-1 synthetic resource column,
     so two batch pods cannot share a port on one node."""
     if device_state is not None:
-        _not_ported("the persistent device node state (device_state)", 6,
+        not_ported("the persistent device node state (device_state)", 6,
                     "snapshot device state")
     if getattr(batch, "req_device", None) is not None:
-        _not_ported("a device-resident request tensor (req_device)", 6,
+        not_ported("a device-resident request tensor (req_device)", 6,
                     "snapshot device state")
     if batch.locality is not None:
-        _not_ported("locality (batch.locality)", 5, "locality in the solve")
+        not_ported("locality (batch.locality)", 5, "locality in the solve")
     if getattr(batch, "topo", None) is not None:
-        _not_ported("topology steering (batch.topo)", 9, "topology steering")
+        not_ported("topology steering (batch.topo)", 9, "topology steering")
     na = node_arrays
     g_ports_u32 = batch.g_ports.view(np.uint32)
     req_i = batch.req.astype(np.int32)

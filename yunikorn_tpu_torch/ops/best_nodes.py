@@ -34,6 +34,8 @@ SCORE_SCALE = 128.0
 PACKED_MIN = -(1 << 30)
 MODES = ("exact", "quantized")
 _POD_CHUNK = 512
+# the kernel's library: csrc/<LIBRARY>.cu, built by utils/torchtools
+LIBRARY = "best_nodes"
 
 
 def index_span(m: int) -> int:
@@ -114,7 +116,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def _library():
-    lib = torchtools.load_library("best_nodes")
+    lib = torchtools.load_library(LIBRARY)
     if not getattr(lib, "_yk_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
