@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port of the scheduler on one NVIDIA GPU and check
-it: the batched assignment solve and its kernel, then the core scheduling
-cycle around them.
+it: the batched assignment solve and its kernel, the core scheduling cycle
+around them, and both again on a batch with pod locality.
 
     python3 chip_smoke.py
 
@@ -43,10 +43,27 @@ phase fails, and when no CUDA device is present):
           (2,000 x 10,000, the pressure mix) one cycle on `cuda` and one on
           `cpu` binding identically by pod name, with the JAX package's
           core's placed count
+  locality the locality mix (client/synthetic.make_locality_pods: the
+          pressure mix's five apps, zone-spread replicas, one-per-node
+          anti-affinity replicas and ScheduleAnyway zone-spread pods) on the
+          pressure fleet. At the cut (2,000 x 10,000) solve_batch on `cuda`
+          and on `cpu` bit-identical (assigned / accept_round / free_after /
+          rounds / cnt_final) and one core cycle on each binding identically
+          by pod name; at full width (10,000 x 50,000) through solve_batch
+          on `cuda`, the kernel's launches read around that one run: the JAX
+          package's rounds and placed count, no node oversubscribed, every
+          placement inside its group's static feasibility, no two
+          anti-affinity pods on one node, the hard-spread pods within skew 1
+          over the zones, cnt_final equal to the counts of the placements,
+          the kernel bit-equal to its plain version at a locality round's
+          inputs; the host encode ms, the warm solve median, a device
+          profile of one solve, and each kernel call's rows, CUDA-event ms
+          and bound
   kernels one line per kernel: launches (the wrapper's count of calls in
-          the main path's run), error against the plain version, kernel /
-          plain / bound milliseconds (at the first odd round's inputs, as
-          the main path calls it)
+          the main path's run; launches_locality: in the locality path's
+          full-width run), error against the plain version, kernel / plain /
+          bound milliseconds (at the first odd round's inputs, as the main
+          path calls it)
 
 The last two lines are the card's name and power limit, and the result.
 """
@@ -84,6 +101,10 @@ EXPECTED = {(MAIN_NODES, MAIN_PODS): (16, 45_977),
 # pods placed by the JAX package's CoreScheduler (CPU) in one cycle of the
 # pressure mix at the cut, driven as phase_core drives the port's
 EXPECTED_CORE_CUT = 9_455
+# the JAX package's solve_batch on the locality mix (make_locality_pods on
+# make_pressure_nodes): (rounds, pods placed)
+EXPECTED_LOCALITY = {(MAIN_NODES, MAIN_PODS): (16, 39_328),
+                     (CUT_NODES, CUT_PODS): (16, 8_009)}
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -276,7 +297,9 @@ def phase_kernel(dev):
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
-def build_workload(n_nodes, n_pods):
+def build_workload(n_nodes, n_pods, make_pods=None):
+    """The pressure fleet of n_nodes and n_pods of make_pods (default: the
+    pressure mix), encoded: (encoder, batch, pods, host encode ms)."""
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
     from yunikorn_tpu_torch.client.synthetic import (make_pressure_nodes,
                                                      make_pressure_pods)
@@ -287,7 +310,7 @@ def build_workload(n_nodes, n_pods):
     cache = SchedulerCache()
     for node in make_pressure_nodes(n_nodes):
         cache.update_node(node)
-    pods = make_pressure_pods(n_pods)
+    pods = (make_pods or make_pressure_pods)(n_pods)
     asks = [AllocationAsk(p.uid, p.metadata.labels["applicationId"],
                           get_pod_resource(p), pod=p) for p in pods]
     enc = SnapshotEncoder(cache)
@@ -295,7 +318,7 @@ def build_workload(n_nodes, n_pods):
     enc.sync_nodes(full=True)
     batch = enc.build_batch(asks, ranks=list(range(len(asks))))
     encode_ms = (time.perf_counter() - t0) * 1e3
-    return enc, batch, len(asks), encode_ms
+    return enc, batch, pods, encode_ms
 
 
 SOLVE_KW = dict(max_rounds=16, chunk=512, policy="binpacking",
@@ -305,7 +328,8 @@ SOLVE_KW = dict(max_rounds=16, chunk=512, policy="binpacking",
 def phase_cut(dev):
     from yunikorn_tpu_torch.ops.assign import solve_batch
 
-    enc, batch, n, _ = build_workload(CUT_NODES, CUT_PODS)
+    enc, batch, pods, _ = build_workload(CUT_NODES, CUT_PODS)
+    n = len(pods)
     on_card = solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
     torch.cuda.synchronize()
     on_cpu = solve_batch(batch, enc.nodes, device="cpu", **SOLVE_KW)
@@ -330,7 +354,7 @@ def check_placements(batch, enc, res, n, dev):
 
     np_args, _ = assign.prepare_solve_args(batch, enc.nodes)
     (req, group_id, _rank, _valid, free, _cap, group_feas,
-     _soft) = assign._prepare(np_args[:assign._ARG_LOC], dev)
+     *_) = assign._prepare(np_args[:assign._ARG_LOC], None, dev)
     a = res.assigned.long()
     placed = a >= 0
     if not bool((res.free_after >= 0).all()):
@@ -344,11 +368,13 @@ def check_placements(batch, enc, res, n, dev):
         raise AssertionError("a padding row was placed")
 
 
-def phase_main(dev, stats, clock_hz):
-    from yunikorn_tpu_torch.ops import assign, best_nodes as bn_mod
+def solve_capturing(batch, enc, dev):
+    """One solve_batch on `dev` with the kernel's launch count set to 0
+    just before it and read just after, and a copy of every best_nodes
+    call's inputs: (result, captured calls, launches, host ms)."""
+    from yunikorn_tpu_torch.ops import assign
     from yunikorn_tpu_torch.ops.best_nodes import best_nodes
 
-    enc, batch, n, encode_ms = build_workload(MAIN_NODES, MAIN_PODS)
     captured = []
 
     def spy(*args, **kwargs):
@@ -365,9 +391,50 @@ def phase_main(dev, stats, clock_hz):
         res = assign.solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        launches = {"best_nodes": best_nodes.launches}
+        launches = best_nodes.launches
     finally:
         assign.best_nodes = best_nodes
+    return res, captured, launches, first_ms
+
+
+def warm_solve_ms(batch, enc, dev, runs=5):
+    from yunikorn_tpu_torch.ops import assign
+
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assign.solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def odd_round_calls(captured, clock_hz):
+    """Each captured best_nodes call again at its own inputs: the rows it
+    requested, CUDA-event ms and the bound for those rows."""
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    calls = []
+    for k, (args, kwargs) in enumerate(captured):
+        b = best_nodes_bound_ms(args[0], args[1], args[2], args[4],
+                                kwargs.get("has_soft", True), clock_hz,
+                                rows=kwargs.get("rows"))
+        ms = cuda_ms(lambda: best_nodes(*args, **kwargs), 10)
+        calls.append({"round": 2 * k + 1, "rows": b["rows"], "ms": ms,
+                      "bound_ms": b["bound_ms"], "pairs": b["pairs"],
+                      "fitting_pairs": b["fitting_pairs"]})
+    return calls
+
+
+def phase_main(dev, stats, clock_hz):
+    from yunikorn_tpu_torch.ops import assign, best_nodes as bn_mod
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    enc, batch, pods, encode_ms = build_workload(MAIN_NODES, MAIN_PODS)
+    n = len(pods)
+    res, captured, n_launch, first_ms = solve_capturing(batch, enc, dev)
+    launches = {"best_nodes": n_launch}
     placed = int((res.assigned[:n] >= 0).sum())
     accepted = res.accept_round[res.accept_round >= 0].long()
     per_round = torch.bincount(accepted, minlength=res.rounds).tolist()
@@ -379,13 +446,7 @@ def phase_main(dev, stats, clock_hz):
                              f"{expected}")
     check_placements(batch, enc, res, n, dev)
 
-    solve_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        assign.solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
-        torch.cuda.synchronize()
-        solve_ms.append((time.perf_counter() - t0) * 1e3)
+    solve_ms = warm_solve_ms(batch, enc, dev)
 
     t0 = time.perf_counter()
     assign.prepare_solve_args(batch, enc.nodes)
@@ -404,15 +465,7 @@ def phase_main(dev, stats, clock_hz):
 
     # each odd round's call again, at its own inputs: CUDA-event ms and the
     # corrected bound for the rows it requested
-    odd_rounds = []
-    for k, (args, kwargs) in enumerate(captured):
-        b = best_nodes_bound_ms(args[0], args[1], args[2], args[4],
-                                kwargs.get("has_soft", True), clock_hz,
-                                rows=kwargs.get("rows"))
-        ms = cuda_ms(lambda: best_nodes(*args, **kwargs), 10)
-        odd_rounds.append({"round": 2 * k + 1, "rows": b["rows"], "ms": ms,
-                           "bound_ms": b["bound_ms"], "pairs": b["pairs"],
-                           "fitting_pairs": b["fitting_pairs"]})
+    odd_rounds = odd_round_calls(captured, clock_hz)
     solve_kernel_ms = sum(r["ms"] for r in odd_rounds)
     solve_bound_ms = sum(r["bound_ms"] for r in odd_rounds)
 
@@ -756,6 +809,151 @@ def phase_core(dev):
             "pressure": core_pressure(dev), "cut": core_cut(dev)}
 
 
+def locality_cut(dev):
+    """The locality mix at the cut: solve_batch on `cuda` and on `cpu`
+    bit-identical in all five outputs, and one core cycle on each binding
+    identically by pod name."""
+    from yunikorn_tpu_torch.client.synthetic import (LOCALITY_APPS,
+                                                     make_locality_pods,
+                                                     make_pressure_nodes)
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+
+    enc, batch, pods, _ = build_workload(CUT_NODES, CUT_PODS,
+                                         make_locality_pods)
+    on_card = solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
+    torch.cuda.synchronize()
+    on_cpu = solve_batch(batch, enc.nodes, device="cpu", **SOLVE_KW)
+    same = {f: bool(torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)))
+            for f in ("assigned", "accept_round", "free_after", "cnt_final")}
+    same["rounds"] = on_card.rounds == on_cpu.rounds
+    if not all(same.values()):
+        raise AssertionError(f"cuda and cpu locality solves differ: {same}")
+    placed = int((on_card.assigned[:len(pods)] >= 0).sum())
+    if (on_card.rounds, placed) != EXPECTED_LOCALITY[(CUT_NODES, CUT_PODS)]:
+        raise AssertionError(f"rounds/placed {(on_card.rounds, placed)} != "
+                             f"{EXPECTED_LOCALITY[(CUT_NODES, CUT_PODS)]}")
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(LOCALITY_APPS))]
+    out, binds = {}, {}
+    for label, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        _, core, cb = make_core(device, make_pressure_nodes(CUT_NODES), apps)
+        cut_pods = make_locality_pods(CUT_PODS)
+        names = {p.uid: p.metadata.name for p in cut_pods}
+        n, cycle_s = core_cycle(core, asks_of(cut_pods))
+        check_tiers(core, f"locality cut on {label}")
+        binds[label] = {names[k]: v for k, v in cb.bound.items()}
+        out[label] = {"placed": n, "cycle_ms": cycle_s * 1e3}
+    if binds["cuda"] != binds["cpu"]:
+        diff = sum(binds["cuda"].get(k) != v for k, v in binds["cpu"].items())
+        raise AssertionError(f"cuda and cpu cores bind the locality mix "
+                             f"differently ({diff} pods)")
+    return {"nodes": CUT_NODES, "pods": CUT_PODS, "solve_identical": same,
+            "rounds": on_card.rounds, "placed": placed,
+            "core_identical": True, "core": out}
+
+
+def check_locality(batch, enc, res, pods, dev):
+    """The locality rules held by the placements: no two anti-affinity pods
+    on one node, max - min of the hard-spread pods over the zones at most
+    their skew (1), and cnt_final equal to cnt0 plus the counts recomputed
+    from the placements. Returns the per-zone spread counts."""
+    from yunikorn_tpu_torch.client.synthetic import LOCALITY_APPS
+
+    kinds = {f"app-{k}": c
+             for k, (_cpu, _mem, c, _share) in enumerate(LOCALITY_APPS)}
+    a = res.assigned[:len(pods)].cpu().numpy()
+    anti_nodes, spread_zone = [], {}
+    for pod, row in zip(pods, a):
+        if row < 0:
+            continue
+        kind = kinds[pod.metadata.labels["applicationId"]]
+        node = enc.nodes.name_of(int(row))
+        if kind == "host-anti":
+            anti_nodes.append(node)
+        elif kind == "zone-spread":
+            zone = enc.cache.get_node(node).node.metadata.labels["zone"]
+            spread_zone[zone] = spread_zone.get(zone, 0) + 1
+    if len(set(anti_nodes)) != len(anti_nodes):
+        raise AssertionError("two anti-affinity pods share a node")
+    zones = {n.metadata.labels["zone"] for n in
+             (enc.cache.get_node(name).node
+              for name in enc.nodes._name_to_idx)}
+    per_zone = [spread_zone.get(z, 0) for z in sorted(zones)]
+    if max(per_zone) - min(per_zone) > 1:
+        raise AssertionError(f"hard spread skew above 1: {per_zone}")
+    lb = batch.locality
+    cnt = lb.cnt0.astype(np.int64)
+    full = np.full(lb.contrib.shape[0], -1)
+    full[:len(a)] = a
+    for l in range(cnt.shape[0]):
+        rows = np.nonzero((full >= 0) & lb.contrib[:, l])[0]
+        doms = lb.dom[l, full[rows]]
+        np.add.at(cnt[l], doms[doms >= 0], 1)
+    if not np.array_equal(cnt, res.cnt_final.cpu().numpy()):
+        raise AssertionError("cnt_final differs from the counts of the "
+                             "placements")
+    return {"anti_pods_placed": len(anti_nodes),
+            "spread_per_zone": dict(zip(sorted(zones), per_zone))}
+
+
+def phase_locality(dev, stats, clock_hz):
+    """The locality mix: the cut (cuda against cpu, solve and core), then
+    the full width (10,000 nodes x 50,000 pods) through solve_batch on
+    `cuda`, with best_nodes' launches read around that one run."""
+    from yunikorn_tpu_torch.client.synthetic import make_locality_pods
+    from yunikorn_tpu_torch.ops import assign, best_nodes as bn_mod
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    cut = locality_cut(dev)
+    enc, batch, pods, encode_ms = build_workload(MAIN_NODES, MAIN_PODS,
+                                                 make_locality_pods)
+    res, captured, launches, first_ms = solve_capturing(batch, enc, dev)
+    placed = int((res.assigned[:len(pods)] >= 0).sum())
+    if launches < 1:
+        raise AssertionError("the locality path launched no best_nodes "
+                             "kernel")
+    expected = EXPECTED_LOCALITY[(MAIN_NODES, MAIN_PODS)]
+    if (res.rounds, placed) != expected:
+        raise AssertionError(f"rounds/placed {(res.rounds, placed)} != "
+                             f"{expected}")
+    check_placements(batch, enc, res, len(pods), dev)
+    rules = check_locality(batch, enc, res, pods, dev)
+
+    # the kernel at one locality round's inputs (its feasibility and soft
+    # matrices carry that round's rules and scores): bit-equal to plain
+    args, kwargs = captured[-1]
+    got = best_nodes(*args, **kwargs)
+    ref = bn_mod.best_nodes_reference(*args, **kwargs)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("kernel differs from plain at a locality "
+                             "round's inputs")
+    solve_ms = warm_solve_ms(batch, enc, dev)
+    profile = profile_solve(
+        lambda: assign.solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW))
+    calls = odd_round_calls(captured, clock_hz)
+    stats.setdefault("best_nodes", {})["launches_locality"] = launches
+    accepted = res.accept_round[res.accept_round >= 0].long()
+    return {"cut": cut, "nodes": MAIN_NODES, "pods": MAIN_PODS,
+            "N": int(batch.req.shape[0]), "M": enc.nodes.capacity,
+            "G": int(batch.g_tol.shape[0]),
+            "L": int(batch.locality.dom.shape[0]),
+            "D": int(batch.locality.cnt0.shape[1]),
+            "locality_groups": batch.locality.num_groups,
+            "has_loc_soft": bool(np.any(batch.locality.g_weight)),
+            "rounds": res.rounds, "placed": placed,
+            "expected": list(expected),
+            "placed_per_round": torch.bincount(
+                accepted, minlength=res.rounds).tolist(),
+            "rules": rules, "best_nodes_launches": launches,
+            "kernel_equal_at_locality_round": True,
+            "encode_ms": encode_ms, "first_solve_ms": first_ms,
+            "warm_solve_ms_median": statistics.median(solve_ms),
+            "warm_solve_ms": solve_ms, "profile": profile,
+            "kernel_calls": calls,
+            "kernel_ms_per_solve": sum(c["ms"] for c in calls),
+            "bound_ms_per_solve": sum(c["bound_ms"] for c in calls)}
+
+
 def profile_solve(fn, top: int = 15):
     """Device time by kernel over one run of fn, such as one warm solve
     (torch.profiler), the device-busy sum and the idle share of the
@@ -815,7 +1013,9 @@ def main() -> int:
               ("kernel", lambda: phase_kernel(dev)),
               ("cut", lambda: phase_cut(dev)),
               ("main", lambda: phase_main(dev, stats, max_sm_clock_hz())),
-              ("core", lambda: phase_core(dev))]
+              ("core", lambda: phase_core(dev)),
+              ("locality", lambda: phase_locality(dev, stats,
+                                                  max_sm_clock_hz()))]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

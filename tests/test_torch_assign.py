@@ -169,10 +169,6 @@ def test_segment_prefix_accept_equal(seed):
 def test_unported_inputs_raise():
     enc_t, batch_t, _ = build_mixed("yunikorn_tpu_torch", n_nodes=4, n_pods=8)
     np_args, static = tassign.prepare_solve_args(batch_t, enc_t.nodes)
-    loc_args = list(np_args)
-    loc_args[tassign.SOLVE_ARG_NAMES.index("loc")] = ("dom",)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tassign.solve_args_from_numpy(tuple(loc_args), static, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         tassign.solve(*np_args[:23], topo=("dom",), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):

@@ -6,8 +6,8 @@ registered with the cache and the core, apps and asks by name) and records
 what a shim would see: allocations in order as pod name → node, releases,
 rejected asks and applications, application state updates, SKIPPED
 updates, the queue tree's allocated resources (per queue, user and group),
-the unschedulable counts (quota_held among them) and the asks left pending.
-The records must be equal.
+the unschedulable counts (quota_held among them), the locality-fallback
+counters and the asks left pending. The records must be equal.
 
 The reference core runs with its device paths off (gate_device, preempt_
 device, topology and shard False, policy greedy) — the options the port
@@ -215,6 +215,9 @@ class Env:
             "skipped": [self.name(k) for k in cb.skipped],
             "queues": walk(core.queues.root, {}),
             "unschedulable": core.metrics.get("unschedulable_total"),
+            "locality_fallback": (
+                core.metrics.get("locality_fallback_groups_total"),
+                core.metrics.get("locality_fallback_deferred_total")),
             "pending": sorted(
                 (app_id, sorted(self.name(k) for k in app.pending_asks))
                 for app_id, app in core.partition.applications.items()),
@@ -496,6 +499,127 @@ def trace_pressure_overflow(pkg, options):
     return _pressure(pkg, options, pipelined=False, nodes=80, waves=1)
 
 
+def _locality_env(pkg, options, nodes, zones=3, cpu=8000):
+    """Nodes node-0.. labelled zone=z{i % zones}, and app-1 on the default
+    queue."""
+    e = Env(pkg, options, nodes=0)
+    e.add_nodes([e.objects.make_node(f"node-{i}", cpu_milli=cpu,
+                                     memory=16 * 2**30,
+                                     labels={"zone": f"z{i % zones}"})
+                 for i in range(nodes)], cpu)
+    e.add_app("app-1")
+    return e
+
+
+def _loc_ask(e, name, labels, cpu=1000, **spec):
+    """An ask keyed by its pod's uid, the pod in the cache (so anti-affinity
+    symmetry and the in-flight locality overlay see it), with `labels` and
+    the pod spec fields in `spec`."""
+    a = e.ask("app-1", name, cpu=cpu, mem=2**20, by_uid=True)
+    a.pod.metadata.labels.update(labels)
+    for k, v in spec.items():
+        setattr(a.pod.spec, k, v)
+    e.cache.update_pod(a.pod)
+    return a
+
+
+def _term(e, labels, topo="kubernetes.io/hostname"):
+    return e.objects.PodAffinityTerm(label_selector={"matchLabels": labels},
+                                     topology_key=topo)
+
+
+def trace_locality_hostname_anti(pkg, options):
+    """Required hostname anti-affinity on the pods' own label (one cache
+    replica a node) beside plain pods: 4 of 6 replicas place, one per
+    node."""
+    e = _locality_env(pkg, options, nodes=4)
+    o = e.objects
+    asks = [_loc_ask(e, f"cache-{i}", {"role": "cache"},
+                     affinity=o.Affinity(pod_anti_affinity_required=[
+                         _term(e, {"role": "cache"})])) for i in range(6)]
+    asks += [e.ask("app-1", f"plain-{i}", cpu=500) for i in range(4)]
+    e.submit(asks)
+    assert e.core.schedule_once() == 8
+    return e
+
+
+def trace_locality_zone_spread(pkg, options):
+    """DoNotSchedule zone spread (maxSkew 1) in two waves, the second
+    solved while the first is still in flight (its placements reach the
+    counts through the in-flight overlay), and ScheduleAnyway spread."""
+    e = _locality_env(pkg, options, nodes=6, cpu=4000)
+    o = e.objects
+
+    def spread(name, app, when):
+        return _loc_ask(e, name, {"svc": app}, cpu=500,
+                        topology_spread_constraints=[
+                            o.TopologySpreadConstraint(
+                                max_skew=1, topology_key="zone",
+                                when_unsatisfiable=when,
+                                label_selector={"matchLabels": {"svc": app}})])
+
+    e.submit([spread(f"ha-{i}", "ha", "DoNotSchedule") for i in range(4)])
+    e.core.schedule_once()
+    e.submit([spread(f"ha-{i}", "ha", "DoNotSchedule") for i in range(4, 11)]
+             + [spread(f"soft-{i}", "soft", "ScheduleAnyway")
+                for i in range(5)])
+    e.core.schedule_once()
+    return e
+
+
+def trace_locality_affinity_seed(pkg, options):
+    """Required zone affinity to the pods' own label with no match running:
+    the first pod seeds a zone and the rest follow it; a pod whose affinity
+    no pod satisfies stays pending."""
+    e = _locality_env(pkg, options, nodes=4, zones=2)
+    o = e.objects
+    asks = [_loc_ask(e, f"ring-{i}", {"app": "ring"},
+                     affinity=o.Affinity(pod_affinity_required=[
+                         _term(e, {"app": "ring"}, "zone")]))
+            for i in range(5)]
+    asks.append(_loc_ask(e, "lonely", {"app": "web"},
+                         affinity=o.Affinity(pod_affinity_required=[
+                             _term(e, {"app": "nowhere"}, "zone")])))
+    e.submit(asks)
+    assert e.core.schedule_once() == 5
+    return e
+
+
+def trace_locality_symmetry(pkg, options):
+    """A running pod on node-0 holds a required anti-affinity term that
+    matches the incoming pods' label: they avoid node-0 (K8s
+    InterPodAffinity symmetry), and a batch pod holding the same term keeps
+    the others off its node too."""
+    e = _locality_env(pkg, options, nodes=3)
+    o = e.objects
+    holder = o.make_pod("holder", cpu_milli=1000, node_name="node-0",
+                        phase="Running", labels={"app": "db"})
+    holder.spec.affinity = o.Affinity(pod_anti_affinity_required=[
+        _term(e, {"app": "x"})])
+    e.cache.update_pod(holder)
+    asks = [_loc_ask(e, f"x-{i}", {"app": "x"}) for i in range(4)]
+    asks.append(_loc_ask(e, "x-holder", {"app": "x"},
+                         affinity=o.Affinity(pod_anti_affinity_required=[
+                             _term(e, {"app": "x"})])))
+    e.submit(asks)
+    e.core.schedule_once()
+    return e
+
+
+def trace_locality_fallback_drain(pkg, options):
+    """Mutually anti-affine pods with 7 terms each overflow the encoding
+    (6 slots): the main solve places one, the fallback drain the rest in
+    the same cycle, each on its own node (tests/test_core.py's drain)."""
+    e = _locality_env(pkg, options, nodes=8)
+    o = e.objects
+    terms = [_term(e, {f"x{i}": "t"}) for i in range(7)]
+    e.submit([_loc_ask(e, f"fb-{i}", {"x0": "t"}, cpu=100,
+                       affinity=o.Affinity(pod_anti_affinity_required=terms))
+              for i in range(6)])
+    assert e.core.schedule_once() == 6
+    return e
+
+
 TRACES = {name[len("trace_"):]: fn for name, fn in globals().items()
           if name.startswith("trace_")}
 
@@ -578,38 +702,6 @@ def test_core_raises_without_cuda(monkeypatch):
     assert core.device.type == "cpu"
 
 
-def test_locality_batch_fails_the_cycle():
-    """Locality in the solve is ROADMAP item 5: a batch with required pod
-    anti-affinity raises NotImplementedError naming it and fails the cycle.
-    No other path serves the batch, and the solve's circuit never sees it:
-    once the app is gone, a plain batch solves on the device tier."""
-    e = Env(PORT, None, nodes=4)
-    e.add_app("app-1")
-    asks = []
-    for i in range(3):
-        a = e.ask("app-1", f"anti-{i}", by_uid=True)
-        a.pod.metadata.labels["grp"] = "x"
-        a.pod.spec.affinity = e.objects.Affinity(pod_anti_affinity_required=[
-            e.objects.PodAffinityTerm(
-                label_selector={"matchLabels": {"grp": "x"}},
-                topology_key="kubernetes.io/hostname")])
-        asks.append(a)
-    e.submit(asks)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5:"):
-        e.core.schedule_once()
-    assert e.cb.allocations == []
-    m = e.core.metrics
-    assert m["scheduling_cycle_failures_total"] == {"stage=sequential": 1}
-    assert not m.get("solve_tier_total")
-    assert "assign" not in e.core.supervisor.snapshot()
-    e.core.update_application(e.si.ApplicationRequest(
-        remove=[e.si.RemoveApplicationRequest("app-1")]))
-    e.add_app("app-2")
-    e.submit([e.ask("app-2", "plain")])
-    assert e.core.schedule_once() == 1
-    assert e.core.metrics["solve_tier_total"] == {"tier=device": 1}
-
-
 def test_failing_device_tier_fails_the_cycle():
     """The assign path has one tier, the core's device: a persistent failure
     there fails the cycle with nothing placed, opens the circuit and makes
@@ -687,7 +779,8 @@ def test_kernel_failure_fails_the_cycle(monkeypatch):
                   "at least two devices, cuda:0 and cpu!"), "persistent"),
     (TypeError("free must be a tensor"), "persistent"),
     (ValueError("req has shape (3, 8), expected (4, 8)"), "persistent"),
-    (NotImplementedError("locality is not ported yet"), "persistent"),
+    (NotImplementedError("topology steering is not ported yet"),
+     "persistent"),
     (tsup.DeadlineExceeded("abandoned"), "deadline"),
     (OSError("broken pipe"), "transient"),
 ])

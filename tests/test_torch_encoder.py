@@ -118,6 +118,163 @@ def build_pressure(pkg: str, n_nodes: int, n_pods: int):
     return enc, batch, asks
 
 
+def build_locality(pkg: str):
+    """A cluster with pod locality through package `pkg`: zone-labelled
+    nodes, running pods holding required anti-affinity terms (symmetry
+    slots for the batch pods they match), and a batch of zone-spread,
+    self-seeding affinity, ScheduleAnyway spread, preferred pod
+    (anti-)affinity and plain matching pods, plus groups that overflow the
+    encoding: ten distinct spread selectors (MAX_LOCALITY_GROUPS) and pods
+    with seven anti-affinity terms (MAX_CONSTRAINT_SLOTS). Returns
+    (encoder, batch, asks)."""
+    o = importlib.import_module(f"{pkg}.common.objects")
+    synthetic = importlib.import_module(f"{pkg}.client.synthetic")
+    resource = importlib.import_module(f"{pkg}.common.resource")
+    si = importlib.import_module(f"{pkg}.common.si")
+    cache_mod = importlib.import_module(f"{pkg}.cache.external.scheduler_cache")
+    encoder = importlib.import_module(f"{pkg}.snapshot.encoder")
+    host = "kubernetes.io/hostname"
+
+    def term(labels, topo=host):
+        return o.PodAffinityTerm(label_selector={"matchLabels": labels},
+                                 topology_key=topo)
+
+    def spread(pod, labels, when="DoNotSchedule", skew=1):
+        pod.spec.topology_spread_constraints = [o.TopologySpreadConstraint(
+            max_skew=skew, topology_key="zone", when_unsatisfiable=when,
+            label_selector={"matchLabels": labels})]
+        return pod
+
+    cache = cache_mod.SchedulerCache()
+    for i, node in enumerate(synthetic.make_kwok_nodes(12, cpu_milli=8000)):
+        node.metadata.labels["zone"] = f"z{i % 3}"
+        cache.update_node(node)
+    for i, (labels, held) in enumerate([
+            ({"app": "db"}, term({"app": "x"})),
+            ({"app": "db"}, term({"app": "y"}, "zone")),
+            ({"app": "ha"}, None)]):
+        p = o.make_pod(f"run{i}", cpu_milli=100, node_name=f"kwok-node-{i}",
+                       phase="Running", labels=labels)
+        if held is not None:
+            p.spec.affinity = o.Affinity(pod_anti_affinity_required=[held])
+        cache.update_pod(p)
+
+    def pod(name, labels, **kw):
+        return o.make_pod(name, cpu_milli=200, memory=2**26, labels=labels,
+                          **kw)
+
+    pods = [spread(pod(f"ha{i}", {"app": "ha"}), {"app": "ha"})
+            for i in range(4)]
+    for i in range(3):
+        p = pod(f"ring{i}", {"app": "ring"})
+        p.spec.affinity = o.Affinity(pod_affinity_required=[
+            term({"app": "ring"}, "zone")])
+        pods.append(p)
+    pods += [spread(pod(f"soft{i}", {"app": "soft"}), {"app": "soft"},
+                    "ScheduleAnyway") for i in range(3)]
+    for i in range(2):
+        p = pod(f"pref{i}", {"app": "front"})
+        p.spec.affinity = o.Affinity(
+            pod_affinity_preferred=[(80, term({"app": "db"}))],
+            pod_anti_affinity_preferred=[(20, term({"app": "front"}, "zone"))])
+        pods.append(p)
+    pods += [pod(f"x{i}", {"app": "x"}) for i in range(2)]
+    # holds the running pod's term too: a holder group paired with its
+    # primary
+    pods[-1].spec.affinity = o.Affinity(pod_anti_affinity_required=[
+        term({"app": "x"})])
+    pods += [pod(f"y{i}", {"app": "y"}, namespace="other") for i in range(1)]
+    pods += [spread(pod(f"uniq{i}", {"uniq": f"v{i}"}), {"uniq": f"v{i}"})
+             for i in range(10)]
+    for i in range(3):
+        p = pod(f"big{i}", {"x0": "t"})
+        p.spec.affinity = o.Affinity(
+            pod_anti_affinity_required=[term({f"x{j}": "t"})
+                                        for j in range(7)],
+            pod_affinity_preferred=[(50, term({"app": "db"}))])
+        pods.append(p)
+    for p in pods:
+        cache.update_pod(p)
+    asks = [si.AllocationAsk(p.uid, "app", resource.get_pod_resource(p), pod=p)
+            for p in pods]
+    enc = encoder.SnapshotEncoder(cache)
+    enc.sync_nodes(full=True)
+    batch = enc.build_batch(asks, ranks=list(range(len(asks))))
+    return enc, batch, asks
+
+
+LOCALITY_ARRAYS = ("dom", "cnt0", "dom_valid", "contrib", "g_refs", "g_kind",
+                   "g_skew", "g_seed", "g_weight", "pair")
+
+
+def test_locality_batch_equal():
+    enc_j, batch_j, _ = build_locality("yunikorn_tpu")
+    enc_t, batch_t, _ = build_locality("yunikorn_tpu_torch")
+    lj, lt = batch_j.locality, batch_t.locality
+    assert_same_arrays(lj, lt, LOCALITY_ARRAYS)
+    assert lj.num_groups == lt.num_groups == 8
+    for field in ("fallback", "soft_static"):
+        fj, ft = getattr(lj, field), getattr(lt, field)
+        assert fj and sorted(fj) == sorted(ft), field
+        for gid in fj:
+            np.testing.assert_array_equal(fj[gid], ft[gid], err_msg=field)
+    assert batch_j.deferred == batch_t.deferred != []
+    assert_same_arrays(batch_j, batch_t, BATCH_ARRAYS)
+    # every kind is in play: spread, affinity with a seed, anti-affinity
+    # (symmetry holders paired with their primary), soft spread and soft
+    # (anti-)affinity
+    assert set(np.unique(lj.g_kind)) == set(range(7))
+    assert lj.g_seed.any() and (lj.pair >= 0).any() and lj.cnt0.any()
+
+
+def test_locality_mix_equals_its_mirror():
+    """make_locality_pods against the same mix built through the JAX
+    package's objects: names, labels, requests and constraints."""
+    from yunikorn_tpu.common import objects as jo
+    from yunikorn_tpu.client import synthetic as jsyn
+    from yunikorn_tpu_torch.client import synthetic as tsyn
+
+    def mirror(count):
+        pods = []
+        for k, (cpu, mem, c, share) in enumerate(tsyn.LOCALITY_APPS):
+            own = {"matchLabels": {"applicationId": f"app-{k}"}}
+            for p in jsyn.make_sleep_pods(count * share // 1000, f"app-{k}",
+                                          queue=f"root.q{k}", cpu_milli=cpu,
+                                          memory=mem, name_prefix=f"q{k}"):
+                if c == "selector":
+                    p.spec.node_selector = {"zone": "z1"}
+                elif c == "preferred":
+                    p.spec.affinity = jo.Affinity(node_preferred_terms=[
+                        (100, jo.NodeSelectorTerm(match_expressions=[
+                            jo.NodeSelectorRequirement("tier", "In",
+                                                       ["gold"])]))])
+                elif c in ("zone-spread", "soft-zone-spread"):
+                    p.spec.topology_spread_constraints = [
+                        jo.TopologySpreadConstraint(
+                            max_skew=1, topology_key="zone",
+                            when_unsatisfiable=("DoNotSchedule"
+                                                if c == "zone-spread"
+                                                else "ScheduleAnyway"),
+                            label_selector=own)]
+                elif c == "host-anti":
+                    p.spec.affinity = jo.Affinity(
+                        pod_anti_affinity_required=[jo.PodAffinityTerm(
+                            label_selector=own,
+                            topology_key="kubernetes.io/hostname")])
+                pods.append(p)
+        return pods
+
+    def shape(p):
+        return (p.metadata.name, p.namespace, sorted(p.metadata.labels.items()),
+                repr(p.spec.containers[0].resources_requests),
+                repr(p.spec.node_selector), repr(p.spec.affinity),
+                repr(p.spec.topology_spread_constraints))
+
+    got, want = tsyn.make_locality_pods(1000), mirror(1000)
+    assert [shape(p) for p in got] == [shape(p) for p in want]
+    assert len(got) == 1000 and got[-1].spec.topology_spread_constraints
+
+
 BATCH_ARRAYS = ("req", "group_id", "rank", "valid", "queue_id", "g_term_req",
                 "g_term_forb", "g_term_valid", "g_anyof", "g_anyof_valid",
                 "g_tol", "g_ports", "g_pref_req", "g_pref_forb",

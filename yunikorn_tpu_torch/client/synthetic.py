@@ -3,7 +3,9 @@
 Reference: deployments/kwok-perf-test/kwok-setup.sh:30-60 (N fake nodes with
 32 CPU / 256 Gi / 110 pods) and deploy-tool.sh:35-67 (sleep-pod deployments
 labeled applicationId + queue), plus the solve slice's mixed workload under
-pressure (make_pressure_nodes / make_pressure_pods).
+pressure (make_pressure_nodes / make_pressure_pods), the same with pod
+locality (make_locality_pods) and the JAX package's every-channel mix
+(make_rich_constraint_pods).
 """
 from __future__ import annotations
 
@@ -79,6 +81,19 @@ PRESSURE_APPS = (
 )
 
 
+# The locality mix: the pressure mix's five apps, then three apps with pod
+# locality, each selecting its own pods by their applicationId label:
+# zone-spread service replicas (DoNotSchedule, maxSkew 1), one-per-node
+# cache or broker replicas (required hostname anti-affinity) and
+# ScheduleAnyway zone-spread pods. (cpu milli, memory bytes, constraint,
+# share of the mix in thousandths).
+LOCALITY_APPS = tuple((cpu, mem, c, 160) for cpu, mem, c in PRESSURE_APPS) + (
+    (500, 2**30, "zone-spread", 100),
+    (1000, 4 * 2**30, "host-anti", 80),
+    (250, 512 * 2**20, "soft-zone-spread", 20),
+)
+
+
 def make_pressure_nodes(count: int) -> List[Node]:
     """kwok nodes labelled zone=z{i%4}, tier=gold on every 8th node (else
     std), with a PreferNoSchedule taint on every 5th node."""
@@ -91,25 +106,115 @@ def make_pressure_nodes(count: int) -> List[Node]:
     return nodes
 
 
+def _constrain(pod: Pod, constraint: Optional[str], app_id: str) -> None:
+    """Give pod the constraint of its app in PRESSURE_APPS / LOCALITY_APPS;
+    the locality constraints select the app's own pods."""
+    from yunikorn_tpu_torch.common.objects import (Affinity,
+                                                   NodeSelectorRequirement,
+                                                   NodeSelectorTerm,
+                                                   PodAffinityTerm,
+                                                   TopologySpreadConstraint)
+
+    own = {"matchLabels": {constants.LABEL_APPLICATION_ID: app_id}}
+    if constraint == "selector":
+        pod.spec.node_selector = {"zone": "z1"}
+    elif constraint == "preferred":
+        pod.spec.affinity = Affinity(node_preferred_terms=[
+            (100, NodeSelectorTerm(match_expressions=[
+                NodeSelectorRequirement("tier", "In", ["gold"])]))])
+    elif constraint in ("zone-spread", "soft-zone-spread"):
+        pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=1, topology_key="zone",
+            when_unsatisfiable=("DoNotSchedule" if constraint == "zone-spread"
+                                else "ScheduleAnyway"),
+            label_selector=own)]
+    elif constraint == "host-anti":
+        pod.spec.affinity = Affinity(pod_anti_affinity_required=[
+            PodAffinityTerm(label_selector=own,
+                            topology_key="kubernetes.io/hostname")])
+
+
+def _mix(apps) -> List[Pod]:
+    """apps: (app index, pods, cpu milli, memory bytes, constraint); app k
+    on queue root.q{k}, pod name prefix q{k}."""
+    pods: List[Pod] = []
+    for k, n, cpu, mem, constraint in apps:
+        app = make_sleep_pods(n, f"app-{k}", queue=f"root.q{k}",
+                              cpu_milli=cpu, memory=mem, name_prefix=f"q{k}")
+        for pod in app:
+            _constrain(pod, constraint, f"app-{k}")
+        pods.extend(app)
+    return pods
+
+
 def make_pressure_pods(count: int) -> List[Pod]:
     """count pods in five apps of count // 5 (app k: queue root.q{k}, pod
     name prefix q{k}), in app order: sleep pods; zone=z1 selector pods;
     pods preferring tier=gold (weight 100); small pods; large pods."""
+    return _mix([(k, count // len(PRESSURE_APPS), cpu, mem, c)
+                 for k, (cpu, mem, c) in enumerate(PRESSURE_APPS)])
+
+
+def make_locality_pods(count: int) -> List[Pod]:
+    """count pods in the eight apps of LOCALITY_APPS (app k: queue
+    root.q{k}, pod name prefix q{k}, count * share // 1000 pods), in app
+    order. Nodes are expected to carry zone labels (make_pressure_nodes);
+    the hostname domain of a node without the hostname label is its name."""
+    return _mix([(k, count * share // 1000, cpu, mem, c)
+                 for k, (cpu, mem, c, share) in enumerate(LOCALITY_APPS)])
+
+
+def make_rich_constraint_pods(
+    n_plain: int,
+    n_spread: int = 0,
+    n_anti: int = 0,
+    n_hostmask: int = 0,
+    n_soft: int = 0,
+    name_prefix: str = "",
+) -> List[Pod]:
+    """A constraint mix covering every solve channel: plain pods, hard
+    topology spread (locality), pod anti-affinity (locality), >MAX_TERMS node
+    affinity (host-mask fallback), and preferred node affinity (soft scores).
+    Nodes are expected to carry zone (z0..z3) and kubernetes.io/hostname
+    labels (make_kwok_nodes + zone stamping, or make_node with labels).
+    """
     from yunikorn_tpu_torch.common.objects import (Affinity,
                                                    NodeSelectorRequirement,
-                                                   NodeSelectorTerm)
+                                                   NodeSelectorTerm,
+                                                   PodAffinityTerm,
+                                                   TopologySpreadConstraint)
 
-    per_app = count // len(PRESSURE_APPS)
-    pods: List[Pod] = []
-    for k, (cpu, mem, constraint) in enumerate(PRESSURE_APPS):
-        app = make_sleep_pods(per_app, f"app-{k}", queue=f"root.q{k}",
-                              cpu_milli=cpu, memory=mem, name_prefix=f"q{k}")
-        for pod in app:
-            if constraint == "selector":
-                pod.spec.node_selector = {"zone": "z1"}
-            elif constraint == "preferred":
-                pod.spec.affinity = Affinity(node_preferred_terms=[
-                    (100, NodeSelectorTerm(match_expressions=[
-                        NodeSelectorRequirement("tier", "In", ["gold"])]))])
-        pods.extend(app)
+    pods = []
+    for i in range(n_plain):
+        pods.append(make_pod(f"{name_prefix}plain{i}",
+                             cpu_milli=100 + 50 * (i % 4), memory=2**26))
+    for i in range(n_spread):
+        p = make_pod(f"{name_prefix}spread{i}", cpu_milli=200, memory=2**26)
+        p.metadata.labels["grp"] = "spread"
+        p.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=2, topology_key="zone", when_unsatisfiable="DoNotSchedule",
+            label_selector={"matchLabels": {"grp": "spread"}})]
+        pods.append(p)
+    for i in range(n_anti):
+        p = make_pod(f"{name_prefix}anti{i}", cpu_milli=200, memory=2**26)
+        p.metadata.labels["grp"] = "anti"
+        p.spec.affinity = Affinity(pod_anti_affinity_required=[PodAffinityTerm(
+            label_selector={"matchLabels": {"grp": "anti"}},
+            topology_key="kubernetes.io/hostname")])
+        pods.append(p)
+    for i in range(n_hostmask):
+        p = make_pod(f"{name_prefix}hostm{i}", cpu_milli=200, memory=2**26)
+        # 9 OR terms > snapshot.encoder.MAX_TERMS (8): the whole affinity
+        # falls back to the host-mask channel
+        p.spec.affinity = Affinity(node_required_terms=[
+            NodeSelectorTerm(match_expressions=[
+                NodeSelectorRequirement("zone", "In", [f"z{t % 4}"])])
+            for t in range(9)])
+        pods.append(p)
+    for i in range(n_soft):
+        p = make_pod(f"{name_prefix}soft{i}", cpu_milli=200, memory=2**26)
+        p.spec.affinity = Affinity(node_preferred_terms=[
+            (50, NodeSelectorTerm(match_expressions=[
+                NodeSelectorRequirement("zone", "In", ["z1"])]))])
+        pods.append(p)
     return pods

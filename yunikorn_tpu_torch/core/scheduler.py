@@ -35,8 +35,6 @@ is absent, or raises NotImplementedError naming its ROADMAP item:
     item 12)
   - the persistent device node state and request rows (item 6): every
     solve uploads the node arrays
-  - batches with locality constraints (item 5): the cycle raises, before
-    the solve's circuit sees the batch
   - any fallback below the device tier: a solve that fails after its
     retries fails the cycle; nothing re-solves the card's work on the CPU
 """
@@ -1313,14 +1311,7 @@ class CoreScheduler(SchedulerAPI):
                         inflight_ports) -> "_SolveHandle":
         """Supervised dispatch. Dispatch success alone never re-closes a
         half-open circuit (commit_success=False) — only a materialized
-        result proves the tier healthy.
-
-        A batch with locality constraints raises NotImplementedError
-        (ROADMAP item 5) before the supervisor sees it: the feature is
-        missing, the card is not failing, so its circuit stays closed."""
-        if batch.locality is not None:
-            not_ported("a batch with locality constraints (pod affinity or "
-                       "anti-affinity)", 5, "locality in the solve")
+        result proves the tier healthy."""
         h = _SolveHandle(admitted=admitted, batch=batch, policy=policy,
                          overlay=overlay, node_mask=node_mask,
                          inflight_ports=inflight_ports)
@@ -2114,9 +2105,9 @@ class CoreScheduler(SchedulerAPI):
             inflight_ports = self._inflight_ports()
             self.encoder.sync_nodes()
             batch = self.encoder.build_batch(remaining, extra_placed=placements)
-            # drain rounds ride the same supervised solve as the main one.
-            # Only a locality batch defers asks here, and the port raises
-            # on those until ROADMAP item 5
+            # drain rounds ride the same supervised device solve as the
+            # main one: a drain solve that fails past its retries fails the
+            # cycle
             h = self._solve_dispatch(remaining, batch, policy, overlay,
                                      node_mask, inflight_ports)
             assigned = self._solve_materialize(h)

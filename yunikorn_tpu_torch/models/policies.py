@@ -34,8 +34,10 @@ def fma_f32(a, b, c) -> torch.Tensor:
     exact error from TwoSum decides), and a round-to-odd result in 53 bits
     rounds to the correctly rounded 24-bit result."""
     p = a.double() * b.double()
-    cd = c.double() if isinstance(c, torch.Tensor) else torch.tensor(
-        float(c), dtype=torch.float64, device=p.device)
+    # a constant is filled on the device: torch.tensor would copy it from
+    # the host and synchronise
+    cd = c.double() if isinstance(c, torch.Tensor) else torch.full(
+        (), float(c), dtype=torch.float64, device=p.device)
     s = p + cd
     bv = s - p
     err = (p - (s - bv)) + (cd - bv)
@@ -61,8 +63,8 @@ def node_base_scores(free_i32, capacity_i32, policy: str) -> torch.Tensor:
     total = ratio[:, 0]
     for r in range(1, ratio.shape[1]):
         total = total + ratio[:, r]
-    inv_r = torch.tensor(1.0 / ratio.shape[1], dtype=torch.float32,
-                         device=free.device)
+    inv_r = torch.full((), 1.0 / ratio.shape[1], dtype=torch.float32,
+                       device=free.device)
     if policy == "spread":
         # mean normalized free capacity in [0, 1]
         return total * inv_r

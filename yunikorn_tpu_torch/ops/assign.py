@@ -17,20 +17,31 @@ PyTorch): all pending pods are assigned in a few data-parallel rounds.
 The odd rounds ask the best-node kernel only for the active pods whose
 proposal does not fit: the result of every other row is discarded.
 
+Locality (topology spread, pod affinity and anti-affinity, the `loc` tuple
+of snapshot/locality.LocalityBatch) rides the loop as per-domain counts
+`cnt` [L, D]: each round folds its rules into the [G, M] feasibility and its
+soft scores into the soft matrix before the proposals and the best-node
+call, groups under a per-domain cap propose round-robin across domains, the
+accept cap keeps every round's accepts legal in some sequential order, and
+the accepted pods add into the counts.
+
 Resources are int32 device units. Prefix sums run in int64, which equals the
 reference's wrapping int32 prefix as long as one node segment's sum stays
-below 2^31 (the same bound the reference states). The round loop is a Python
-loop: each round reads two flags on the host (one synchronisation a round).
+below 2^31 (the same bound the reference states). Locality counts and their
+2^30 sentinels stay int32, as in the reference (no sum wraps: see
+_loc_accept_cap). The round loop is a Python loop: each round reads two
+flags on the host (one synchronisation a round), and a locality solve reads
+its LocPlan once before the loop; everything else stays on the device.
 
 Inputs this slice does not port raise NotImplementedError naming the ROADMAP
-item that ports them: locality (`loc`, item 5), the persistent device node
-state (`device_state`, `req_device`, item 6), topology steering (`topo`,
-item 9) and the learned policy (`learned`, item 12).
+item that ports them: the persistent device node state (`device_state`,
+`req_device`, item 6), topology steering (`topo`, item 9) and the learned
+policy (`learned`, item 12).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,10 +53,17 @@ from yunikorn_tpu_torch.ops.predicates import (
     group_preferred_bonus,
     group_soft_penalty,
 )
+from yunikorn_tpu_torch.snapshot.locality import (
+    KIND_AFFINITY,
+    KIND_ANTI_AFFINITY,
+    KIND_SOFT_SPREAD,
+    KIND_SPREAD,
+)
 from yunikorn_tpu_torch.utils.torchtools import (build_all, load_library,
                                                 resolve_device)
 
 CAP = 2**30 - 1              # saturation cap of the water-fill prefix sums
+BIG = 2**30                  # the locality minima's "no domain" sentinel
 MAX_SOLVE_PODS = 65536
 SOLVE_ARG_NAMES = (
     "req", "group_id", "rank", "valid",
@@ -69,6 +87,9 @@ class SolveResult:
     # [N] int32: solve round at which each pod was accepted (-1 unassigned);
     # chained chunk solves offset later chunks so the order is global
     accept_round: Optional[torch.Tensor] = None
+    # [L, D] int32: the locality domain counts after the solve (None when
+    # the batch has no locality)
+    cnt_final: Optional[torch.Tensor] = None
 
 
 def not_ported(what: str, item: int, name: str):
@@ -85,9 +106,7 @@ def load_kernels() -> None:
         load_library(name)
 
 
-def _check_scope(loc=None, topo=None, learned=None):
-    if loc is not None:
-        not_ported("locality (loc)", 5, "locality in the solve")
+def _check_scope(topo=None, learned=None):
     if topo is not None:
         not_ported("topology steering (topo)", 9, "topology steering")
     if learned is not None:
@@ -108,6 +127,366 @@ def _tensor(x, device):
             x = x.view(torch.int32)
         return x.to(device).contiguous()
     raise TypeError(f"expected a numpy array or a tensor, got {type(x)}")
+
+
+# ---- locality: the loc tuple is (dom [L, M] int32, cnt0 [L, D] int32,
+# dom_valid [L, D] bool, contrib [N, L] bool, g_refs [G, S] int32, g_kind,
+# g_skew [G, S] int32, g_seed [G, S] bool, g_weight [G, S] float32,
+# pair [L] int32); see snapshot/locality.LocalityBatch ----
+
+def _loc_round_stats(loc, cnt):
+    """Per locality group: (min over valid domains, total) of the counts."""
+    dom_valid = loc[2]
+    minc = torch.where(dom_valid, cnt, BIG).amin(dim=1)                # [L]
+    total = torch.where(dom_valid, cnt, 0).sum(dim=1, dtype=torch.int32)
+    return minc, total
+
+
+def _loc_slot(gid_rows, dom_cols, loc, cnt, contrib_rows, s):
+    """What slot s of each row's group reads: (l [C], lc [C] clipped,
+    self_add [C] int32, cnt_at, has_dom, ex). cnt_at and has_dom are
+    [C, M] when dom_cols is None (every node), else [C] at each row's node;
+    ex lifts a [C] row value to broadcast against them."""
+    loc_dom = loc[0]
+    L = loc_dom.shape[0]
+    D = cnt.shape[1]
+    l = loc[4][gid_rows, s]
+    lc = l.clamp(0, L - 1).long()
+    self_add = contrib_rows.gather(1, lc[:, None])[:, 0].to(torch.int32)
+    if dom_cols is None:
+        dom_row = loc_dom[lc]                                          # [C, M]
+        cnt_at = cnt[lc[:, None], dom_row.clamp(0, D - 1).long()]
+        ex = lambda x: x[:, None]  # noqa: E731
+    else:
+        dom_row = loc_dom[lc, dom_cols.long()]                         # [C]
+        cnt_at = cnt[lc, dom_row.clamp(0, D - 1).long()]
+        ex = lambda x: x  # noqa: E731
+    return l, lc, self_add, cnt_at, dom_row >= 0, ex
+
+
+def _loc_rules_mask(gid_rows, dom_cols, loc, cnt, minc, total, contrib_rows,
+                    slots=None):
+    """The hard locality rules for rows (pods or groups) x nodes.
+
+    gid_rows [C] group ids; dom_cols None for every node ([C, M]) or [C]
+    node ids for one node per row ([C]); contrib_rows [C, L]: whether each
+    row counts toward each locality group (K8s selfMatchNum: a spread
+    constraint whose selector does not match the pod adds 0). slots (>= 1,
+    default all): evaluate only the first `slots` slots, for callers that
+    know no group fills a later one (each such slot allows everything)."""
+    gid = gid_rows.long()
+    ok = None
+    for s in range(loc[4].shape[1] if slots is None else slots):
+        l, lc, self_add, cnt_at, has_dom, ex = _loc_slot(
+            gid, dom_cols, loc, cnt, contrib_rows, s)
+        kind = ex(loc[5][gid, s])
+        spread_ok = has_dom & (cnt_at + ex(self_add) - ex(minc[lc])
+                               <= ex(loc[6][gid, s]))
+        aff_ok = has_dom & ((cnt_at > 0)
+                            | (ex(loc[7][gid, s]) & (ex(total[lc]) == 0)))
+        anti_ok = ~has_dom | (cnt_at == 0)
+        rule_ok = torch.where(
+            kind == KIND_SPREAD, spread_ok,
+            torch.where(kind == KIND_AFFINITY, aff_ok,
+                        (kind != KIND_ANTI_AFFINITY) | anti_ok))
+        rule_ok = rule_ok | ex(l < 0)
+        ok = rule_ok if ok is None else ok & rule_ok
+    return ok
+
+
+def _loc_soft_scores(gid_rows, dom_cols, loc, cnt, minc, contrib_rows,
+                     slots=None):
+    """Score adjustments of the soft locality slots, rows x nodes as in
+    _loc_rules_mask (slots likewise). Soft spread costs its weight per count
+    above the minimum domain; soft (anti-)affinity adds its weight per
+    matching pod in the domain. Hard slots carry weight 0. The slots add up
+    in float32 in slot order, as the reference's."""
+    gid = gid_rows.long()
+    S = loc[4].shape[1]
+    n = S if slots is None else slots
+    out = None
+    for s in range(n):
+        l, lc, self_add, cnt_at, has_dom, ex = _loc_slot(
+            gid, dom_cols, loc, cnt, contrib_rows, s)
+        spread_pen = (cnt_at + ex(self_add) - ex(minc[lc])).clamp(min=0)
+        val = torch.where(ex(loc[5][gid, s]) == KIND_SOFT_SPREAD,
+                          spread_pen.float(), cnt_at.float())
+        adj = torch.where(has_dom & ex(l >= 0), ex(loc[8][gid, s]) * val, 0.0)
+        out = adj if out is None else out + adj
+    if n < S:
+        # each skipped slot would add +0.0, which only turns a -0.0 sum
+        # into +0.0: adding it once gives the same bits
+        out = out + 0.0
+    return out
+
+
+def _loc_capped_flags(loc):
+    """Per locality group: whether a hard spread, an affinity, a soft spread
+    or an anti-affinity slot references it, and the tightest spread skew of
+    those that do. Returns (spread_l, aff_l, soft_spread_l, anti_l,
+    min_skew_l), each [L]."""
+    g_refs, g_kind, g_skew = loc[4], loc[5], loc[6]
+    L = loc[0].shape[0]
+    ref = g_refs[None] == torch.arange(L, device=g_refs.device)[:, None, None]
+
+    def any_kind(kind):
+        return (ref & (g_kind == kind)).flatten(1).any(dim=1)
+
+    is_spread = ref & (g_kind == KIND_SPREAD)                          # [L, G, S]
+    min_skew = torch.where(is_spread, g_skew, BIG).flatten(1).amin(dim=1)
+    return (any_kind(KIND_SPREAD), any_kind(KIND_AFFINITY),
+            any_kind(KIND_SOFT_SPREAD), any_kind(KIND_ANTI_AFFINITY),
+            min_skew)
+
+
+def _hoist_loc_state(loc, group_id_full, G):
+    """What a solve computes once from the whole batch: the capped flags,
+    each group's contribution flags [G, L] (all pods of a group share them:
+    the group signature folds labels in whenever locality applies), the
+    round-robin domain row of each capped group [G, M] (its first hard
+    spread or anti-affinity slot's; -1 rows fill by capacity), and the
+    per-kind [G, L] masks saying which groups each accept cap binds, with
+    each group's own spread skew per locality group.
+
+    group_id_full and loc[3] must cover the whole batch, not one slice."""
+    dev = group_id_full.device
+    (spread_l, aff_l, softspread_l, anti_l,
+     min_skew_l) = _loc_capped_flags(loc)
+    loc_dom, contrib, g_refs, g_kind = loc[0], loc[3], loc[4], loc[5]
+    L = loc_dom.shape[0]
+    S = g_refs.shape[1]
+    group_contrib = torch.zeros((G, L), dtype=torch.int32, device=dev)
+    group_contrib = group_contrib.scatter_reduce(
+        0, group_id_full.long()[:, None].expand(-1, L),
+        contrib.to(torch.int32), reduce="amax").bool()
+    l_ref = torch.full((G,), -1, dtype=torch.int32, device=dev)
+    for s in range(S - 1, -1, -1):             # the first capped slot wins
+        capped = (((g_kind[:, s] == KIND_SPREAD)
+                   | (g_kind[:, s] == KIND_ANTI_AFFINITY))
+                  & (g_refs[:, s] >= 0))
+        l_ref = torch.where(capped, g_refs[:, s], l_ref)
+    g_capped = l_ref >= 0
+    g_rr_dom = torch.where(g_capped[:, None],
+                           loc_dom[l_ref.clamp(0, L - 1).long()], -1)
+    g_ref_spread = torch.zeros((G, L), dtype=torch.bool, device=dev)
+    g_ref_anti = torch.zeros_like(g_ref_spread)
+    g_ref_seed = torch.zeros_like(g_ref_spread)
+    g_ref_soft = torch.zeros_like(g_ref_spread)
+    g_skew_l = torch.full((G, L), BIG, dtype=torch.int32, device=dev)
+    gidx = torch.arange(G, device=dev)
+    for s in range(S):
+        # one slot per group: the (group, l) pairs of one slot are distinct
+        l_s = g_refs[:, s].clamp(0, L - 1).long()
+        k_s = g_kind[:, s]
+        has = g_refs[:, s] >= 0
+        is_sp = has & (k_s == KIND_SPREAD)
+        g_ref_spread[gidx, l_s] |= is_sp
+        g_ref_anti[gidx, l_s] |= has & (k_s == KIND_ANTI_AFFINITY)
+        g_ref_seed[gidx, l_s] |= has & (k_s == KIND_AFFINITY) & loc[7][:, s]
+        g_ref_soft[gidx, l_s] |= has & (k_s == KIND_SOFT_SPREAD)
+        g_skew_l[gidx, l_s] = torch.minimum(
+            g_skew_l[gidx, l_s], torch.where(is_sp, loc[6][:, s], BIG))
+    return (spread_l, aff_l, softspread_l, anti_l, min_skew_l,
+            group_contrib, g_capped, g_rr_dom,
+            (g_ref_spread, g_ref_anti, g_ref_seed, g_ref_soft, g_skew_l))
+
+
+class LocPlan(NamedTuple):
+    """What a solve's locality passes visit, fixed for the whole solve: the
+    first `slots` constraint slots (past the last slot any group fills, a
+    slot allows everything and scores +0.0), and for each accept-cap pass
+    the locality groups where it can remove a row (a pass over any other
+    group keeps every row: its kind's flag is off for the group, or no
+    holder pair names it)."""
+    slots: int
+    anti: tuple
+    pair: tuple
+    seed: tuple
+    spread: tuple
+    soft: tuple
+
+
+def _loc_plan(loc, loc_hoist) -> LocPlan:
+    """The solve's LocPlan, from one host read before the round loop."""
+    spread_l, aff_l, softspread_l, anti_l = loc_hoist[:4]
+    g_ref_seed = loc_hoist[8][2]
+    L = spread_l.shape[0]
+    passes = torch.stack([
+        anti_l, loc[9] >= 0, aff_l & g_ref_seed.any(dim=0), spread_l,
+        softspread_l & ~(spread_l | anti_l)])                          # [5, L]
+    flags = torch.cat([passes.flatten(), (loc[4] >= 0).any(dim=0)]).tolist()
+    groups = [tuple(l for l in range(L) if flags[k * L + l])
+              for k in range(5)]
+    filled = [s for s, f in enumerate(flags[5 * L:]) if f]
+    return LocPlan(max(filled, default=0) + 1, *groups)
+
+
+def _seg_keep(active, key, limit_row, M, counted=None):
+    """Keep mask of the accept cap: within each key segment, every ACTIVE
+    row's inclusive prefix count of COUNTED rows (in the caller's
+    rank-sorted order) must stay within its limit_row. `counted` defaults to
+    `active`; a wider set charges rows the cap does not remove against the
+    budget."""
+    N = active.shape[0]
+    idx = torch.arange(N, device=active.device)
+    if counted is None:
+        counted = active
+    relevant = active | counted
+    k = torch.where(relevant, key, (M + 2) + idx)
+    order2 = torch.argsort(k, stable=True)
+    k2 = k[order2]
+    c = torch.cumsum(counted[order2].to(torch.int32), dim=0)
+    # each row's segment head: the first row of its key in the sorted keys
+    head = torch.searchsorted(k2, k2)
+    base = torch.where(head > 0, c[(head - 1).clamp(min=0)], 0)
+    keep2 = ~active[order2] | (c - base <= limit_row[order2])
+    keep = torch.empty_like(keep2)
+    keep[order2] = keep2
+    return keep
+
+
+def _loc_accept_cap(accept_sorted, snode, scontrib, sgid, loc, M, cnt, total,
+                    spread_l, aff_l, anti_l, min_skew_l, allowance_l,
+                    g_ref_masks, pair_l, g_capped, plan=None):
+    """Cap one round's accepts (rows in the round's (node, rank) order) so
+    the round has a legal sequential order. Each cap binds only the pods
+    whose GROUP references the locality group with a slot of the cap's kind
+    (g_ref_masks); plain contributors sequentialize after them. The passes,
+    in this order:
+
+    1. anti-affinity: one referencing pod per domain; the budget also counts
+       same-round contributors that are hard-constrained elsewhere
+       (g_capped), which may be pinned earlier in any legal order.
+    2. holder <-> matcher exclusion: a holder of anti term t may not land in
+       a domain where a pod matching t lands this round (other than itself).
+    3. affinity seeding (total == 0): one seed-slot pod per locality group.
+    4. hard spread: the level fill at the tightest referencing skew, each
+       row bounded by its own skew around the projected post-fill minimum;
+       then the ScheduleAnyway spread allowance.
+
+    Every removal runs before the level fill, so the fill's projected
+    minimum rests only on accepts that survive; the anti cap precedes the
+    exclusion, so a self-matching holder alone in its domain survives it
+    (the other order let two self-anti pods contesting one node block each
+    other every round: a livelock the reference's fuzzer found).
+
+    int32 as in the reference, without wraps: counts stay below N, and the
+    largest sum, skew_row + minc_proj, is at most (2^30 - 1) + 2^30.
+
+    plan (a LocPlan; default: every pass over every locality group) names
+    the groups each pass visits."""
+    loc_dom, dom_valid = loc[0], loc[2]
+    L = loc_dom.shape[0]
+    if plan is None:
+        plan = LocPlan(0, *[tuple(range(L))] * 5)
+    D = cnt.shape[1]
+    N = accept_sorted.shape[0]
+    dev = accept_sorted.device
+    sgid = sgid.long()
+    node_cl = snode.clamp(0, M - 1).long()
+    real = snode < M
+    ones = torch.ones((N,), dtype=torch.int32, device=dev)
+    g_ref_spread, g_ref_anti, g_ref_seed, g_ref_soft, g_skew_l = g_ref_masks
+    capped_row = g_capped[sgid]
+    dom_rows = loc_dom[:, node_cl]                                     # [L, N]
+
+    for l in plan.anti:
+        dom_i = dom_rows[l]
+        on_dom = (dom_i >= 0) & real
+        mine = accept_sorted & scontrib[:, l] & on_dom
+        counted = mine & (g_ref_anti[sgid, l] | capped_row)
+        act = anti_l[l] & mine & g_ref_anti[sgid, l]
+        accept_sorted = accept_sorted & _seg_keep(act, dom_i, ones, M,
+                                                  counted=counted)
+
+    for l in plan.pair:
+        lp = pair_l[l:l + 1]
+        contrib_p = scontrib.index_select(1, lp.clamp(0, L - 1).long())[:, 0]
+        dom_i = dom_rows[l]
+        dom_cl = dom_i.clamp(0, D - 1).long()
+        on_node = (dom_i >= 0) & real & accept_sorted
+        acc_p = (on_node & contrib_p).to(torch.int32)
+        t_p = torch.zeros((D,), dtype=torch.int32, device=dev).index_add_(
+            0, dom_cl, acc_p)
+        blocked = (lp >= 0) & on_node & scontrib[:, l] & (t_p[dom_cl] - acc_p > 0)
+        accept_sorted = accept_sorted & ~blocked
+
+    zeros = torch.zeros((N,), dtype=torch.int32, device=dev)
+    for l in plan.seed:
+        on_dom = (dom_rows[l] >= 0) & real
+        act = (aff_l[l] & (total[l] == 0) & accept_sorted & scontrib[:, l]
+               & g_ref_seed[sgid, l] & on_dom)
+        accept_sorted = accept_sorted & _seg_keep(act, zeros, ones, M)
+
+    for l in sorted(set(plan.spread) | set(plan.soft)):
+        dom_i = dom_rows[l]
+        on_dom = (dom_i >= 0) & real
+        if l in plan.soft and l not in plan.spread:
+            accept_sorted = _soft_spread_cap(accept_sorted, scontrib, sgid,
+                                             g_ref_soft, allowance_l, dom_i,
+                                             on_dom, l, M)
+            continue
+        dom_cl = dom_i.clamp(0, D - 1).long()
+        mine = spread_l[l] & accept_sorted & scontrib[:, l] & on_dom
+        act = mine & g_ref_spread[sgid, l]
+        counted = mine & (g_ref_spread[sgid, l] | capped_row)
+        t = torch.zeros((D,), dtype=torch.int32, device=dev).index_add_(
+            0, dom_cl, counted.to(torch.int32))
+        cl, valid = cnt[l], dom_valid[l]
+        skew = torch.where(min_skew_l[l] < BIG, min_skew_l[l], 0)
+        level = skew + torch.where(valid, cl + t, BIG).amin()
+        for _ in range(8):
+            # a monotone fixed point: each step bounds the level from
+            # above, so stopping after 8 is safe
+            a_sp = torch.minimum(t, (level - cl).clamp(min=0))
+            level = skew + torch.where(valid, cl + a_sp, BIG).amin()
+        a_spread = torch.minimum(t, (level - cl).clamp(min=0))         # [D]
+        minc_proj = torch.where(valid, cl + a_spread, BIG).amin()
+        skew_row = g_skew_l[sgid, l].clamp(max=BIG - 1)
+        limit_row = torch.maximum(skew_row + minc_proj - cl[dom_cl],
+                                  a_spread[dom_cl].clamp(max=BIG - 1))
+        accept_sorted = accept_sorted & _seg_keep(act, dom_i, limit_row, M,
+                                                  counted=counted)
+        if l in plan.soft:
+            accept_sorted = _soft_spread_cap(accept_sorted, scontrib, sgid,
+                                             g_ref_soft, allowance_l, dom_i,
+                                             on_dom, l, M)
+    return accept_sorted
+
+
+def _soft_spread_cap(accept_sorted, scontrib, sgid, g_ref_soft, allowance_l,
+                     dom_i, on_dom, l, M):
+    """The ScheduleAnyway spread allowance of locality group l: at most
+    allowance_l[l] soft-spread pods a domain this round."""
+    N = accept_sorted.shape[0]
+    act = ((allowance_l[l] < N) & accept_sorted & scontrib[:, l]
+           & g_ref_soft[sgid, l] & on_dom)
+    return accept_sorted & _seg_keep(act, dom_i, allowance_l[l].expand(N), M)
+
+
+def _loc_update_counts(cnt, loc, accepted, best, M):
+    """Add the round's placements (accepted [N], each at its node best [N])
+    into the domain counts of every locality group they contribute to."""
+    loc_dom, contrib = loc[0], loc[3]
+    L, D = cnt.shape
+    dom = loc_dom[:, best.clamp(0, M - 1).long()]                       # [L, N]
+    add = (accepted & (best >= 0) & (best < M))[None, :] & contrib.t() & (dom >= 0)
+    flat = (torch.arange(L, device=cnt.device)[:, None] * D
+            + dom.clamp(0, D - 1).long())
+    return cnt.reshape(-1).index_add(
+        0, flat.reshape(-1), add.reshape(-1).to(torch.int32)).view(L, D)
+
+
+def _loc_allowance(loc, active, spread_l, anti_l, softspread_l, N):
+    """Each soft-spread locality group's per-domain allowance for one round,
+    ceil(remaining contributors / domains): the batch balances across
+    domains within a round, then re-scores with fresh counts. N (no cap)
+    for every other group."""
+    remaining = (active[:, None] & loc[3]).sum(dim=0, dtype=torch.int32)
+    n_dom = loc[2].sum(dim=1, dtype=torch.int32).clamp(min=1)
+    soft_allow = ((remaining + n_dom - 1) // n_dom).clamp(min=1)
+    return torch.where(spread_l | anti_l, N,
+                       torch.where(softspread_l, soft_allow, N))
 
 
 def _best_nodes_chunked(req, group_id, group_feas, group_soft, free, capacity,
@@ -156,12 +535,19 @@ def _cumsum_rows(x):
 
 
 def _water_fill_proposals(req, group_id, pod_order, active, group_feas, free,
-                          base_scores, group_soft):
+                          base_scores, group_soft, g_rr_dom=None,
+                          g_capped=None):
     """Capacity-aware proposals, the batched analog of "fill nodes in score
     order": for each group, order its feasible nodes by score, take the
     saturating prefix sums of their free capacity and of the rank-ordered
     demand of the group's pods, and propose pod i to the node whose
     cumulative capacity first covers pod i's cumulative demand.
+
+    Groups under a per-domain locality cap (g_capped [G], with g_rr_dom
+    [G, M] each node's domain for the group's first capped slot) propose
+    round-robin instead: the group's k-th pod goes to the k-th node of an
+    order that rotates across domains (the best node of each domain, then
+    the second best of each, ...), keeping score order inside each tier.
 
     pod_order is argsort(rank) (stable), hoisted by the caller. The
     saturating scan min(a + b, CAP) over non-negative values equals
@@ -193,6 +579,23 @@ def _water_fill_proposals(req, group_id, pod_order, active, group_feas, free,
             cum_free[r], cum_dem[r], right=False))
     node = torch.gather(node_order, 1, pos.clamp(0, M - 1))
     prop = torch.where(mine & (pos < M), node, M)                    # [G, N]
+    if g_rr_dom is not None:
+        idx_m = torch.arange(M, device=req.device)
+        dom_s = torch.gather(g_rr_dom, 1, node_order)    # in score order
+        ord2 = torch.argsort(dom_s, dim=1, stable=True)  # domains together
+        k2 = torch.gather(dom_s, 1, ord2)
+        head = torch.searchsorted(k2, k2)        # first node of its domain
+        wr = torch.empty_like(head).scatter_(1, ord2, idx_m - head)  # tier
+        wr_eff = torch.where(feas_o, wr, BIG)
+        rr_order = torch.gather(node_order, 1,
+                                torch.argsort(wr_eff, dim=1, stable=True))
+        n_feas = group_feas.sum(dim=1)[:, None]                      # [G, 1]
+        kk = _cumsum_rows(mine.to(torch.int64)) - 1          # rank in group
+        rr_node = torch.gather(rr_order, 1,
+                               torch.remainder(kk, n_feas.clamp(min=1))
+                               .clamp(0, M - 1))
+        rr_prop = torch.where(mine & (n_feas > 0), rr_node, M)
+        prop = torch.where(g_capped[:, None], rr_prop, prop)
     chosen_sorted = prop.min(dim=0).values      # each pod is in one group
     proposals = torch.full((N,), M, dtype=torch.int64, device=req.device)
     proposals[pod_order] = chosen_sorted
@@ -237,47 +640,74 @@ def _hoist_group_state(g_term_req, g_term_forb, g_term_valid, g_anyof,
 
 
 def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
-                  capacity, *, max_rounds, chunk, policy, use_pallas,
-                  pallas_soft, score_cols):
-    """The round loop for one pod slice against hoisted group state.
-    Returns (assigned [N] int32, accept_round [N] int32, free [M, R] int32,
-    rounds)."""
+                  cnt0, capacity, loc, loc_hoist, *, max_rounds, chunk,
+                  policy, use_pallas, has_loc_soft, pallas_soft, score_cols,
+                  loc_plan=None):
+    """The round loop for one pod slice against hoisted group state. free0
+    [M, R] and the locality counts cnt0 [L, D] carry across chained slices;
+    loc is None, or this slice's loc tuple with loc_hoist from
+    _hoist_loc_state and loc_plan from _loc_plan. Returns (assigned [N] int32, accept_round [N] int32,
+    free [M, R] int32, rounds, cnt [L, D] int32)."""
     N, R = req.shape
     M = free0.shape[0]
     dev = req.device
     sc = score_cols if score_cols > 0 else R
     cur_free = free0.clone()
+    cnt = cnt0
     done = ~valid
     assigned = torch.full((N,), -1, dtype=torch.int32, device=dev)
     around = torch.full((N,), -1, dtype=torch.int32, device=dev)
     rank_order = torch.argsort(rank, stable=True)
     rank_sorted_req = req[rank_order]
     mode = "quantized" if use_pallas else "exact"
+    g_capped = g_rr_dom = None
+    if loc is not None:
+        (spread_l, aff_l, softspread_l, anti_l, min_skew_l, group_contrib,
+         g_capped, g_rr_dom, g_ref_masks) = loc_hoist
+        slots = loc_plan.slots
+        gidx = torch.arange(group_feas.shape[0], device=dev)
+        loc_sorted = loc[3][rank_order]
+        gid_sorted = group_id[rank_order]
     rnd, stalls = 0, 0
     all_done = bool(done.all())
     while stalls < 2 and rnd < max_rounds and not all_done:
         base_scores = node_base_scores(cur_free[:, :sc], capacity[:, :sc],
                                        policy)
         active = ~done
+        feas_round, soft_round = group_feas, group_soft
+        if loc is not None:
+            # the round's locality rules and scores, one [G, M] row per
+            # group, folded into what every later stage reads
+            minc, total = _loc_round_stats(loc, cnt)
+            loc_mask = _loc_rules_mask(gidx, None, loc, cnt, minc, total,
+                                       group_contrib, slots)
+            feas_round = group_feas & loc_mask
+            if has_loc_soft:
+                soft_round = group_soft + _loc_soft_scores(
+                    gidx, None, loc, cnt, minc, group_contrib, slots)
         proposals = _water_fill_proposals(req, group_id, rank_order, active,
-                                          group_feas, cur_free, base_scores,
-                                          group_soft)
+                                          feas_round, cur_free, base_scores,
+                                          soft_round, g_rr_dom, g_capped)
         prop_real = proposals < M
-        at_prop = cur_free[proposals.clamp(0, M - 1)] - req
+        prop_cl = proposals.clamp(0, M - 1)
+        at_prop = cur_free[prop_cl] - req
         prop_fits = prop_real & (torch.where(prop_real[:, None], at_prop, -1)
                                  >= 0).all(dim=1)
+        if loc is not None:
+            # a proposal must also satisfy the round's locality rules
+            prop_fits = prop_fits & loc_mask[group_id.long(), prop_cl]
         if rnd % 2 == 1:
             # exact per-pod best node: guarantees an accept per contended node
             if policy == "align":
                 best, feasible = _best_nodes_chunked(
-                    req, group_id, group_feas, group_soft, cur_free, capacity,
+                    req, group_id, feas_round, soft_round, cur_free, capacity,
                     base_scores, chunk, policy, score_cols)
             else:
                 # the exact mode always scores with the soft matrix, as the
                 # reference's argmax does; the soft-free kernel variant is
                 # the quantized mode's, as the Pallas kernel's is
                 best, feasible = best_nodes(
-                    req, group_id, group_feas, group_soft, cur_free,
+                    req, group_id, feas_round, soft_round, cur_free,
                     base_scores, mode=mode,
                     has_soft=pallas_soft or not use_pallas, chunk=chunk,
                     rows=active & ~prop_fits)
@@ -293,21 +723,32 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
         snode = node_key[order]
         sreq = rank_sorted_req[by_node]
         accept_sorted = _segment_prefix_accept(snode, sreq, cur_free, M)
+        if loc is not None:
+            allowance_l = _loc_allowance(loc, active, spread_l, anti_l,
+                                         softspread_l, N)
+            accept_sorted = _loc_accept_cap(
+                accept_sorted, snode, loc_sorted[by_node], gid_sorted[by_node],
+                loc, M, cnt, total, spread_l, aff_l, anti_l, min_skew_l,
+                allowance_l, g_ref_masks, loc[9], g_capped, loc_plan)
         delta = torch.where(accept_sorted[:, None], sreq, 0)
         cur_free = cur_free.index_add(0, snode.clamp(0, M - 1), -delta)
         accepted = torch.zeros((N,), dtype=torch.bool, device=dev)
         accepted[order] = accept_sorted
         assigned = torch.where(accepted, merged.to(torch.int32), assigned)
         around = torch.where(accepted, torch.full_like(around, rnd), around)
+        if loc is not None:
+            cnt = _loc_update_counts(cnt, loc, accepted, merged, M)
         done = done | accepted
         progress, all_done = torch.stack(
             [accept_sorted.any(), done.all()]).tolist()
         stalls = 0 if progress else stalls + 1
         rnd += 1
-    return assigned, around, cur_free, rnd
+    return assigned, around, cur_free, rnd, cnt
 
 
-def _prepare(args, device):
+def _prepare(args, loc, device):
+    """The solve's arguments (SOLVE_ARG_NAMES up to host_soft, then loc) as
+    tensors on `device`, with the hoisted [G, M] group state."""
     (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
      g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
      g_pref_weight, node_labels, node_taints, node_taints_soft, node_ports,
@@ -318,7 +759,16 @@ def _prepare(args, device):
         g_tol, g_ports, g_pref_req, g_pref_forb, g_pref_weight,
         node_labels, node_taints, node_taints_soft, node_ports, node_ok,
         host_group_mask, host_group_soft)
-    return req, group_id, rank, valid, free, capacity, group_feas, group_soft
+    loc_hoist = loc_plan = None
+    if loc is not None:
+        loc = tuple(_tensor(a, device) for a in loc)
+        loc_hoist = _hoist_loc_state(loc, group_id, group_feas.shape[0])
+        loc_plan = _loc_plan(loc, loc_hoist)
+        cnt0 = loc[1]
+    else:
+        cnt0 = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    return (req, group_id, rank, valid, free, capacity, group_feas,
+            group_soft, loc, loc_hoist, loc_plan, cnt0)
 
 
 def solve(
@@ -339,34 +789,37 @@ def solve(
     device=None,
 ):
     """One batched solve. Arguments are numpy arrays or tensors (bitsets as
-    uint32 or their int32 views) and move to `device` (default `cuda`).
-    Returns (assigned [N] int32, accept_round [N] int32, free_after [M, R]
-    int32, rounds).
+    uint32 or their int32 views) and move to `device` (default `cuda`); loc
+    is None or the locality tuple (see _loc_round_stats' section). Returns
+    (assigned [N] int32, accept_round [N] int32, free_after [M, R] int32,
+    rounds, cnt_final [L, D] int32; [1, 1] zeros without loc).
 
     score_cols > 0 restricts scoring to the first score_cols resource
     columns; feasibility uses all of them (prepare_solve_args appends
     capacity-1 host-port columns beyond them). use_pallas selects the
     best-node kernel's quantized mode, bit-equal to the reference's Pallas
-    kernel; the default exact mode is bit-equal to its XLA argmax."""
-    _check_scope(loc, topo, learned)
+    kernel; the default exact mode is bit-equal to its XLA argmax.
+    has_loc_soft=False skips the soft locality scores (all slot weights 0)."""
+    _check_scope(topo, learned)
     device = resolve_device(device)
-    (req, group_id, rank, valid, free, capacity, group_feas,
-     group_soft) = _prepare(
+    (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
+     loc_hoist, loc_plan, cnt0) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), device)
+         host_group_soft), loc, device)
     N = req.shape[0]
     chunk = min(chunk, N)
     if N % chunk:
         raise ValueError(f"batch size {N} must be a multiple of the chunk "
                          f"size {chunk}")
     return _solve_rounds(
-        req, group_id, rank, valid, group_feas, group_soft, free, capacity,
-        max_rounds=max_rounds, chunk=chunk, policy=policy,
-        use_pallas=use_pallas, pallas_soft=pallas_has_soft or has_loc_soft,
-        score_cols=score_cols)
+        req, group_id, rank, valid, group_feas, group_soft, free, cnt0,
+        capacity, loc, loc_hoist, max_rounds=max_rounds, chunk=chunk,
+        policy=policy, use_pallas=use_pallas, has_loc_soft=has_loc_soft,
+        pallas_soft=pallas_has_soft or has_loc_soft, score_cols=score_cols,
+        loc_plan=loc_plan)
 
 
 def solve_chunked(
@@ -388,20 +841,22 @@ def solve_chunked(
     device=None,
 ):
     """Chained fixed-shape solves over rank-ordered [chunk_pods]-pod slices,
-    carrying free capacity from slice to slice; the [G, M] group state is
-    computed once for the whole batch.
+    carrying free capacity and the locality counts from slice to slice; the
+    [G, M] group state and the locality hoist are computed once for the
+    whole batch, and each slice takes its rows of contrib. Returns what
+    `solve` returns.
 
     PRECONDITION: pod rows are sorted by rank (solve_batch sorts and unsorts
     around this call) — slice boundaries supersede rank priority."""
-    _check_scope(loc, topo, learned)
+    _check_scope(topo, learned)
     device = resolve_device(device)
-    (req, group_id, rank, valid, free, capacity, group_feas,
-     group_soft) = _prepare(
+    (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
+     loc_hoist, loc_plan, cnt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), device)
+         host_group_soft), loc, device)
     N = req.shape[0]
     mb = chunk_pods
     chunk = min(chunk, mb)
@@ -412,17 +867,19 @@ def solve_chunked(
     round_base = 0
     for start in range(0, N, mb):
         sl = slice(start, start + mb)
-        a_k, ar_k, free, r_k = _solve_rounds(
+        loc_k = None if loc is None else loc[:3] + (loc[3][sl],) + loc[4:]
+        a_k, ar_k, free, r_k, cnt = _solve_rounds(
             req[sl], group_id[sl], rank[sl], valid[sl], group_feas,
-            group_soft, free, capacity, max_rounds=max_rounds, chunk=chunk,
-            policy=policy, use_pallas=use_pallas,
+            group_soft, free, cnt, capacity, loc_k, loc_hoist,
+            max_rounds=max_rounds, chunk=chunk, policy=policy,
+            use_pallas=use_pallas, has_loc_soft=has_loc_soft,
             pallas_soft=pallas_has_soft or has_loc_soft,
-            score_cols=score_cols)
+            score_cols=score_cols, loc_plan=loc_plan)
         # offset accept rounds so the chain's order is globally monotone
         around.append(torch.where(ar_k >= 0, ar_k + round_base, -1).to(torch.int32))
         assigned.append(a_k)
         round_base += r_k
-    return torch.cat(assigned), torch.cat(around), free, round_base
+    return torch.cat(assigned), torch.cat(around), free, round_base, cnt
 
 
 def _unsort(order, *arrays):
@@ -442,6 +899,9 @@ def _sort_pods_by_rank(np_args):
     out = list(np_args)
     for i in range(4):  # req, group_id, rank, valid
         out[i] = np.asarray(np_args[i])[order]
+    loc = np_args[_ARG_LOC]
+    if loc is not None:
+        out[_ARG_LOC] = loc[:3] + (np.asarray(loc[3])[order],) + loc[4:]
     return tuple(out), order
 
 
@@ -485,8 +945,6 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     if getattr(batch, "req_device", None) is not None:
         not_ported("a device-resident request tensor (req_device)", 6,
                     "snapshot device state")
-    if batch.locality is not None:
-        not_ported("locality (batch.locality)", 5, "locality in the solve")
     if getattr(batch, "topo", None) is not None:
         not_ported("topology steering (batch.topo)", 9, "topology steering")
     na = node_arrays
@@ -536,6 +994,11 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     host_soft = getattr(batch, "g_host_soft", None)
     if host_soft is not None:
         host_soft = pad2d(host_soft, na.capacity, np.float32(0.0))
+    loc = None
+    lb = batch.locality
+    if lb is not None:
+        loc = (lb.dom, lb.cnt0, lb.dom_valid, lb.contrib, lb.g_refs,
+               lb.g_kind, lb.g_skew, lb.g_seed, lb.g_weight, lb.pair)
     np_args = (
         req_i, batch.group_id, batch.rank, batch.valid,
         batch.g_term_req.view(np.uint32), batch.g_term_forb.view(np.uint32),
@@ -545,11 +1008,12 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
         batch.g_pref_forb.view(np.uint32), batch.g_pref_weight,
         na.labels.view(np.uint32), na.taints_hard.view(np.uint32),
         na.taints_soft.view(np.uint32), node_ports_u32, node_ok,
-        free_i, cap_i, host_mask, host_soft, None, None,
+        free_i, cap_i, host_mask, host_soft, loc, None,
     )
     assert len(np_args) == len(SOLVE_ARG_NAMES)
     static_kwargs = dict(
-        has_loc_soft=False,
+        # all-hard locality batches skip the soft locality scores
+        has_loc_soft=lb is not None and bool(np.any(lb.g_weight)),
         # no-soft batches take the kernel variant without the soft matrix
         pallas_has_soft=(bool(batch.g_pref_weight.any())
                          or host_soft is not None
@@ -564,14 +1028,18 @@ def solve_args_from_numpy(np_args, static_kwargs, device):
     """The numpy SOLVE_ARG_NAMES tuple and static kwargs of a
     prepare_solve_args (this module's, or the JAX package's, which has the
     same layout) as the port's tensors on `device`, ready for `solve` or
-    `solve_chunked`: (args, kwargs)."""
+    `solve_chunked`: (args, kwargs). The loc tuple, when present, comes
+    across as a tuple of tensors in the loc position."""
     if len(np_args) != len(SOLVE_ARG_NAMES):
         raise ValueError(f"expected {len(SOLVE_ARG_NAMES)} solve args, got "
                          f"{len(np_args)}")
-    _check_scope(np_args[_ARG_LOC], np_args[_ARG_TOPO])
+    _check_scope(np_args[_ARG_TOPO])
     device = resolve_device(device)
     args = tuple(_tensor(a, device) for a in np_args[:_ARG_LOC])
-    return args, dict(static_kwargs, device=device)
+    loc = np_args[_ARG_LOC]
+    if loc is not None:
+        loc = tuple(_tensor(a, device) for a in loc)
+    return args + (loc,), dict(static_kwargs, device=device)
 
 
 def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
@@ -593,11 +1061,12 @@ def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
     N = np_args[0].shape[0]
     if N > mb:
         np_args_s, order = _sort_pods_by_rank(np_args)
-        assigned, around, free_after, rounds = solve_chunked(
+        assigned, around, free_after, rounds, cnt = solve_chunked(
             *np_args_s, chunk_pods=mb, **kwargs)
         if order is not None:
             assigned, around = _unsort(order, assigned, around)
     else:
-        assigned, around, free_after, rounds = solve(*np_args, **kwargs)
+        assigned, around, free_after, rounds, cnt = solve(*np_args, **kwargs)
     return SolveResult(assigned=assigned, free_after=free_after,
-                       rounds=rounds, accept_round=around)
+                       rounds=rounds, accept_round=around,
+                       cnt_final=cnt if batch.locality is not None else None)

@@ -115,7 +115,7 @@ def group_preferred_bonus(
     dev = node_labels.device
     words = _live_words(g_pref_req, g_pref_forb)
     bonus = torch.zeros((G, M), dtype=torch.float32, device=dev)
-    inv_100 = torch.tensor(0.01, dtype=torch.float32, device=dev)
+    inv_100 = torch.full((), 0.01, dtype=torch.float32, device=dev)
     for t in range(P):
         ok = torch.ones((G, M), dtype=torch.bool, device=dev)
         for w in words:
