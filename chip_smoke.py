@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port of the scheduler on one NVIDIA GPU and check
 it: the batched assignment solve and its kernel, the core scheduling cycle
-around them, and both again on a batch with pod locality.
+around them, both again on a batch with pod locality and on a labelled
+fleet with topology steering, and the device preemption planner.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,11 @@ phase fails, and when no CUDA device is present):
           main path's shapes, both modes and soft variants, plus
           all-infeasible, forced-tie and ragged-M cases, masks of requested
           rows (30%, none, 129 rows), ties that straddle the kernel's
-          node-slice boundaries, and R = 12 (the wide variant): bit-equal
+          node-slice boundaries, and R = 12 (the wide variant); and the
+          planned-domain bonus of topology steering at its path's shapes
+          (random, ties made only by its + 8.0 rounding, a row mask, no
+          row steered, slice-straddling ties inside one domain, R = 12):
+          bit-equal
   cut     the whole solve at 2,000 nodes x 10,000 pods of the slice's mixed
           workload, on `cuda` (kernel) and on `cpu` (plain): bit-identical
           assigned / accept_round / free_after / rounds
@@ -59,9 +64,30 @@ phase fails, and when no CUDA device is present):
           inputs; the host encode ms, the warm solve median, a device
           profile of one solve, and each kernel call's rows, CUDA-event ms
           and bound
+  topology a pod-slice fleet under a wave of multi-host jobs
+          (client/synthetic.make_topology_fleet / make_gang_pods). At the
+          cut (1,024 nodes in 32 ICI domains x 768 asks) the steered
+          solve_batch on `cuda` and `cpu` bit-identical in all five outputs,
+          and one core cycle (solver.topology auto) on each binding
+          identically by pod name with equal topology metrics; at 10,240
+          nodes in 320 domains x 7,680 asks the un-steered and the steered
+          solve on `cuda`, each with the JAX package's rounds, placed count
+          and one-domain gang ratio, best_nodes launched (its launches read
+          around the steered run) with the bonus and bit-equal at a steered
+          round's inputs, no node oversubscribed, every placement inside its
+          static feasibility; the fold's host ms, the warm solve median
+          (steered and not), a device profile, each kernel call's ms and
+          bound, and the plain version's ms at the last steered round
+  preempt the device preemption planner: 32 asks against 10,000 nodes of
+          victims (victim tables [16,384, 16, R]) on `cuda`, plan for plan
+          equal to the host planner and to the JAX package's counts,
+          dispatch and finish ms; then the quota-held trace through the
+          port's core on `cuda` and on `cpu`, evicting what the JAX core
+          evicts
   kernels one line per kernel: launches (the wrapper's count of calls in
-          the main path's run; launches_locality: in the locality path's
-          full-width run), error against the plain version, kernel / plain /
+          the main path's run; launches_locality and launches_topology: in
+          the locality and topology paths' full-width runs), error against
+          the plain version, kernel / plain /
           bound milliseconds (at the first odd round's inputs, as the main
           path calls it)
 
@@ -105,6 +131,42 @@ EXPECTED_CORE_CUT = 9_455
 # make_pressure_nodes): (rounds, pods placed)
 EXPECTED_LOCALITY = {(MAIN_NODES, MAIN_PODS): (16, 39_328),
                      (CUT_NODES, CUT_PODS): (16, 8_009)}
+# the topology workload (client/synthetic.make_topology_fleet and
+# make_gang_pods: scripts/topology_bench.py's build), as (pods, nodes,
+# domains): ten times the bench's default 768 x 1,024 x 32, and that cut
+TOPO_PODS, TOPO_NODES, TOPO_DOMAINS = 7_680, 10_240, 320
+TOPO_CUT_PODS, TOPO_CUT_NODES, TOPO_CUT_DOMAINS = 768, 1_024, 32
+# the JAX package's solve_batch on it, steered (build_topo_args with
+# app_rows={}) and not: rounds, pods placed, share of gangs in one domain
+EXPECTED_TOPOLOGY = {
+    (TOPO_PODS, TOPO_NODES, TOPO_DOMAINS): {
+        "on": {"rounds": 16, "placed": 7_541, "one_domain_ratio": 1.0},
+        "off": {"rounds": 16, "placed": 7_312,
+                "one_domain_ratio": 0.5891218872870249}},
+    (TOPO_CUT_PODS, TOPO_CUT_NODES, TOPO_CUT_DOMAINS): {
+        "on": {"rounds": 16, "placed": 763, "one_domain_ratio": 1.0},
+        "off": {"rounds": 16, "placed": 745,
+                "one_domain_ratio": 0.5578231292517006}}}
+# the JAX package's CoreScheduler (CPU, solver.topology auto) on the cut's
+# gang wave, driven as topology_cut drives the port's: pods placed, and its
+# topology metrics and last_cycle topology keys
+EXPECTED_TOPOLOGY_CORE_CUT = (752, {
+    "topology_gangs_total": 147, "topology_cross_domain_gangs_total": 0,
+    "topology_domain_fragmentation": 0.967725,
+    "topo_fragmentation": 0.967725, "topo_gangs": 147, "topo_domains": 32,
+    "topo_cycle_gangs": 147, "topo_cycle_cross_domain": 0})
+# the preemption workload (tests/test_preempt_solve.py's build_cluster at
+# 10,000 nodes, seed 0, one cycle's ask budget) and the JAX package's
+# plan_preemptions_batched on it: (plans, victims), and its first three
+# plans as (ask pod, node, victim pods)
+PREEMPT_NODES, PREEMPT_ASKS = 10_000, 32
+EXPECTED_PREEMPT = (32, 32)
+EXPECTED_PREEMPT_FIRST = [("hi-0-1", "n00005", ["v-5-0"]),
+                          ("hi-0-3", "n00001", ["v-1-2"]),
+                          ("hi-0-4", "n00007", ["v-7-0"])]
+# the JAX core's quota-held trace with preempt_device=True: (evicted pods,
+# asks held by quota)
+EXPECTED_QUOTA_HELD = (["qv-0"], 5)
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -157,24 +219,31 @@ def pair_counts(req, group_id, group_feas, free, rows=None,
 
 
 def best_nodes_bound_ms(req, group_id, group_feas, free, has_soft: bool,
-                        clock_hz: float, rows=None) -> dict:
+                        clock_hz: float, rows=None,
+                        bonus: bool = False) -> dict:
     """Least time for one best-node call: inputs read once and outputs
     written once over HBM bandwidth, against the operations these inputs
     need at the compare/logic rate. Each admitted pair (a requested row and
     a node its group admits) costs R fit compares; each compare also ANDs
     the running fit predicate, in the same instruction on this card
     (ISETP takes a predicate input). Each fitting pair costs one max. The
-    score add is one f32 add per (group, node) at the f32 rate. Also
-    returns the first slice's formula (every pod x every node, 2R + 1 +
-    soft lane operations over the 67 TFLOP/s float32 peak) as `old_ms`."""
+    score add is one f32 add per (group, node) at the f32 rate. With the
+    planned-domain bonus (topology steering) each fitting pair costs one
+    more compare (the domain match), each (group, node) one more add (the
+    rounded + 8.0), and node_dom [M] and pref [N] are read. Also returns the
+    first slice's formula (every pod x every node, 2R + 1 + soft lane
+    operations over the 67 TFLOP/s float32 peak) as `old_ms`."""
     N, R = req.shape
     G, M = group_feas.shape
     nbytes = (N * R * 4 + N * 4 + G * M + (G * M * 4 if has_soft else 0)
-              + M * R * 4 + M * 4 + N * 4 + N)
+              + M * R * 4 + M * 4 + N * 4 + N
+              + ((M + N) * 4 if bonus else 0))
     n_rows, admitted, fitting = pair_counts(req, group_id, group_feas, free,
                                             rows)
-    cmp_s = (admitted * R + fitting) / (CMP_PER_CLK_SM * SMS * clock_hz)
-    add_s = (G * M if has_soft else 0) / (FADD_PER_CLK_SM * SMS * clock_hz)
+    cmp_s = ((admitted * R + fitting * (2 if bonus else 1))
+             / (CMP_PER_CLK_SM * SMS * clock_hz))
+    adds = (G * M if has_soft else 0) + (G * M if bonus else 0)
+    add_s = adds / (FADD_PER_CLK_SM * SMS * clock_hz)
     t_ops = (cmp_s + add_s) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     old_ms = max(N * M * (2 * R + 1 + int(has_soft)) / OLD_PEAK_OPS_S * 1e3,
@@ -289,12 +358,82 @@ def phase_kernel(dev):
                                   "has_soft": has_soft, "equal": equal,
                                   "max_abs_err": err,
                                   "feasible": int(got[1].sum())})
+    cases += bonus_cases(rng, dev)
     bad = [c for c in cases if not c["equal"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
     return {"cases": len(cases), "all_equal": True, "tolerance": 0,
             "labels": sorted({c["case"] for c in cases}),
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def bonus_inputs(rng, N, M, G, R, D, dev, rounding_ties=False):
+    """Kernel inputs with the planned-domain bonus: pref [N] in [0, D) with
+    a quarter of the rows -1 (unsteered), node_dom [M] in [0, D) with a
+    tenth of the nodes -1 (unlabeled). rounding_ties: base scores 2^-24
+    apart near 0.5 and no soft term, which the + 8.0 of the bonus rounds
+    onto one float: ties that exist only on the bonus."""
+    inp = random_kernel_inputs(rng, N, M, G, R, dev)
+    if rounding_ties:
+        base = (np.float32(0.5) + (np.arange(M) % 64).astype(np.float32)
+                * np.float32(2.0**-24)).astype(np.float32)
+        inp = dict(inp, base_scores=torch.from_numpy(base).to(dev),
+                   group_soft=torch.zeros_like(inp["group_soft"]))
+    pref = rng.integers(0, D, (N,)).astype(np.int32)
+    pref[rng.random(N) < 0.25] = -1
+    node_dom = rng.integers(0, D, (M,)).astype(np.int32)
+    node_dom[rng.random(M) < 0.1] = -1
+    return inp, {"node_dom": torch.from_numpy(node_dom).to(dev),
+                 "pref": torch.from_numpy(pref).to(dev)}
+
+
+def bonus_cases(rng, dev):
+    """The planned-domain bonus (exact mode) against its plain version at
+    the topology path's shapes (N = 8,192 pods, M = 16,384 nodes, D = 512
+    domains): random, ties made only by the + 8.0 rounding, a 30% row
+    mask, every row unsteered, ties straddling the kernel's node slices
+    inside one domain, and R = 12."""
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference,
+                                                   slice_nodes)
+
+    N, M, G, R, D = 8_192, 16_384, 4, 8, 512
+    base, steer = bonus_inputs(rng, N, M, G, R, D, dev)
+    ties, ties_steer = bonus_inputs(rng, N, M, G, R, D, dev,
+                                    rounding_ties=True)
+    wide, wide_steer = bonus_inputs(rng, N, M, G, 12, D, dev)
+    some = random_rows(rng, N, N * 3 // 10, dev)
+    # four nodes around each slice boundary share one domain
+    edge_dom = ((torch.arange(M, device=dev) + 32) // 64 % D).to(torch.int32)
+    variants = [
+        ("bonus_random", base, steer, {}),
+        ("bonus_rounding_ties", ties, ties_steer, {}),
+        ("bonus_rows_30pct", base, steer, {"rows": some}),
+        ("bonus_unsteered", base,
+         dict(steer, pref=torch.full_like(steer["pref"], -1)), {}),
+        ("bonus_slice_edge_ties", slice_edge_ties(base, slice_nodes()),
+         dict(steer, node_dom=edge_dom), {"rows": some}),
+        ("bonus_r12", wide, wide_steer, {})]
+    cases = []
+    for label, inp, st, kw in variants:
+        for has_soft in (True, False):
+            got = best_nodes(**inp, has_soft=has_soft, **st, **kw)
+            torch.cuda.synchronize()
+            ref = best_nodes_reference(**inp, has_soft=has_soft, **st, **kw)
+            equal = (bool(torch.equal(got[0], ref[0]))
+                     and bool(torch.equal(got[1], ref[1])))
+            err = int((got[0].long() - ref[0].long()).abs().max())
+            case = {"case": label, "G": G, "N": N, "M": M,
+                    "R": inp["req"].shape[1], "mode": "exact",
+                    "has_soft": has_soft, "equal": equal,
+                    "max_abs_err": err, "feasible": int(got[1].sum())}
+            if label in ("bonus_random", "bonus_rounding_ties"):
+                # the bonus must move some answer (it is not a no-op)
+                plain = best_nodes(**inp, has_soft=has_soft, **kw)
+                case["moved"] = int((plain[0] != got[0]).sum())
+                case["equal"] = equal and case["moved"] > 0
+            cases.append(case)
+    return cases
 
 
 def build_workload(n_nodes, n_pods, make_pods=None):
@@ -419,7 +558,8 @@ def odd_round_calls(captured, clock_hz):
     for k, (args, kwargs) in enumerate(captured):
         b = best_nodes_bound_ms(args[0], args[1], args[2], args[4],
                                 kwargs.get("has_soft", True), clock_hz,
-                                rows=kwargs.get("rows"))
+                                rows=kwargs.get("rows"),
+                                bonus=kwargs.get("pref") is not None)
         ms = cuda_ms(lambda: best_nodes(*args, **kwargs), 10)
         calls.append({"round": 2 * k + 1, "rows": b["rows"], "ms": ms,
                       "bound_ms": b["bound_ms"], "pairs": b["pairs"],
@@ -954,6 +1094,391 @@ def phase_locality(dev, stats, clock_hz):
             "bound_ms_per_solve": sum(c["bound_ms"] for c in calls)}
 
 
+def topology_workload(n_pods, n_nodes, n_domains):
+    """client/synthetic's topology fleet (n_nodes in n_domains ICI domains,
+    co-tenants on about 60% of them) and its gang wave, encoded: (encoder,
+    batch, asks, gangs, co-tenant pods, host encode ms)."""
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.client.synthetic import (make_gang_pods,
+                                                     make_topology_fleet)
+    from yunikorn_tpu_torch.snapshot.encoder import SnapshotEncoder
+
+    cache = SchedulerCache()
+    nodes, co_tenants = make_topology_fleet(n_nodes, n_domains)
+    for node in nodes:
+        cache.update_node(node)
+    for pod in co_tenants:
+        cache.update_pod(pod)
+    pods, gangs = make_gang_pods(n_pods, n_nodes)
+    asks = asks_of(pods)
+    enc = SnapshotEncoder(cache)
+    t0 = time.perf_counter()
+    enc.sync_nodes(full=True)
+    batch = enc.build_batch(asks)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    return enc, batch, asks, gangs, co_tenants, encode_ms
+
+
+def fold_topology(batch, asks, enc):
+    """Fold the steering args onto the batch (app_rows={}: no app holds
+    allocations yet), as scripts/topology_bench.py does: host ms."""
+    from yunikorn_tpu_torch.topology.score import build_topo_args
+
+    t0 = time.perf_counter()
+    batch.topo = build_topo_args(asks, batch, enc.nodes, app_rows={})
+    ms = (time.perf_counter() - t0) * 1e3
+    if batch.topo is None or not batch.topo.stats.get("gangs"):
+        raise AssertionError("steering did not engage: no gang planned")
+    return ms
+
+
+def one_domain_ratio(assigned, asks, gangs, na) -> float:
+    """The share of gangs whose every member landed inside one ICI domain
+    (an unplaced member splits its gang), scripts/topology_bench.py's
+    metric."""
+    doms = {}
+    for i, row in enumerate(assigned[:len(asks)].cpu().tolist()):
+        doms.setdefault(asks[i].application_id, set()).add(
+            int(na.topo[row, 2]) if row >= 0 else -2)
+    whole = sum(1 for app, _ in gangs
+                if len(doms.get(app, {-2})) == 1 and -2 not in doms[app])
+    return whole / max(len(gangs), 1)
+
+
+def topology_result(batch, asks, gangs, enc, res):
+    placed = int((res.assigned[:len(asks)] >= 0).sum())
+    return {"rounds": res.rounds, "placed": placed,
+            "one_domain_ratio": one_domain_ratio(res.assigned, asks, gangs,
+                                                 enc.nodes)}
+
+
+def check_expected_topology(shape, got, steered=True):
+    want = EXPECTED_TOPOLOGY[shape]["on" if steered else "off"]
+    if got != want:
+        raise AssertionError(f"{'steered' if steered else 'un-steered'} "
+                             f"{shape}: {got} != the JAX package's {want}")
+
+
+TOPO_METRICS = ("topology_gangs_total", "topology_cross_domain_gangs_total",
+                "topology_domain_fragmentation")
+
+
+def topology_cut(dev):
+    """At the cut: the steered solve_batch on `cuda` and on `cpu`
+    bit-identical in all five outputs and equal to the JAX package's, then
+    one core cycle (solver.topology auto on the labelled fleet) on each,
+    binding identically by pod name with equal topology metrics, the JAX
+    core's placed count and metrics."""
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+
+    shape = (TOPO_CUT_PODS, TOPO_CUT_NODES, TOPO_CUT_DOMAINS)
+    enc, batch, asks, gangs, co_tenants, _ = topology_workload(*shape)
+    fold_topology(batch, asks, enc)
+    on_card = solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
+    torch.cuda.synchronize()
+    on_cpu = solve_batch(batch, enc.nodes, device="cpu", **SOLVE_KW)
+    same = {f: bool(torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)))
+            for f in ("assigned", "accept_round", "free_after")}
+    # no locality in this wave: both solves return no domain counts
+    same["cnt_final"] = on_card.cnt_final is None and on_cpu.cnt_final is None
+    same["rounds"] = on_card.rounds == on_cpu.rounds
+    if not all(same.values()):
+        raise AssertionError(f"cuda and cpu steered solves differ: {same}")
+    got = topology_result(batch, asks, gangs, enc, on_card)
+    check_expected_topology(shape, got)
+
+    from yunikorn_tpu_torch.client.synthetic import (make_gang_pods,
+                                                     make_topology_fleet)
+
+    out, binds, metrics = {}, {}, {}
+    for label, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        nodes, co_tenants = make_topology_fleet(TOPO_CUT_NODES,
+                                                TOPO_CUT_DOMAINS)
+        pods, _ = make_gang_pods(TOPO_CUT_PODS, TOPO_CUT_NODES)
+        apps = sorted({p.metadata.labels["applicationId"] for p in pods})
+        cache, core, cb = make_core(device, nodes,
+                                    [(a, "root.gangs") for a in apps])
+        for pod in co_tenants:
+            cache.update_pod(pod)
+        names = {p.uid: p.metadata.name for p in pods}
+        n, cycle_s = core_cycle(core, asks_of(pods))
+        check_tiers(core, f"topology cut on {label}")
+        if not core._topology_active:
+            raise AssertionError(f"{label}: topology did not engage")
+        binds[label] = {names[k]: v for k, v in cb.bound.items()}
+        m = core.metrics
+        metrics[label] = {
+            **{k: m.get(k) for k in TOPO_METRICS},
+            **{k: v for k, v in m["last_cycle"]["default"].items()
+               if k.startswith("topo_")}}
+        out[label] = {"placed": n, "cycle_ms": cycle_s * 1e3}
+    if binds["cuda"] != binds["cpu"]:
+        diff = sum(binds["cuda"].get(k) != v for k, v in binds["cpu"].items())
+        raise AssertionError(f"cuda and cpu cores bind the gang wave "
+                             f"differently ({diff} pods)")
+    if metrics["cuda"] != metrics["cpu"]:
+        raise AssertionError(f"topology metrics differ: {metrics}")
+    if not metrics["cuda"].get("topo_gangs"):
+        raise AssertionError("the core's cycle planned no gang")
+    if (out["cuda"]["placed"], metrics["cuda"]) != EXPECTED_TOPOLOGY_CORE_CUT:
+        raise AssertionError(f"core placed {out['cuda']['placed']}, metrics "
+                             f"{metrics['cuda']} != the JAX core's "
+                             f"{EXPECTED_TOPOLOGY_CORE_CUT}")
+    return {"shape": list(shape), "solve_identical": same, **got,
+            "core_identical": True, "core": out,
+            "core_metrics": metrics["cuda"]}
+
+
+def phase_topology(dev, stats, clock_hz):
+    """Topology steering: the cut (cuda against cpu, solve and core), then
+    the gang wave at 10,240 nodes in 320 ICI domains x 7,680 asks through
+    solve_batch on `cuda` with the steering folded on, best_nodes' launches
+    read around that one run."""
+    from yunikorn_tpu_torch.ops import assign, best_nodes as bn_mod
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    cut = topology_cut(dev)
+    shape = (TOPO_PODS, TOPO_NODES, TOPO_DOMAINS)
+    enc, batch, asks, gangs, _, encode_ms = topology_workload(*shape)
+
+    # the un-steered solve of the same wave, beside it
+    batch.topo = None
+    off = topology_result(batch, asks, gangs, enc,
+                          assign.solve_batch(batch, enc.nodes, device=dev,
+                                             **SOLVE_KW))
+    check_expected_topology(shape, off, steered=False)
+    off_ms = warm_solve_ms(batch, enc, dev, runs=3)
+
+    fold_ms = fold_topology(batch, asks, enc)
+    topo = batch.topo
+    res, captured, launches, first_ms = solve_capturing(batch, enc, dev)
+    if launches < 1:
+        raise AssertionError("the topology path launched no best_nodes "
+                             "kernel")
+    if not all(kw.get("pref") is not None for _, kw in captured):
+        raise AssertionError("a steered round called best_nodes without "
+                             "the planned-domain bonus")
+    got = topology_result(batch, asks, gangs, enc, res)
+    check_expected_topology(shape, got)
+    check_placements(batch, enc, res, len(asks), dev)
+
+    # the kernel at a steered round's inputs: bit-equal to plain
+    args, kwargs = captured[-1]
+    k_got = best_nodes(*args, **kwargs)
+    k_ref = bn_mod.best_nodes_reference(*args, **kwargs)
+    if not (torch.equal(k_got[0], k_ref[0]) and torch.equal(k_got[1], k_ref[1])):
+        raise AssertionError("kernel differs from plain at a steered round's "
+                             "inputs")
+    plain_ms = cuda_ms(lambda: bn_mod.best_nodes_reference(*args, **kwargs), 3)
+    solve_ms = warm_solve_ms(batch, enc, dev, runs=3)
+    fold_again = [fold_topology(batch, asks, enc) for _ in range(3)]
+    profile = profile_solve(
+        lambda: assign.solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW))
+    calls = odd_round_calls(captured, clock_hz)
+    stats.setdefault("best_nodes", {})["launches_topology"] = launches
+    accepted = res.accept_round[res.accept_round >= 0].long()
+    return {"cut": cut, "shape": list(shape),
+            "N": int(batch.req.shape[0]), "M": enc.nodes.capacity,
+            "D": int(topo.dom_busy.shape[0]),
+            "G": int(batch.g_tol.shape[0]), "gangs": len(gangs),
+            "gangs_planned": topo.stats["gangs"],
+            "domains": topo.stats["domains"],
+            "fragmentation": topo.stats["fragmentation"],
+            **got, "expected": EXPECTED_TOPOLOGY[shape],
+            "unsteered": off,
+            "unsteered_warm_solve_ms_median": statistics.median(off_ms),
+            "unsteered_warm_solve_ms": off_ms,
+            "placed_per_round": torch.bincount(
+                accepted, minlength=res.rounds).tolist(),
+            "best_nodes_launches": launches,
+            "kernel_equal_at_steered_round": True,
+            "encode_ms": encode_ms, "fold_ms": fold_ms,
+            "fold_ms_warm": fold_again, "first_solve_ms": first_ms,
+            "warm_solve_ms_median": statistics.median(solve_ms),
+            "warm_solve_ms": solve_ms, "profile": profile,
+            "kernel_calls": calls,
+            "kernel_ms_per_solve": sum(c["ms"] for c in calls),
+            "bound_ms_per_solve": sum(c["bound_ms"] for c in calls),
+            "plain_ms_at_last_steered_round": plain_ms}
+
+
+def preempt_cluster(seed, n_nodes, n_asks):
+    """tests/test_preempt_solve.py's build_cluster at n_nodes with n_asks
+    asks: nodes of 4,000m / 8 GiB holding 0-6 bound victims each at mixed
+    priorities and sizes, and high-priority asks (priority 10, 50 or 100)
+    that fit nowhere without evictions. (cache, encoder, asks,
+    app_of_pod)."""
+    import random
+
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.common.objects import make_node, make_pod
+    from yunikorn_tpu_torch.common.resource import get_pod_resource
+    from yunikorn_tpu_torch.common.si import AllocationAsk
+    from yunikorn_tpu_torch.snapshot.encoder import SnapshotEncoder
+
+    rng = random.Random(seed)
+    cache = SchedulerCache()
+    app_of_pod = {}
+    for i in range(n_nodes):
+        cache.update_node(make_node(f"n{i:05d}", cpu_milli=4000,
+                                    memory=8 * 2**30,
+                                    labels={"zone": f"z{i % 3}"}))
+        for j in range(rng.randint(0, 6)):
+            v = make_pod(f"v-{i}-{j}",
+                         cpu_milli=rng.choice([250, 500, 1000, 1500]),
+                         memory=rng.choice([2**28, 2**29]),
+                         node_name=f"n{i:05d}", phase="Running",
+                         priority=rng.choice([0, 1, 1, 2, 5]))
+            v.metadata.creation_timestamp = 1000.0 + rng.random() * 100
+            cache.update_pod(v)
+            app_of_pod[v.uid] = f"victim-app-{i % 4}"
+    asks = []
+    for k in range(n_asks):
+        p = make_pod(f"hi-{seed}-{k}",
+                     cpu_milli=rng.choice([1000, 2000, 3000]),
+                     memory=2**28, priority=rng.choice([10, 50, 100]))
+        cache.update_pod(p)
+        asks.append(AllocationAsk(p.uid, f"hi-app-{k % 2}",
+                                  get_pod_resource(p),
+                                  priority=p.spec.priority, pod=p))
+    enc = SnapshotEncoder(cache)
+    enc.sync_nodes(full=True)
+    return cache, enc, asks, app_of_pod
+
+
+def plans_key(plans):
+    return [(p.ask.pod.metadata.name, p.node_id,
+             [v.metadata.name for v in p.victims]) for p in plans]
+
+
+def quota_held_trace(device):
+    """tests/test_preempt_solve.py's run_quota_held_trace on the port's core
+    (device planner at its default, on): four nodes each filled by one
+    priority-0 victim, six priority-100 asks of which the queue's 3-vcore
+    quota holds all but one, the leftover preempting. The quota is set on
+    the queue tree directly (the queues.yaml parser needs PyYAML). (evicted
+    pod names in emit order, held count, core)."""
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.common import si
+    from yunikorn_tpu_torch.common.objects import make_node, make_pod
+    from yunikorn_tpu_torch.common.resource import get_pod_resource
+    from yunikorn_tpu_torch.core import queues
+    from yunikorn_tpu_torch.core.scheduler import CoreScheduler, SolverOptions
+
+    cache = SchedulerCache()
+    names, released, victims = {}, [], []
+    for i in range(4):
+        cache.update_node(make_node(f"qn{i}", cpu_milli=2000,
+                                    memory=8 * 2**30))
+        v = make_pod(f"qv-{i}", cpu_milli=2000, memory=2**28,
+                     node_name=f"qn{i}", phase="Running", priority=0)
+        v.metadata.creation_timestamp = 1000.0 + i
+        cache.update_pod(v)
+        victims.append(v)
+        names[v.uid] = v.metadata.name
+
+    class Callback(NullCallback):
+        def update_allocation(self, response):
+            for rel in response.released:
+                if (rel.termination_type
+                        == si.TerminationType.PREEMPTED_BY_SCHEDULER):
+                    released.append(names[rel.allocation_key])
+
+    core = CoreScheduler(cache, device=device,
+                         solver_options=SolverOptions(pipeline=False))
+    core.register_resource_manager(si.RegisterResourceManagerRequest(
+        rm_id="t", policy_group="queues"), Callback())
+    core.queue_trees["default"].reload(queues._parse_queue_config(
+        {"name": "root", "queues": [
+            {"name": "qv"},
+            {"name": "qhi", "resources": {"max": {"vcore": 3}}}]}))
+    core.update_application(si.ApplicationRequest(new=[
+        si.AddApplicationRequest(application_id="victim-app",
+                                 queue_name="root.qv",
+                                 user=si.UserGroupInfo(user="v")),
+        si.AddApplicationRequest(application_id="hi-app",
+                                 queue_name="root.qhi",
+                                 user=si.UserGroupInfo(user="h"))]))
+    core.update_node(si.NodeRequest(nodes=[si.NodeInfo(
+        node_id=f"qn{i}", action=si.NodeAction.CREATE,
+        existing_allocations=[si.Allocation(
+            allocation_key=v.uid, application_id="victim-app",
+            node_id=f"qn{i}", resource=get_pod_resource(v))])
+        for i, v in enumerate(victims)]))
+    asks = []
+    for k in range(6):
+        p = make_pod(f"qhi-{k}", cpu_milli=2000, memory=2**28, priority=100)
+        p.metadata.creation_timestamp = 2000.0 + k
+        cache.update_pod(p)
+        asks.append(si.AllocationAsk(p.uid, "hi-app", get_pod_resource(p),
+                                     priority=100, pod=p))
+    core.update_allocation(si.AllocationRequest(asks=asks))
+    core.schedule_once()
+    held = core.obs.get("unschedulable_total").value(reason="quota_held")
+    return released, held, core
+
+
+def phase_preempt(dev):
+    """The device preemption planner: 32 asks against 10,000 nodes of
+    victims on `cuda`, plan for plan equal to the host planner and to the
+    JAX package's plan count, dispatch and finish timed; then the
+    quota-held trace through the port's core on `cuda` and on `cpu`."""
+    from yunikorn_tpu_torch.core.preemption import (dispatch_preemption_solve,
+                                                    finish_preemption_solve,
+                                                    plan_preemptions)
+
+    cache, enc, asks, app_of_pod = preempt_cluster(0, PREEMPT_NODES,
+                                                   PREEMPT_ASKS)
+    cands = list(cache.node_names())
+    runs = []
+    for _ in range(3):   # the first run also syncs the victim tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = dispatch_preemption_solve(cache, enc, asks, app_of_pod,
+                                           candidate_nodes=cands, device=dev)
+        t1 = time.perf_counter()
+        plans, attempted, pstats = finish_preemption_solve(handle)
+        t2 = time.perf_counter()
+        runs.append({"dispatch_ms": (t1 - t0) * 1e3,
+                     "finish_ms": (t2 - t1) * 1e3,
+                     "victim_nodes_synced": pstats["victim_nodes_synced"]})
+    host, host_attempted = plan_preemptions(cache, asks, app_of_pod,
+                                            candidate_nodes=cands)
+    if plans_key(plans) != plans_key(host) or attempted != host_attempted:
+        raise AssertionError("device plans differ from the host planner's")
+    if {p.planner for p in plans} != {"device"} or pstats["fallbacks"]:
+        raise AssertionError(f"not every plan came from the device: "
+                             f"{pstats}")
+    victims = sum(len(p.victims) for p in plans)
+    if ((len(plans), victims) != EXPECTED_PREEMPT
+            or [tuple(k) for k in plans_key(plans)[:3]]
+            != EXPECTED_PREEMPT_FIRST):
+        raise AssertionError(f"(plans, victims) {(len(plans), victims)}, "
+                             f"first plans {plans_key(plans)[:3]} != the JAX "
+                             f"package's {EXPECTED_PREEMPT}, "
+                             f"{EXPECTED_PREEMPT_FIRST}")
+    profile = profile_solve(lambda: finish_preemption_solve(
+        dispatch_preemption_solve(cache, enc, asks, app_of_pod,
+                                  candidate_nodes=cands, device=dev)), top=8)
+
+    trace = {}
+    for label, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        released, held, core = quota_held_trace(device)
+        if (released, held) != EXPECTED_QUOTA_HELD:
+            raise AssertionError(f"{label}: evicted {released}, held {held} "
+                                 f"!= the JAX core's {EXPECTED_QUOTA_HELD}")
+        plans_m = core.metrics.get("preemption_plans_total")
+        if plans_m != {"planner=device": len(released)}:
+            raise AssertionError(f"{label}: plans {plans_m}")
+        trace[label] = {"evicted": released, "held": held, "plans": plans_m}
+    na = enc.nodes
+    return {"nodes": PREEMPT_NODES, "asks": PREEMPT_ASKS,
+            "victim_tables": list(na.victim_req.shape),
+            "plans": len(plans), "victims": victims,
+            "expected": list(EXPECTED_PREEMPT), "equal_to_host": True,
+            "runs": runs, "profile": profile, "quota_held": trace}
+
+
 def profile_solve(fn, top: int = 15):
     """Device time by kernel over one run of fn, such as one warm solve
     (torch.profiler), the device-busy sum and the idle share of the
@@ -1015,7 +1540,10 @@ def main() -> int:
               ("main", lambda: phase_main(dev, stats, max_sm_clock_hz())),
               ("core", lambda: phase_core(dev)),
               ("locality", lambda: phase_locality(dev, stats,
-                                                  max_sm_clock_hz()))]
+                                                  max_sm_clock_hz())),
+              ("topology", lambda: phase_topology(dev, stats,
+                                                  max_sm_clock_hz())),
+              ("preempt", lambda: phase_preempt(dev))]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -168,9 +168,6 @@ def test_segment_prefix_accept_equal(seed):
 
 def test_unported_inputs_raise():
     enc_t, batch_t, _ = build_mixed("yunikorn_tpu_torch", n_nodes=4, n_pods=8)
-    np_args, static = tassign.prepare_solve_args(batch_t, enc_t.nodes)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tassign.solve(*np_args[:23], topo=("dom",), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         tassign.solve_batch(batch_t, enc_t.nodes, learned=({}, 0),
                             device="cpu")

@@ -9,10 +9,11 @@ updates, the queue tree's allocated resources (per queue, user and group),
 the unschedulable counts (quota_held among them), the locality-fallback
 counters and the asks left pending. The records must be equal.
 
-The reference core runs with its device paths off (gate_device, preempt_
-device, topology and shard False, policy greedy) — the options the port
-has; one test also runs it with its defaults. The port's core runs on
-device="cpu": its solve's plain PyTorch path."""
+The reference core runs with the options the port has: gate_device and
+shard False, policy greedy, and its device preemption planner and topology
+steering at their defaults (auto), as the port's; one test also runs it
+with all its defaults. The port's core runs on device="cpu": its solve's
+plain PyTorch path."""
 import importlib
 import pathlib
 import subprocess
@@ -127,8 +128,7 @@ class Env:
             kw = {}
         else:
             kw = dict(solver_options=sched.SolverOptions(
-                gate_device=False, preempt_device=False, topology=False,
-                shard=False, policy="greedy"))
+                gate_device=False, shard=False, policy="greedy"))
         self.core = sched.CoreScheduler(self.cache, **kw)
         self.core.register_resource_manager(
             self.si.RegisterResourceManagerRequest(
@@ -661,7 +661,6 @@ def test_pipelined_cycles_publish_their_overlap():
 
 @pytest.mark.parametrize("option, item", [
     ({"shard": True}, 14), ({"gate_device": True}, 7),
-    ({"preempt_device": True}, 8), ({"topology": True}, 9),
     ({"policy": "optimal"}, 11), ({"policy": "learned"}, 12),
     ({"policy": "all"}, 12), ({"policy_checkpoint": "/ckpt/p"}, 12),
     ({"aot_namespace": "s0"}, 15),
@@ -675,21 +674,6 @@ def test_unported_option_raises_naming_its_item(option, item):
         tsched.CoreScheduler(SchedulerCache(), device="cpu",
                              solver_options=tsched.SolverOptions(**kw),
                              aot_namespace=ns)
-
-
-def test_topology_auto_on_a_labelled_fleet_raises():
-    from yunikorn_tpu_torch.topology.model import LABEL_ICI_DOMAIN
-
-    e = Env(PORT, None, nodes=0)
-    node = e.objects.make_node("t0", cpu_milli=8000,
-                               labels={LABEL_ICI_DOMAIN: "ici-0"})
-    e.add_nodes([node])
-    e.add_app("app-1")
-    e.submit([e.ask("app-1", "p0")])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9:"):
-        e.core.schedule_once()
-    assert e.core.metrics["scheduling_cycle_failures_total"] == {
-        "stage=sequential": 1}
 
 
 def test_core_raises_without_cuda(monkeypatch):

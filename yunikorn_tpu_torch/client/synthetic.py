@@ -4,12 +4,15 @@ Reference: deployments/kwok-perf-test/kwok-setup.sh:30-60 (N fake nodes with
 32 CPU / 256 Gi / 110 pods) and deploy-tool.sh:35-67 (sleep-pod deployments
 labeled applicationId + queue), plus the solve slice's mixed workload under
 pressure (make_pressure_nodes / make_pressure_pods), the same with pod
-locality (make_locality_pods) and the JAX package's every-channel mix
-(make_rich_constraint_pods).
+locality (make_locality_pods), the JAX package's every-channel mix
+(make_rich_constraint_pods), and a fragmented ICI-domain fleet under a wave
+of gangs (make_topology_fleet / make_gang_pods, scripts/topology_bench.py's
+build).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import random
+from typing import Dict, List, Optional, Tuple
 
 from yunikorn_tpu_torch.common import constants
 from yunikorn_tpu_torch.common.objects import Node, Pod, Taint, make_node, make_pod
@@ -218,3 +221,66 @@ def make_rich_constraint_pods(
                 NodeSelectorRequirement("zone", "In", ["z1"])]))])
         pods.append(p)
     return pods
+
+
+def _co_tenant_loads(rng: random.Random, n_nodes: int) -> List[Tuple[int, int]]:
+    """(node index, cpu milli) of the co-tenant pods of a topology fleet:
+    about 60% of the nodes, each loaded to leave room for about one gang
+    member."""
+    out = []
+    for i in range(n_nodes):
+        if rng.random() < 0.6:
+            out.append((i, rng.choice([4000, 6000])))
+    return out
+
+
+def make_topology_fleet(n_nodes: int, n_domains: int,
+                        seed: int = 0) -> Tuple[List[Node], List[Pod]]:
+    """A fleet of n_nodes (8,000m / 8 GiB) in n_domains ICI domains of
+    n_nodes // n_domains consecutive nodes (slice = domain // 8, rack =
+    domain // 4, canonical topology labels), and the co-tenant pods bound
+    on about 60% of them (4,000m or 6,000m, 1 GiB): free capacity
+    everywhere, a whole gang's worth of contiguous capacity only in some
+    domains. (nodes, co-tenant pods); scripts/topology_bench.py's build."""
+    from yunikorn_tpu_torch.topology.model import (LABEL_ICI_DOMAIN,
+                                                   LABEL_RACK, LABEL_SLICE)
+
+    rng = random.Random(seed)
+    per = max(n_nodes // n_domains, 1)
+    nodes = []
+    for i in range(n_nodes):
+        dom = i // per
+        nodes.append(make_node(
+            f"n{i:05d}", cpu_milli=8000, memory=8 * 2**30,
+            labels={LABEL_SLICE: f"slice-{dom // 8}",
+                    LABEL_RACK: f"rack-{dom // 4}",
+                    LABEL_ICI_DOMAIN: f"ici-{dom % 8}"}))
+    co_tenants = [make_pod(f"cot{i}", cpu_milli=cpu, memory=2**30,
+                           node_name=f"n{i:05d}")
+                  for i, cpu in _co_tenant_loads(rng, n_nodes)]
+    return nodes, co_tenants
+
+
+def make_gang_pods(n_pods: int, n_nodes: int,
+                   seed: int = 0) -> Tuple[List[Pod], List[Tuple[str, int]]]:
+    """The ask wave of make_topology_fleet(n_nodes, ., seed): n_pods pods of
+    1,900m / 256 MiB, 70% in gangs of 2, 3, 4, 6 or 8 (app gang-{g}), the
+    rest single pods (app solo-{g}), each labelled with its applicationId.
+    The same random stream continues after the fleet's draws. (pods,
+    [(gang app, size)])."""
+    rng = random.Random(seed)
+    _co_tenant_loads(rng, n_nodes)
+    pods: List[Pod] = []
+    gangs: List[Tuple[str, int]] = []
+    g = 0
+    while len(pods) < n_pods:
+        size = rng.choice([2, 3, 4, 6, 8]) if rng.random() < 0.7 else 1
+        size = min(size, n_pods - len(pods))
+        app = f"gang-{g}" if size >= 2 else f"solo-{g}"
+        pods.extend(make_pod(f"p{g}-{j}", cpu_milli=1900, memory=2**28,
+                             labels={constants.LABEL_APPLICATION_ID: app})
+                    for j in range(size))
+        if size >= 2:
+            gangs.append((app, size))
+        g += 1
+    return pods, gangs

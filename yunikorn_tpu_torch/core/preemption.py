@@ -8,8 +8,10 @@ predicate_manager.go:137-188). The per-(pod,node) ordered-victim-subset check
 with the startIndex contract lives in ops/preempt.py; this module holds the
 planner deciding WHICH asks preempt WHERE:
 
-  HOST (plan_preemptions) — the reference-shaped loop; in the JAX package
-  also the confirmation oracle of the device planner:
+  HOST (plan_preemptions) — the reference-shaped loop, kept as the
+  differential-testing oracle and the planner of asks whose constraints the
+  device cannot model (host-evaluated affinity, host ports, DRA/volume
+  restrictions):
     for each unplaced ask (priority order, bounded per cycle):
       candidate nodes   = feasible nodes for the ask's constraint group
       victims per node  = the node's shared victim table
@@ -21,10 +23,16 @@ planner deciding WHICH asks preempt WHERE:
                           victim-subset search
       emit releases     = TerminationType.PREEMPTED_BY_SCHEDULER
 
-  DEVICE — the JAX package's batched planner (one dispatch over all asks x
-  all nodes x all victim slots, confirmed through the same victim-subset
-  search) is ROADMAP item 8 and not part of the port yet: the port's core
-  plans every preemption on the host.
+  DEVICE (dispatch/finish_preemption_solve) — the same decision procedure as
+  ONE dispatch over all asks x all nodes x all victim slots
+  (ops/preempt_solve.py) on the caller's device, reading victim tables the
+  encoder re-encodes lazily (sync_victims) and uploads per dispatch. Both
+  planners consume ops.preempt.victim_table and the clamped priority-sum
+  helper, so their choices are identical whenever the device models the ask
+  (pinned by tests/test_torch_preempt_solve.py); every device plan is
+  confirmed through preemption_victim_search before any release is emitted,
+  so a stale table can only cost a host re-plan of that ask, never an
+  invalid eviction.
 
 The shim reacts to the releases by deleting the victim pods (reference
 handleReleaseAppAllocationEvent); the freed capacity is observed through the
@@ -231,3 +239,194 @@ def _plan_for_ask(cache, ask: AllocationAsk, already_victim: set,
     logger.info("preemption: ask %s evicts %d pods on node %s",
                 ask.allocation_key, len(chosen), node_id)
     return PreemptionPlan(ask=ask, node_id=node_id, victims=chosen)
+
+
+# --------------------------------------------------------------------------
+# Device planner: one victim-selection solve for all asks
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PreemptSolveHandle:
+    """A dispatched batched preemption solve: the launches are queued on the
+    device at dispatch and read back at finish, so the core's commit host
+    work runs while the card plans."""
+    asks: List[AllocationAsk]          # candidate order (priority desc)
+    device_rows: List[bool]            # per ask: modeled on the device?
+    node_idx: object                   # [A] int32 tensor on the device
+    victim_mask: object                # [A, V] bool tensor on the device
+    cache: object
+    encoder: object
+    app_of_pod: Dict[str, str]
+    inflight_by_node: Dict[str, object]
+    node_list: List[str]
+    stats: Dict[str, object]
+
+
+def dispatch_preemption_solve(
+    cache,
+    encoder,
+    unplaced_asks: List[AllocationAsk],
+    app_of_pod: Dict[str, str],
+    inflight_by_node: Optional[Dict[str, object]] = None,
+    candidate_nodes: Optional[List[str]] = None,
+    device=None,
+) -> Optional[PreemptSolveHandle]:
+    """Encode + dispatch the batched victim-selection solve on `device`
+    (default `cuda`).
+
+    Returns None when nothing is eligible, or when no eligible ask is one
+    the device can model (the caller then plans those on the host) — asks
+    in groups the device cannot model otherwise ride the handle and are
+    re-planned on the host at finish, sharing the claimed-victim set."""
+    import numpy as np
+
+    from yunikorn_tpu_torch.ops import preempt_solve as ps_mod
+
+    candidates = sorted(unplaced_asks, key=lambda a: -(a.priority or 0))
+    asks = [a for a in candidates[:MAX_PREEMPTING_ASKS_PER_CYCLE]
+            if (a.priority or 0) > 0 and _may_preempt(a) and a.pod is not None]
+    if not asks:
+        return None
+    inflight_by_node = inflight_by_node or {}
+    node_list = (candidate_nodes if candidate_nodes is not None
+                 else cache.node_names())
+
+    batch = encoder.build_batch(asks)
+    gph = batch.g_preempt_host
+    device_rows = [not bool(gph[int(batch.group_id[i])]) if gph is not None
+                   else True for i in range(len(asks))]
+    if not any(device_rows):
+        return None
+
+    synced = encoder.sync_victims(app_of_pod, cache.get_priority_class)
+    na = encoder.nodes
+    node_order = np.full((na.capacity,), ps_mod.NODE_ORDER_EXCLUDED, np.int32)
+    for pos, name in enumerate(node_list):
+        idx = na.index_of(name)
+        if idx is not None:
+            node_order[idx] = pos
+
+    free_delta = None
+    if inflight_by_node:
+        free_delta = np.zeros((na.capacity, encoder.vocabs.resources.num_slots),
+                              np.float32)
+        for name, res in inflight_by_node.items():
+            idx = na.index_of(name)
+            if idx is not None:
+                row = encoder.quantize_request(res)
+                free_delta[idx, : row.shape[0]] += row
+
+    np_args = ps_mod.prepare_preempt_args(
+        batch, len(asks), [(a.priority or 0) for a in asks], na, node_order,
+        free_delta=free_delta)
+    # rows the device cannot model leave the solve (their claims would skew
+    # later asks' eligibility against the host re-plan at finish)
+    a_valid = np_args[3].copy()
+    for i, ok in enumerate(device_rows):
+        if not ok:
+            a_valid[i] = False
+    np_args = np_args[:3] + (a_valid,) + np_args[4:]
+    node_idx, victim_mask = ps_mod.preempt_solve(
+        *np_args, max_candidates=MAX_CANDIDATE_NODES, device=device)
+    stats = {
+        "asks": len(asks),
+        "device_asks": sum(device_rows),
+        "victim_nodes_synced": synced,
+    }
+    return PreemptSolveHandle(
+        asks=asks, device_rows=device_rows, node_idx=node_idx,
+        victim_mask=victim_mask, cache=cache, encoder=encoder,
+        app_of_pod=app_of_pod, inflight_by_node=inflight_by_node,
+        node_list=node_list, stats=stats)
+
+
+def finish_preemption_solve(
+    handle: PreemptSolveHandle,
+    only_keys: Optional[set] = None,
+) -> Tuple[List[PreemptionPlan], List[str], Dict[str, object]]:
+    """Read the solve back, confirm every plan through the exact victim-
+    subset search, and host-re-plan what the device could not model, missed,
+    or what fails confirmation (the reference's semantics: the device's
+    freed-capacity arithmetic is deliberately conservative — floored victim
+    rows, truncated tables — so a miss is no proof the exact search would
+    miss). only_keys restricts to asks still worth planning (the core passes
+    the post-commit unplaced set). Returns (plans, attempted_ask_keys,
+    stats)."""
+    cache = handle.cache
+    na = handle.encoder.nodes
+    node_idx = handle.node_idx.cpu().numpy()
+    victim_mask = handle.victim_mask.cpu().numpy()
+    tables = _NodeTables(cache, handle.app_of_pod)
+    plans: List[PreemptionPlan] = []
+    attempted: List[str] = []
+    already: set = set()
+    fallbacks = 0
+    for k, ask in enumerate(handle.asks):
+        if only_keys is not None and ask.allocation_key not in only_keys:
+            continue
+        attempted.append(ask.allocation_key)
+        plan: Optional[PreemptionPlan] = None
+        if handle.device_rows[k] and int(node_idx[k]) >= 0:
+            row = int(node_idx[k])
+            name = na.name_of(row)
+            uids = na.victim_uids.get(row, ())
+            chosen = [uids[j] for j in range(min(len(uids), victim_mask.shape[1]))
+                      if victim_mask[k, j]]
+            if name is not None and chosen and not (set(chosen) & already):
+                resp = preemption_victim_search(cache, PreemptionPredicatesArgs(
+                    allocation_key=ask.pod.uid,
+                    node_id=name,
+                    preempt_allocation_keys=chosen,
+                    start_index=0,
+                ), extra_used=handle.inflight_by_node.get(name))
+                if resp.success:
+                    # state drift since encode can only shrink the prefix;
+                    # the confirmed subset is still minimal-in-order
+                    chosen = chosen[: resp.index + 1]
+                    victims = [v for v in (cache.get_pod(u) for u in chosen)
+                               if v is not None]
+                    if len(victims) == len(chosen):
+                        plan = PreemptionPlan(ask=ask, node_id=name,
+                                              victims=victims,
+                                              planner="device")
+        if plan is None:
+            plan = _plan_for_ask(cache, ask, already,
+                                 handle.inflight_by_node,
+                                 handle.node_list, tables)
+            if plan is not None and handle.device_rows[k]:
+                fallbacks += 1
+        if plan is not None:
+            for v in plan.victims:
+                already.add(v.uid)
+            plans.append(plan)
+    stats = dict(handle.stats)
+    stats["fallbacks"] = fallbacks
+    stats["plans"] = len(plans)
+    return plans, attempted, stats
+
+
+def plan_preemptions_batched(
+    cache,
+    encoder,
+    unplaced_asks: List[AllocationAsk],
+    app_of_pod: Dict[str, str],
+    inflight_by_node: Optional[Dict[str, object]] = None,
+    candidate_nodes: Optional[List[str]] = None,
+    device=None,
+) -> Tuple[List[PreemptionPlan], List[str], Dict[str, object]]:
+    """Dispatch + finish in one call (tests, scripts); the core splits the
+    two so the device solve overlaps its commit. A declined dispatch
+    (nothing eligible, or no ask the device can model) plans on the host
+    outright, as the core does."""
+    handle = dispatch_preemption_solve(
+        cache, encoder, unplaced_asks, app_of_pod,
+        inflight_by_node=inflight_by_node, candidate_nodes=candidate_nodes,
+        device=device)
+    if handle is None:
+        plans, attempted = plan_preemptions(
+            cache, unplaced_asks, app_of_pod,
+            inflight_by_node=inflight_by_node,
+            candidate_nodes=candidate_nodes)
+        return plans, attempted, {"asks": len(attempted), "device_asks": 0,
+                                  "plans": len(plans), "fallbacks": 0}
+    return finish_preemption_solve(handle)

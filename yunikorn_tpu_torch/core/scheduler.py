@@ -28,15 +28,23 @@ is absent, or raises NotImplementedError naming its ROADMAP item:
   - solver.gateDevice=True (gate device scan, item 7): auto runs the host
     array scan (core/gate.host_scan), which the JAX package pins identical
     to its device scan
-  - solver.preemptDevice=True (preemption planner, item 8): auto runs the
-    host planner (core/preemption.plan_preemptions)
-  - solver.topology=True, or auto on a fleet with topology labels (item 9)
   - solver.policy other than greedy (optimal: item 11; learned, all:
     item 12)
   - the persistent device node state and request rows (item 6): every
-    solve uploads the node arrays
+    solve uploads the node arrays, and every device preemption dispatch
+    the victim tables
   - any fallback below the device tier: a solve that fails after its
-    retries fails the cycle; nothing re-solves the card's work on the CPU
+    retries fails the cycle; nothing re-solves the card's work on the CPU.
+    A device preemption dispatch or finish that fails is counted as a
+    failed cycle stage ("preempt") and plans nothing that cycle: the host
+    planner does not re-plan it
+
+Topology steering (solver.topology, auto on a fleet with ICI-domain labels)
+and the device preemption planner (solver.preemptDevice, auto = on) run as
+in the JAX package: the steering args fold onto each batch at dispatch
+(_attach_topology), and the victim-selection solve is dispatched on the
+core's device before the commit and finished after it (_preempt_dispatch,
+_plan_preemption).
 """
 from __future__ import annotations
 
@@ -124,6 +132,10 @@ COMPLETING_TIMEOUT = 30.0  # Running app with nothing left → Completed after t
 # only the home shard (and the front end's fleet view) can decide that.
 SHARD_GUEST_APP_TAG = "yunikorn.io/shard-guest"
 
+# what _preempt_dispatch returns for a device dispatch that failed: the
+# cycle plans nothing (no host re-plan)
+_PREEMPT_DISPATCH_FAILED = object()
+
 # key namespace for app-COUNT slots on the shared GlobalQuotaLedger
 # (allocation-resource charges key on the allocation key; app slots key on
 # this prefix + application id, released on app removal)
@@ -156,8 +168,10 @@ class SolverOptions:
     # "auto" = on; the pipeline engages only in single-partition mode and
     # falls back to the sequential cycle otherwise.
     pipeline: Optional[bool] = None
-    # batched device preemption planner (solver.preemptDevice): ROADMAP
-    # item 8 — True raises; auto plans on the host.
+    # batched device preemption planner (solver.preemptDevice): victim
+    # selection for every unplaced ask as one solve on the core's device,
+    # each plan confirmed by the exact host search. Tri-state: None =
+    # "auto" = on; False keeps the host planner (plan_preemptions).
     preempt_device: Optional[bool] = None
     # array-form admission gate (solver.gateVectorized): quota + user/group
     # -limit admission as grouped prefix-scan arithmetic over one lexsorted
@@ -182,9 +196,11 @@ class SolverOptions:
     # learned-policy checkpoint prefix (solver.policyCheckpoint): item 12 —
     # set raises
     policy_checkpoint: str = ""
-    # topology-aware placement (solver.topology): ROADMAP item 9 — True,
-    # or auto on a fleet with topology labels, raises; False and auto on an
-    # unlabeled fleet run the topology-free solve
+    # topology-aware placement (solver.topology): ICI-domain contention
+    # penalty and per-gang preferred-domain steering in the solve, and
+    # topology-ordered preemption candidates (topology/ package).
+    # Tri-state: None = "auto" = on when the fleet carries topology labels;
+    # False keeps every solve the topology-free program.
     topology: Optional[bool] = None
 
     @classmethod
@@ -427,13 +443,18 @@ class CoreScheduler(SchedulerAPI):
         # ---- batched preemption planner (round 8) ----
         self._m_preempt_plans = m.counter(
             "preemption_plans_total",
-            "preemption plans emitted, by planner (host = reference-shaped "
-            "loop; the device planner is not ported yet)",
+            "preemption plans emitted, by planner (device = batched "
+            "victim-selection solve on the core's device, host = "
+            "reference-shaped loop)",
             labelnames=("planner",))
         self._m_preempt_victims = m.counter(
             "preemption_victims_total",
             "victims released by preemption, by trigger reason",
             labelnames=("reason",))
+        self._m_preempt_fallback = m.counter(
+            "preemption_device_fallback_total",
+            "device plans re-planned on the host (stale victim table, "
+            "confirmation failure, or victim collision)")
         self._m_mis_evictions = m.counter(
             "preemption_mis_evictions_total",
             "victims evicted for an ask that still had not placed when its "
@@ -515,6 +536,28 @@ class CoreScheduler(SchedulerAPI):
         self._m_batch_pods = m.histogram(
             "solve_batch_pods", "pods per dispatched solve batch",
             buckets=COUNT_BUCKETS)
+        # ---- topology-aware placement (solver.topology) ----
+        self._m_topo_cross = m.counter(
+            "topology_cross_domain_gangs_total",
+            "gangs (applications placing >= 2 pods in one cycle) whose "
+            "placements spanned more than one ICI domain — the cost the "
+            "topology-aware score exists to minimize")
+        self._m_topo_gangs = m.counter(
+            "topology_gangs_total",
+            "gangs (applications placing >= 2 pods in one cycle) committed "
+            "while topology accounting was active — the denominator for the "
+            "cross-domain ratio")
+        self._g_topo_frag = m.gauge(
+            "topology_domain_fragmentation",
+            "ICI-domain fragmentation of the fleet's free capacity in "
+            "[0, 1]: 0 = all free capacity in one domain, rising toward 1 "
+            "as it scatters (topology/model.fragmentation)")
+        # stats of the most recent topology fold (domains, gangs planned,
+        # fragmentation) and commit; ride the cycle entry
+        self._last_topo_stats: dict = {}
+        # resolved solver.topology tri-state for the current cycle ("auto"
+        # follows whether the fleet carries topology labels)
+        self._topology_active = False
         self._g_pipeline = {
             k: m.gauge("pipeline_" + k,
                        "last pipelined cycle: " + k.replace("_", " "))
@@ -917,6 +960,9 @@ class CoreScheduler(SchedulerAPI):
             return
         app.allocations[alloc.allocation_key] = alloc
         app.pending_asks.pop(alloc.allocation_key, None)
+        # the pod just became yunikorn-managed (a preemption candidate)
+        # with no cache-side pod event — the node's victim table is stale
+        self.encoder.mark_victims_stale(alloc.node_id)
         leaf = self.queues.resolve(app.queue_name, create=False)
         if leaf is not None:
             leaf.add_allocated(alloc.resource)
@@ -998,6 +1044,9 @@ class CoreScheduler(SchedulerAPI):
         alloc = app.allocations.pop(release.allocation_key, None)
         if alloc is None:
             return None
+        # no longer managed: the node's victim table is stale until the
+        # shim's pod deletion lands in the cache
+        self.encoder.mark_victims_stale(alloc.node_id)
         if batch_acc is not None:
             totals, user_totals = batch_acc
             qname = (self.partition.name, app.queue_name)
@@ -1497,15 +1546,32 @@ class CoreScheduler(SchedulerAPI):
 
     def _preempt_candidate_nodes(self) -> List[str]:
         """Candidate nodes in cache order, restricted to rows the encoder
-        holds as schedulable (the JAX package passes the same list to both
-        of its planners)."""
+        holds as schedulable — passed to BOTH planners so the device's
+        node_order ranking and the host loop walk identical lists.
+
+        With topology active the list is re-ranked toward freeing
+        CONTIGUOUS ICI domains (topology/score.preempt_node_order): nodes in
+        the domains holding the most free capacity come first. The single
+        ordered list feeds both planners, so their parity is untouched."""
         na = self.encoder.nodes
         out = []
         for name in self.cache.node_names():
             idx = na.index_of(name)
             if idx is not None and na.valid[idx] and na.schedulable[idx]:
                 out.append(name)
+        if self._topology_on():
+            from yunikorn_tpu_torch.topology.score import preempt_node_order
+
+            try:
+                out = preempt_node_order(out, na)
+            except Exception:
+                logger.exception("topology preempt ordering failed; cache "
+                                 "order stands")
         return out
+
+    def _preempt_device_enabled(self) -> bool:
+        so = self.solver
+        return True if so.preempt_device is None else so.preempt_device
 
     def _victim_credit_keys(self) -> frozenset:
         """Live cross-shard victim credits targeted at THIS shard (round
@@ -1524,15 +1590,95 @@ class CoreScheduler(SchedulerAPI):
         except Exception:
             return frozenset()
 
-    def _plan_preemption(self, unplaced_asks,
+    def _preempt_failed(self, what: str, exc: BaseException) -> None:
+        """A supervised device preemption call that failed past its
+        retries: counted as a failed "preempt" stage of the cycle (the
+        supervisor counted the attempts and moved the circuit), logged, and
+        the tick is not a success. Nothing re-plans the cycle on the host;
+        the asks stay off cooldown, so the next cycle plans them again."""
+        self._note_cycle_failure("preempt", exc)
+        self._cycle_abandoned = True
+        logger.exception("device preemption %s failed; no plans this cycle",
+                         what)
+
+    def _preempt_dispatch(self, admitted, batch, assigned):
+        """Dispatch the batched victim-selection solve on the core's device
+        for the rows the assignment left unplaced (core lock held). Runs
+        BEFORE the commit; _plan_preemption finishes the handle after it.
+        Returns None when preemption or the device planner is off or
+        nothing is eligible, and _PREEMPT_DISPATCH_FAILED when the dispatch
+        failed (counted, see _preempt_failed)."""
+        if not (self._preemption_enabled and self._preempt_device_enabled()):
+            return None
+        unassigned = np.flatnonzero(np.asarray(assigned) < 0)
+        if unassigned.size == 0:
+            return None
+        now = time.time()
+        self._purge_preempt_cooldown(now)
+        # deferred rows only "might still place" when the fallback drain
+        # will actually run — the condition _commit_solve uses
+        deferred = (set(batch.deferred)
+                    if self.solver.fallback_rounds > 0 else set())
+        # credited priority<=0 asks stay off the device dispatch (its
+        # victim arrays rank by real priority and would find nothing); the
+        # host residue pass lifts them via credit_keys instead
+        credits = self._victim_credit_keys()
+        prospective = []
+        for i in unassigned.tolist():
+            if i >= len(admitted) or i in deferred:
+                continue
+            ask = admitted[i]
+            if not batch.valid[i] or not self._ask_pending(ask):
+                continue
+            if (ask.priority or 0) <= 0:
+                continue
+            if (ask.allocation_key in self._preempted_for
+                    and ask.allocation_key not in credits):
+                continue
+            prospective.append(ask)
+        if not prospective:
+            return None
+        from yunikorn_tpu_torch.core.preemption import dispatch_preemption_solve
+
+        def fn():
+            with self._device_scope():
+                return dispatch_preemption_solve(
+                    self.cache, self.encoder, prospective, self._app_of_pod(),
+                    inflight_by_node=self._inflight_by_node(),
+                    candidate_nodes=self._preempt_candidate_nodes(),
+                    device=self.device)
+
+        t0 = time.time()
+        try:
+            # dispatch success alone must not re-close a half-open circuit:
+            # the finished plan is what proves the path healthy
+            handle = self.supervisor.run("preempt", fn, commit_success=False)
+        except Exception as e:
+            self._preempt_failed("dispatch", e)
+            return _PREEMPT_DISPATCH_FAILED
+        if handle is not None:
+            handle.stats["dispatch_ms"] = (time.time() - t0) * 1000
+        return handle
+
+    def _plan_preemption(self, unplaced_asks, handle=None,
                          cycle_id=None) -> List[AllocationRelease]:
-        """Preemption planning for unplaced high-priority asks (lock held)
-        with the host planner (core/preemption.plan_preemptions). The JAX
-        package's batched device planner is ROADMAP item 8."""
+        """Preemption planning for unplaced high-priority asks (lock held).
+
+        With a handle from _preempt_dispatch, finishes the device solve
+        (every plan confirmed through the exact victim-subset search against
+        the POST-commit in-flight overlay); otherwise runs the host planner
+        (preemptDevice off, or no ask the device could take). Plans for asks
+        placed after dispatch (the locality-fallback drain) are dropped."""
         preempt_releases: List[AllocationRelease] = []
-        if not (self._preemption_enabled and unplaced_asks):
+        if (not (self._preemption_enabled and unplaced_asks)
+                or handle is _PREEMPT_DISPATCH_FAILED):
             return preempt_releases
-        from yunikorn_tpu_torch.core.preemption import plan_preemptions
+        from yunikorn_tpu_torch.core.preemption import (
+            finish_preemption_solve,
+            plan_preemptions,
+        )
+        from yunikorn_tpu_torch.ops.preempt import (
+            MAX_PREEMPTING_ASKS_PER_CYCLE)
 
         t0 = time.time()
         now = t0
@@ -1540,14 +1686,53 @@ class CoreScheduler(SchedulerAPI):
         app_of_pod = self._app_of_pod()
         inflight_by_node = self._inflight_by_node()
         credits = self._victim_credit_keys()
-        planner = "host"
-        eligible = [a for a in unplaced_asks
-                    if a.allocation_key not in self._preempted_for
-                    or a.allocation_key in credits]
-        plans, attempted = plan_preemptions(
-            self.cache, eligible, app_of_pod, inflight_by_node,
-            candidate_nodes=self._preempt_candidate_nodes(),
-            credit_keys=credits)
+        stats: Dict[str, object] = {}
+        if handle is not None:
+            planner = "device"
+            # confirmation must see capacity this cycle's commit just
+            # consumed — refresh the overlay the handle captured at
+            # dispatch; asks placed since dispatch are excluded outright
+            handle.inflight_by_node = inflight_by_node
+            handle.app_of_pod = app_of_pod
+            unplaced_keys = {a.allocation_key for a in unplaced_asks}
+            try:
+                plans, attempted, stats = self.supervisor.run(
+                    "preempt",
+                    lambda: finish_preemption_solve(
+                        handle, only_keys=unplaced_keys))
+            except Exception as e:
+                self._preempt_failed("finish", e)
+                return preempt_releases
+            if stats.get("fallbacks"):
+                self._m_preempt_fallback.inc(stats["fallbacks"])
+            # residue: unplaced asks the dispatch never saw — locality-
+            # deferred rows that failed the same-cycle drain. Host-plan them
+            # against the device plans' claimed victims, inside the
+            # remaining per-cycle ask budget.
+            handled = {a.allocation_key for a in handle.asks}
+            budget = MAX_PREEMPTING_ASKS_PER_CYCLE - len(handle.asks)
+            residue = [a for a in unplaced_asks
+                       if a.allocation_key not in handled
+                       and (a.allocation_key not in self._preempted_for
+                            or a.allocation_key in credits)]
+            if residue and budget > 0:
+                claimed = {v.uid for p in plans for v in p.victims}
+                r_plans, r_att = plan_preemptions(
+                    self.cache, residue, app_of_pod, inflight_by_node,
+                    candidate_nodes=handle.node_list,
+                    already_victim=claimed, max_asks=budget,
+                    credit_keys=credits)
+                plans += r_plans
+                attempted += r_att
+        else:
+            planner = "host"
+            eligible = [a for a in unplaced_asks
+                        if a.allocation_key not in self._preempted_for
+                        or a.allocation_key in credits]
+            plans, attempted = plan_preemptions(
+                self.cache, eligible, app_of_pod, inflight_by_node,
+                candidate_nodes=self._preempt_candidate_nodes(),
+                credit_keys=credits)
         for key in attempted:
             # cooldown failed attempts too: an unplaceable ask must not
             # rescan the cluster every cycle
@@ -1574,19 +1759,25 @@ class CoreScheduler(SchedulerAPI):
                 self._evicted_for[plan.ask.allocation_key] = (
                     self._evicted_for.get(plan.ask.allocation_key, 0)
                     + released)
-        plan_ms = (time.time() - t0) * 1000
+        plan_ms = (time.time() - t0) * 1000 + float(stats.get("dispatch_ms", 0.0))
         if attempted or plans:
             # declared lazily at first pressure cycle: a histogram family
             # with zero children fails the exposition validator, and most
             # deployments never preempt
             self.obs.histogram(
                 "preemption_plan_ms",
-                "host-side preemption planning latency per pressure cycle",
+                "host-side preemption planning latency per pressure cycle "
+                "(device = victim sync + encode + dispatch + read back + "
+                "confirm)",
                 labelnames=("planner",), buckets=MS_BUCKETS,
             ).observe(plan_ms, planner=planner)
             self._g_preempt_last_ms.set(round(plan_ms, 3))
-            if plans:
-                self._m_preempt_plans.inc(len(plans), planner=planner)
+            # per-plan provenance: a device pass can still emit host plans
+            # (unsupported groups, confirmation re-plans, the residue pass)
+            for p in ("device", "host"):
+                n = sum(1 for plan in plans if plan.planner == p)
+                if n:
+                    self._m_preempt_plans.inc(n, planner=p)
             if cycle_id is not None:
                 self.tracer.add("preempt", cycle_id, t0, time.time(),
                                 planner=planner, plans=len(plans),
@@ -1640,6 +1831,7 @@ class CoreScheduler(SchedulerAPI):
         unplaced_asks: List = []
         fallback_keys: List[str] = []   # allocs placed by the fallback drain
         fb_rounds = 0
+        preempt_handle = None
         t_gate = time.time()
         if admitted:
             # overlay BEFORE sync: an assume landing in between then counts
@@ -1657,7 +1849,7 @@ class CoreScheduler(SchedulerAPI):
             batch = self.encoder.build_batch_cached(admitted, ranks=ranks,
                                                     extra_placed=inflight_placed)
             self._resolve_solver_runtime()
-            self._check_topology()
+            self._attach_topology(admitted, batch, overlay=overlay)
             t_encode = time.time()
             policy = self._policy_for_partition()
             handle = self._solve_dispatch(admitted, batch, policy, overlay,
@@ -1666,9 +1858,14 @@ class CoreScheduler(SchedulerAPI):
             # degrades and re-solves the same inputs (supervised)
             assigned = self._solve_materialize(handle)
             t_solve = time.time()
+            # second-stage dispatch: the victim-selection solve for the rows
+            # the assignment left unplaced is queued on the device before
+            # the commit's host bookkeeping
+            preempt_handle = self._preempt_dispatch(admitted, batch, assigned)
             (new_allocs, skipped_keys, unplaced_asks, fallback_keys,
              fb_rounds) = self._commit_solve(admitted, batch, assigned,
                                              policy, node_mask, cycle_id=cid)
+            self._note_topology_commit(new_allocs)
         if new_allocs or replaced.new:
             self._m_allocated.inc(len(new_allocs) + len(replaced.new))
         if skipped_keys:
@@ -1678,7 +1875,9 @@ class CoreScheduler(SchedulerAPI):
         t_commit = time.time()
 
         # preemption: try to make room for unplaced high-priority asks
-        preempt_releases = self._plan_preemption(unplaced_asks, cycle_id=cid)
+        # (finishing the victim solve dispatched before the commit)
+        preempt_releases = self._plan_preemption(unplaced_asks,
+                                                 preempt_handle, cycle_id=cid)
 
         # the publish payload is delivered by schedule_once AFTER the core
         # lock is released (callbacks may re-enter the core from other
@@ -1705,6 +1904,7 @@ class CoreScheduler(SchedulerAPI):
                 "encode_reencoded": self.encoder.last_encode_rows_reencoded,
             }
             entry.update(_gate_extras(self._last_gate_stats))
+            entry.update(_topo_extras(self._last_topo_stats))
             entry["solver_policy"] = "greedy"
             entry["solve_tier"] = handle.tier
             if fb_rounds:
@@ -1914,7 +2114,9 @@ class CoreScheduler(SchedulerAPI):
             overlay = self._inflight_overlay()
             inflight_ports = self._inflight_ports()
             self.encoder.sync_nodes()
-            self._check_topology()
+            # topology fold at DISPATCH time with the same in-flight
+            # overlay the solve subtracts
+            self._attach_topology(cyc.admitted, batch, overlay=overlay)
             cyc.policy = self._policy_for_partition()
             self._resolve_solver_runtime_locked()
             self.supervisor.cycle_id = cyc.cycle_id
@@ -1976,11 +2178,17 @@ class CoreScheduler(SchedulerAPI):
             self._use_partition("default")
             self._inflight_ask_keys = set()
             self._inflight_gate_seed = []
+            # the victim-selection solve for the unplaced rows is dispatched
+            # before the commit's host bookkeeping; _plan_preemption below
+            # confirms against post-commit state
+            preempt_handle = self._preempt_dispatch(cyc.admitted, batch,
+                                                    assigned)
             (new_allocs, skipped_keys, unplaced_asks, fallback_keys,
              fb_rounds) = self._commit_solve(cyc.admitted, batch, assigned,
                                              cyc.policy, None,
                                              node_names=cyc.node_names,
                                              cycle_id=cyc.cycle_id)
+            self._note_topology_commit(new_allocs)
             if new_allocs:
                 self._m_allocated.inc(len(new_allocs))
             if skipped_keys:
@@ -1990,7 +2198,7 @@ class CoreScheduler(SchedulerAPI):
                 (time.time() - cyc.t_prepare_start) * 1000))
             t_commit = time.time()
             preempt_releases = self._plan_preemption(
-                unplaced_asks, cycle_id=cyc.cycle_id)
+                unplaced_asks, preempt_handle, cycle_id=cyc.cycle_id)
             end = time.time()
             solve_ms = (t_mat1 - cyc.t_dispatched) * 1000
             # host time between dispatch and materialization = the next
@@ -2014,6 +2222,7 @@ class CoreScheduler(SchedulerAPI):
                 "overlap_ratio": round(overlap_ms / max(solve_ms, 1e-6), 3),
             }
             entry.update(_gate_extras(cyc.gate_stats))
+            entry.update(_topo_extras(self._last_topo_stats))
             entry["solver_policy"] = "greedy"
             entry["solve_tier"] = cyc.result.tier
             if fb_rounds:
@@ -2490,13 +2699,100 @@ class CoreScheduler(SchedulerAPI):
         return gate_mod.ledger_charges(leaf, app.user.user,
                                        app.user.groups, resource)
 
-    def _check_topology(self) -> None:
-        """solver.topology auto engages on a fleet whose nodes carry
-        topology labels (True raises at construction): topology steering
-        is ROADMAP item 9."""
-        if self.solver.topology is None and self.encoder.nodes.has_topology:
-            not_ported("topology steering (solver.topology auto on a fleet "
-                       "with topology labels)", 9, "topology steering")
+    # -------------------------------------------- topology-aware placement
+    # solver.topology: the ICI-domain model (topology/) steers the batched
+    # score — contention penalty + per-gang preferred-domain plan — and
+    # orders preemption candidates toward freeing contiguous domains. With
+    # the tri-state off (or a fleet with no topology labels) batch.topo
+    # stays None and every solve runs the topology-free program.
+
+    def _topology_on(self) -> bool:
+        t = self.solver.topology
+        if t is not None:
+            return t
+        return self.encoder.nodes.has_topology
+
+    def _attach_topology(self, admitted, batch, overlay=None) -> None:
+        """Fold the topology steering args onto the batch for this cycle's
+        dispatch (core lock held, nodes synced). `overlay` is the in-flight
+        allocation overlay the solve itself will subtract — the gang
+        planner sees the same overlay-reduced free capacity. Locality and
+        host-port batches keep their solve inputs as they are."""
+        batch.topo = None
+        self._last_topo_stats = {}
+        self._topology_active = self._topology_on()
+        if not self._topology_active:
+            return
+        na = self.encoder.nodes
+        try:
+            from yunikorn_tpu_torch.topology import score as topo_score
+            from yunikorn_tpu_torch.topology.model import fleet_fragmentation
+
+            if (batch.locality is None
+                    and not batch.g_ports.view(np.uint32).any()):
+                # domain stickiness: node rows of each batch app's EXISTING
+                # allocations (O(batch apps' allocations))
+                app_rows: Dict[str, List[int]] = {}
+                for ask in admitted[: batch.num_pods]:
+                    app = self.partition.applications.get(ask.application_id)
+                    if app is None or ask.application_id in app_rows:
+                        continue
+                    rows = []
+                    for alloc in app.allocations.values():
+                        idx = na.index_of(alloc.node_id)
+                        if idx is not None:
+                            rows.append(idx)
+                    app_rows[ask.application_id] = rows
+                batch.topo = topo_score.build_topo_args(
+                    admitted, batch, na, app_rows, free_delta=overlay)
+            if batch.topo is not None:
+                s = batch.topo.stats
+                frag = s["fragmentation"]
+                self._last_topo_stats = {
+                    "fragmentation": frag,
+                    "gangs": s["gangs"], "domains": s["domains"]}
+            else:
+                # scope-gated or unlabeled batch: keep the gauge live from a
+                # direct aggregate with the same in-flight overlay
+                frag = fleet_fragmentation(na, free_delta=overlay)
+                self._last_topo_stats = {"fragmentation": frag}
+            self._g_topo_frag.set(frag)
+        except Exception:
+            # the fold is host numpy and best-effort, as in the JAX package:
+            # a fold failure runs the solve un-steered (on the card still)
+            batch.topo = None
+            logger.exception("topology fold failed; cycle runs un-steered")
+
+    def _note_topology_commit(self, new_allocs) -> None:
+        """Commit-side gang/domain accounting: count gangs (apps placing
+        >= 2 pods this cycle) and those whose placements crossed an ICI
+        domain. Runs only while topology accounting is active."""
+        if not self._topology_active or not new_allocs:
+            return
+        na = self.encoder.nodes
+        doms_of_app: Dict[str, set] = {}
+        counts_of_app: Dict[str, int] = {}
+        for a in new_allocs:
+            idx = na.index_of(a.node_id)
+            dom = int(na.topo[idx, 2]) if idx is not None else -1
+            doms_of_app.setdefault(a.application_id, set()).add(dom)
+            counts_of_app[a.application_id] = (
+                counts_of_app.get(a.application_id, 0) + 1)
+        gangs = cross = 0
+        for app, n in counts_of_app.items():
+            if n < 2:
+                continue
+            gangs += 1
+            doms = doms_of_app[app]
+            # "in one domain" = every member on the SAME labeled domain
+            if len(doms) != 1 or -1 in doms:
+                cross += 1
+        if gangs:
+            self._m_topo_gangs.inc(gangs)
+            self._last_topo_stats["cycle_gangs"] = gangs
+            self._last_topo_stats["cycle_cross_domain"] = cross
+        if cross:
+            self._m_topo_cross.inc(cross)
 
     def _gate_queue_meta(self, by_queue, cluster_cap: Resource) -> Dict[str, tuple]:
         """qname -> (leaf, dominant_share, priority_adjustment), cached.
@@ -2993,12 +3289,6 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
     if so.gate_device:
         not_ported("the gate device scan (solver.gateDevice=True)", 7,
                    "gate device scan")
-    if so.preempt_device:
-        not_ported("the device preemption planner (solver.preemptDevice="
-                   "True)", 8, "preemption planner")
-    if so.topology:
-        not_ported("topology steering (solver.topology=True)", 9,
-                   "topology steering")
     if so.policy == "optimal":
         not_ported("the pack and cvx duel arms (solver.policy=optimal)", 11,
                    "pack and cvx duel arms")
@@ -3013,6 +3303,20 @@ def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:
     """The first n rows of a solve's assignment as a host array: a CUDA
     tensor is copied off the card (numpy cannot read one)."""
     return assigned[:n].cpu().numpy()
+
+
+def _topo_extras(stats: dict) -> dict:
+    """Topology-fold stats (solver.topology) for the cycle entry: domain
+    fragmentation plus gang-plan/commit counts when steering engaged."""
+    out = {}
+    for src, dst in (("fragmentation", "topo_fragmentation"),
+                     ("gangs", "topo_gangs"),
+                     ("domains", "topo_domains"),
+                     ("cycle_gangs", "topo_cycle_gangs"),
+                     ("cycle_cross_domain", "topo_cycle_cross_domain")):
+        if src in stats:
+            out[dst] = stats[src]
+    return out
 
 
 def _gate_extras(stats: dict) -> dict:

@@ -12,6 +12,17 @@
 //
 // Pods that are not requested come back as best 0, feasible 0.
 //
+// The planned-domain bonus (topology steering; the reference's steered
+// rounds take its plain argmax): given node_dom [M] and pref [N],
+//   score(i, j) = fl(fl(base[j] + soft[gid[i], j]) + 8)  when
+//                 pref[i] >= 0 and node_dom[j] == pref[i], else as above.
+// The score now depends on the pod, not only on its group, so prep folds a
+// second key table from the ROUNDED sum fl(s + 8) (the add can merge
+// distinct scores into a tie, which must still go to the lowest node, so
+// the bonus key cannot be derived from the plain one), main stages the
+// slice's node_dom beside its free rows and, for each fitting pair, reads
+// the bonus key when the domains match. The bonus runs in the exact mode.
+//
 // Two modes, chosen at compile time, both a max over one key per
 // (group, node):
 //   exact      bit-equal to the plain argmax (the default solve path): a
@@ -32,7 +43,9 @@
 // max; the card issues compares, min/max and bitwise ops at 64 results per
 // clock per SM (half its f32 add rate), against ~1 MB of node state that
 // sits in L2.
-// There are no products, so wgmma and the tensor cores have no role.
+// There are no products, so wgmma and the tensor cores have no role. The
+// bonus adds one compare per fitting pair (the domain match) and a second
+// key table of the same size as the first.
 // What the design does about it, in three launches:
 //   prep    once per call, over (group, node): folds base, soft and the group
 //           mask into the key (the score add is done G*M times, not N*M) and
@@ -77,6 +90,8 @@ constexpr int kThreads = 128;
 constexpr int kChunks = 2;
 constexpr int kPackedMin = -(1 << 30);
 constexpr float kScoreScale = 128.0f;
+// the planned-domain bonus (ops/best_nodes.TOPO_GANG_W)
+constexpr float kPrefBonus = 8.0f;
 
 template <bool kQuantized>
 struct Key {
@@ -130,16 +145,18 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   }
 }
 
-// One thread per (group, padded node): keys [G, 32W], words [G, W]. The
-// first n_rows threads also reset the merge slots and, given a row mask,
-// append their row to the compacted list: one atomicAdd on the count per
-// block, so rows keep their order inside each block of 256.
-template <bool kSoft, bool kQuantized>
+// One thread per (group, padded node): keys [G, 32W] (and with the bonus
+// bonus_keys [G, 32W]), words [G, W]. The first n_rows threads also reset
+// the merge slots and, given a row mask, append their row to the compacted
+// list: one atomicAdd on the count per block, so rows keep their order
+// inside each block of 256.
+template <bool kSoft, bool kQuantized, bool kBonus>
 __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
             const float* __restrict__ base, const uint8_t* __restrict__ mask,
             int n_nodes, int n_groups, int n_words, int index_span,
-            int n_rows, typename Key<kQuantized>::T* keys, uint32_t* words,
+            int n_rows, typename Key<kQuantized>::T* keys,
+            typename Key<kQuantized>::T* bonus_keys, uint32_t* words,
             typename Key<kQuantized>::T* row_best, int32_t* row_list,
             int32_t* row_count) {
   using K = Key<kQuantized>;
@@ -176,6 +193,7 @@ prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
   const int g = t / padded;
   const int j = t - g * padded;
   T key = K::kNone;
+  T bkey = K::kNone;
   if (j < n_nodes && feas[(size_t)g * n_nodes + j]) {
     const float s = kSoft ? base[j] + soft[(size_t)g * n_nodes + j] : base[j];
     if constexpr (kQuantized) {
@@ -185,19 +203,28 @@ prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
       key = max(packed, kPackedMin);
     } else {
       key = ((T)ordered_bits(s) << 32) | (T)(uint32_t)(n_nodes - 1 - j);
+      if constexpr (kBonus) {
+        // the rounded sum, as the plain argmax sees it
+        bkey = ((T)ordered_bits(__fadd_rn(s, kPrefBonus)) << 32) |
+               (T)(uint32_t)(n_nodes - 1 - j);
+      }
     }
   }
   keys[t] = key;
+  if constexpr (kBonus) bonus_keys[t] = bkey;
   const unsigned bits = __ballot_sync(0xffffffffu, key > K::kNone);
   if ((t & 31) == 0) words[t >> 5] = bits;
 }
 
-template <int kMaxR, bool kQuantized>
+template <int kMaxR, bool kQuantized, bool kBonus>
 __global__ void __launch_bounds__(kThreads)
 best_nodes_kernel(const int32_t* __restrict__ req,
                   const int32_t* __restrict__ group_id,
                   const int32_t* __restrict__ free_,
                   const typename Key<kQuantized>::T* __restrict__ keys,
+                  const typename Key<kQuantized>::T* __restrict__ bonus_keys,
+                  const int32_t* __restrict__ node_dom,
+                  const int32_t* __restrict__ pref,
                   const uint32_t* __restrict__ words,
                   const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ row_count, int n_rows,
@@ -207,7 +234,8 @@ best_nodes_kernel(const int32_t* __restrict__ req,
   using T = typename K::T;
   constexpr int kPods = pods_per_thread<kMaxR>();
   constexpr int kRowsPerTile = kThreads * kPods;
-  extern __shared__ __align__(16) int32_t s_free[];  // [kSlice, res4]
+  // [kSlice, res4] free rows, then (bonus) the slice's [kSlice] domains
+  extern __shared__ __align__(16) int32_t s_free[];
 
   const int count = row_count ? min(*row_count, n_rows) : n_rows;
   if ((int)blockIdx.y * kRowsPerTile >= count) return;  // uniform
@@ -217,6 +245,13 @@ best_nodes_kernel(const int32_t* __restrict__ req,
   const int padded = n_words * 32;
   const bool vec =
       (n_res & 3) == 0 && (reinterpret_cast<uintptr_t>(free_) & 15) == 0;
+  int32_t* s_dom = s_free + kSlice * res4;
+  if constexpr (kBonus) {
+    // plain stores: the first tile's __syncthreads below orders them
+    for (int j = threadIdx.x; j < kSlice; j += kThreads) {
+      s_dom[j] = j < sn ? node_dom[s0 + j] : -1;
+    }
+  }
 
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -246,7 +281,7 @@ best_nodes_kernel(const int32_t* __restrict__ req,
   const int w_base = blockIdx.x * kChunks;
   bool staged = false;
   for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
-    int row[kPods], w_off[kPods], k_off[kPods];
+    int row[kPods], w_off[kPods], k_off[kPods], pf[kPods];
     int32_t rq[kPods][kMaxR];
     T best[kPods];
 #pragma unroll
@@ -257,6 +292,7 @@ best_nodes_kernel(const int32_t* __restrict__ req,
       g = min(max(g, 0), n_groups - 1);  // a gather clamps, as XLA's does
       w_off[p] = g * n_words;
       k_off[p] = g * padded + s0;
+      pf[p] = (kBonus && row[p] >= 0) ? pref[row[p]] : -1;
 #pragma unroll
       for (int r = 0; r < kMaxR; ++r) {
         rq[p][r] = (row[p] >= 0 && r < n_res)
@@ -302,7 +338,11 @@ best_nodes_kernel(const int32_t* __restrict__ req,
 #pragma unroll
         for (int p = 0; p < kPods; ++p) {
           if (ok[p]) {
-            const T k = __ldg(keys + k_off[p] + j);
+            const T* table = keys;
+            if constexpr (kBonus) {
+              if (pf[p] >= 0 && s_dom[j] == pf[p]) table = bonus_keys;
+            }
+            const T k = __ldg(table + k_off[p] + j);
             if (k > best[p]) best[p] = k;
           }
         }
@@ -340,12 +380,14 @@ __global__ void finish_kernel(const typename Key<kQuantized>::T* row_best,
 }
 
 struct Args {
-  const void *req, *group_id, *feas, *soft, *free_, *base, *mask;
+  const void *req, *group_id, *feas, *soft, *free_, *base, *mask, *node_dom,
+      *pref;
   int n_rows, n_nodes, n_groups, n_res, index_span;
-  void *keys, *words, *row_best, *row_list, *row_count, *best, *feasible;
+  void *keys, *bonus_keys, *words, *row_best, *row_list, *row_count, *best,
+      *feasible;
 };
 
-template <int kMaxR, bool kSoft, bool kQuantized>
+template <int kMaxR, bool kSoft, bool kQuantized, bool kBonus>
 cudaError_t run(const Args& a, cudaStream_t stream) {
   using T = typename Key<kQuantized>::T;
   constexpr int kRowsPerTile = kThreads * pods_per_thread<kMaxR>();
@@ -358,14 +400,15 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
           cudaSuccess) {
     return err;
   }
-  prep_kernel<kSoft, kQuantized>
+  prep_kernel<kSoft, kQuantized, kBonus>
       <<<(prep_threads + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0,
          stream>>>(
           static_cast<const uint8_t*>(a.feas),
           static_cast<const float*>(a.soft), static_cast<const float*>(a.base),
           static_cast<const uint8_t*>(a.mask), a.n_nodes, a.n_groups, n_words,
           a.index_span, a.n_rows, static_cast<T*>(a.keys),
-          static_cast<uint32_t*>(a.words), static_cast<T*>(a.row_best),
+          static_cast<T*>(a.bonus_keys), static_cast<uint32_t*>(a.words),
+          static_cast<T*>(a.row_best),
           static_cast<int32_t*>(a.row_list),
           static_cast<int32_t*>(a.row_count));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -374,12 +417,17 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
     int tiles = (a.n_rows + kRowsPerTile - 1) / kRowsPerTile;
     tiles = tiles > kGridRowTiles ? kGridRowTiles : tiles;
     const dim3 grid((a.n_nodes + kSlice - 1) / kSlice, tiles);
-    const size_t smem = (size_t)kSlice * res4 * sizeof(int32_t);
+    const size_t smem =
+        (size_t)kSlice * (res4 + (kBonus ? 1 : 0)) * sizeof(int32_t);
     const bool masked = a.mask != nullptr;
-    best_nodes_kernel<kMaxR, kQuantized><<<grid, kThreads, smem, stream>>>(
+    best_nodes_kernel<kMaxR, kQuantized, kBonus>
+        <<<grid, kThreads, smem, stream>>>(
         static_cast<const int32_t*>(a.req),
         static_cast<const int32_t*>(a.group_id),
         static_cast<const int32_t*>(a.free_), static_cast<const T*>(a.keys),
+        static_cast<const T*>(a.bonus_keys),
+        static_cast<const int32_t*>(a.node_dom),
+        static_cast<const int32_t*>(a.pref),
         static_cast<const uint32_t*>(a.words),
         masked ? static_cast<const int32_t*>(a.row_list) : nullptr,
         masked ? static_cast<const int32_t*>(a.row_count) : nullptr,
@@ -396,12 +444,16 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
 template <int kMaxR>
 cudaError_t dispatch(int has_soft, int quantized, const Args& a,
                      cudaStream_t s) {
-  if (has_soft) {
-    return quantized ? run<kMaxR, true, true>(a, s)
-                     : run<kMaxR, true, false>(a, s);
+  if (a.pref != nullptr) {  // the bonus: exact mode only
+    return has_soft ? run<kMaxR, true, false, true>(a, s)
+                    : run<kMaxR, false, false, true>(a, s);
   }
-  return quantized ? run<kMaxR, false, true>(a, s)
-                   : run<kMaxR, false, false>(a, s);
+  if (has_soft) {
+    return quantized ? run<kMaxR, true, true, false>(a, s)
+                     : run<kMaxR, true, false, false>(a, s);
+  }
+  return quantized ? run<kMaxR, false, true, false>(a, s)
+                   : run<kMaxR, false, false, false>(a, s);
 }
 
 }  // namespace
@@ -416,22 +468,30 @@ int yk_best_nodes_max_res() { return 64; }
 int yk_best_nodes_slice_nodes() { return kSlice; }
 
 // mask: [n_rows] bool of the rows to compute (nullptr = every row).
-// keys [G, 32 * ceil(M / 32)]
+// node_dom [n_nodes] and pref [n_rows] int32: the planned-domain bonus
+// (both or neither; exact mode only), with bonus_keys its key table.
+// keys and bonus_keys [G, 32 * ceil(M / 32)]
 // and row_best [n_rows] are int64 (exact) or int32 (quantized) scratch,
 // words [G, ceil(M / 32)] uint32, row_list [n_rows] and row_count [1] int32.
 // Returns the first CUDA error of the launches (0 = launched).
 int yk_best_nodes(const void* req, const void* group_id, const void* feas,
                   const void* soft, const void* free_, const void* base,
-                  const void* mask, int n_rows, int n_nodes,
-                  int n_groups, int n_res, int has_soft, int quantized,
-                  int index_span, void* keys, void* words, void* row_best,
+                  const void* mask, const void* node_dom, const void* pref,
+                  int n_rows, int n_nodes, int n_groups, int n_res,
+                  int has_soft, int quantized, int index_span, void* keys,
+                  void* bonus_keys, void* words, void* row_best,
                   void* row_list, void* row_count, void* best,
                   void* feasible, void* stream) {
   if (n_rows <= 0) return 0;
-  const Args a{req,      group_id, feas,       soft,     free_,
-               base,     mask,     n_rows,     n_nodes,  n_groups,
-               n_res,    index_span, keys,     words,    row_best,
-               row_list, row_count, best,      feasible};
+  if ((pref == nullptr) != (node_dom == nullptr) ||
+      (pref != nullptr && (quantized || bonus_keys == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args a{req,      group_id,   feas,       soft,     free_,
+               base,     mask,       node_dom,   pref,     n_rows,
+               n_nodes,  n_groups,   n_res,      index_span, keys,
+               bonus_keys, words,    row_best,   row_list, row_count,
+               best,     feasible};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_res <= 8) return (int)dispatch<8>(has_soft, quantized, a, s);
   return (int)dispatch<64>(has_soft, quantized, a, s);

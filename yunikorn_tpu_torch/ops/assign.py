@@ -25,6 +25,13 @@ call, groups under a per-domain cap propose round-robin across domains, the
 accept cap keeps every round's accepts legal in some sequential order, and
 the accepted pods add into the counts.
 
+Topology steering (the `topo` tuple of topology/score.TopoArgs) folds a
+node-level contention term into every group's soft row once a solve
+(_topo_node_adj), overrides each round's proposals with the segmented
+per-ICI-domain gang fill wherever it names a feasible node
+(_topo_gang_proposals), and adds the per-pod preferred-domain bonus to the
+odd rounds' best-node scores (the kernel's bonus variant).
+
 Resources are int32 device units. Prefix sums run in int64, which equals the
 reference's wrapping int32 prefix as long as one node segment's sum stays
 below 2^31 (the same bound the reference states). Locality counts and their
@@ -33,10 +40,10 @@ _loc_accept_cap). The round loop is a Python loop: each round reads two
 flags on the host (one synchronisation a round), and a locality solve reads
 its LocPlan once before the loop; everything else stays on the device.
 
-Inputs this slice does not port raise NotImplementedError naming the ROADMAP
-item that ports them: the persistent device node state (`device_state`,
-`req_device`, item 6), topology steering (`topo`, item 9) and the learned
-policy (`learned`, item 12).
+Inputs the port does not have yet raise NotImplementedError naming the
+ROADMAP item that ports them: the persistent device node state
+(`device_state`, `req_device`, item 6) and the learned policy (`learned`,
+item 12).
 """
 from __future__ import annotations
 
@@ -47,7 +54,8 @@ import numpy as np
 import torch
 
 from yunikorn_tpu_torch.models.policies import alignment_scores, node_base_scores
-from yunikorn_tpu_torch.ops.best_nodes import LIBRARY, NEG_INF, best_nodes
+from yunikorn_tpu_torch.ops.best_nodes import (LIBRARY, NEG_INF, TOPO_GANG_W,
+                                               best_nodes, pref_bonus)
 from yunikorn_tpu_torch.ops.predicates import (
     group_feasibility,
     group_preferred_bonus,
@@ -65,6 +73,12 @@ from yunikorn_tpu_torch.utils.torchtools import (build_all, load_library,
 CAP = 2**30 - 1              # saturation cap of the water-fill prefix sums
 BIG = 2**30                  # the locality minima's "no domain" sentinel
 MAX_SOLVE_PODS = 65536
+# topology steering weights (topology/score.py): the gang term dominates
+# base-score differences without overriding feasibility; the contention and
+# empty-domain terms are mild tie-breakers between comparable nodes
+# (TOPO_GANG_W, the per-pod planned-domain bonus, lives in ops/best_nodes)
+TOPO_CONTENTION_W = 0.25  # x co-tenant busy fraction of the node's domain
+TOPO_EMPTY_W = 0.5       # the node's domain is co-tenant-free
 SOLVE_ARG_NAMES = (
     "req", "group_id", "rank", "valid",
     "g_term_req", "g_term_forb", "g_term_valid", "g_anyof", "g_anyof_valid",
@@ -106,9 +120,7 @@ def load_kernels() -> None:
         load_library(name)
 
 
-def _check_scope(topo=None, learned=None):
-    if topo is not None:
-        not_ported("topology steering (topo)", 9, "topology steering")
+def _check_scope(learned=None):
     if learned is not None:
         not_ported("the learned policy (learned)", 12, "learned policy")
 
@@ -491,11 +503,13 @@ def _loc_allowance(loc, active, spread_l, anti_l, softspread_l, N):
 
 def _best_nodes_chunked(req, group_id, group_feas, group_soft, free, capacity,
                         base_scores, chunk: int, policy: str,
-                        score_cols: int = 0):
+                        score_cols: int = 0, node_dom=None, pref_pod=None):
     """Plain argmax best node for every pod, chunked over pods (no [N, M]
     tensor): fit margin, group mask, base + soft score, plus the alignment
-    term under the align policy. Runs as torch ops on either device; the
-    kernel path (ops/best_nodes.py) takes every other policy."""
+    term under the align policy and, given node_dom [M] and pref_pod [N]
+    (topology steering), TOPO_GANG_W on the nodes of each pod's planned
+    domain. Runs as torch ops on either device; the kernel path
+    (ops/best_nodes.py) takes every other policy."""
     N, R = req.shape
     M = free.shape[0]
     best_parts, feas_parts = [], []
@@ -512,6 +526,9 @@ def _best_nodes_chunked(req, group_id, group_feas, group_soft, free, capacity,
             s = score_cols if score_cols > 0 else R
             scores = scores + alignment_scores(creq[:, :s], free[:, :s],
                                                capacity[:, :s])
+        if node_dom is not None and pref_pod is not None:
+            scores = scores + pref_bonus(node_dom,
+                                          pref_pod[start:start + chunk])
         scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
         best_parts.append(torch.argmax(scores, dim=1).to(torch.int32))
         feas_parts.append(ok.any(dim=1))
@@ -621,6 +638,118 @@ def _segment_prefix_accept(snode, sreq, free, M):
     return fits & real
 
 
+# ---- topology steering: the topo tuple is (node_dom [M] int32 node → ICI
+# domain (-1 unlabeled), pref_pod [N] int32 planned domain per pod (-1
+# none), dom_busy [D] int32 co-tenant busy units, dom_cap [D] int32
+# capacity units); see topology/score.TopoArgs ----
+
+def _seg_sat_scan(vals, seg_start):
+    """Segmented saturating inclusive scan along axis 0: within each segment
+    (seg_start [L] bool marks heads; row 0 always starts one) the running
+    sum of vals [L, R] (non-negative, at most CAP) clamped to CAP. The
+    reference's operator min(a + b, CAP) over non-negative values equals
+    clamp(int64 sum, max=CAP); each segment's offset comes from its head by
+    a scatter over segment ids (no cummax). Returns [L, R] int32."""
+    L = vals.shape[0]
+    if L == 0:
+        return vals.to(torch.int32)
+    v = vals.long().t().contiguous()                                 # [R, L]
+    # a device op: setting an element from a Python scalar copies it from
+    # the host and synchronises on the card
+    starts = torch.cat([seg_start.new_ones(1), seg_start[1:]])
+    seg = torch.cumsum(starts.to(torch.int64), dim=0) - 1            # [L]
+    c = _cumsum_rows(v)
+    # each segment's sum before its head (one head per segment, >= 0)
+    head_excl = torch.where(starts[None, :], c - v, 0)
+    base = torch.zeros_like(v).scatter_reduce(
+        1, seg[None, :].expand_as(v), head_excl, reduce="amax")
+    out = (c - base.gather(1, seg[None, :].expand_as(v))).clamp(max=CAP)
+    return out.t().to(torch.int32)
+
+
+def _stable_lexsort(*keys):
+    """numpy's lexsort (the last key is primary) as stable argsorts, one
+    per key from the least significant. Ties in every key keep index
+    order; torch's sort, like the reference's, treats -0.0 and +0.0 as
+    equal and puts NaN last."""
+    order = torch.argsort(keys[0], stable=True)
+    for k in keys[1:]:
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def _topo_gang_proposals(pref_pod, rank, active, req, free, node_dom,
+                         base_scores):
+    """ICI-contiguous gang proposals, the segmented per-domain water fill:
+    every steered pod (pref_pod >= 0) is proposed into its planned domain
+    by the capacity-coverage rule the group water fill uses — the domain's
+    nodes best score first, their cumulative free capacity against the
+    rank-ordered cumulative demand of the domain's steered pods — for all
+    domains at once.
+
+    The reference finds each pod's position with one merged sort of
+    (domain, value, tag) per resource column. Here no sort is needed: the
+    nodes, domain-major with a non-decreasing segmented scan, already form
+    a sorted key (domain << 31 | cumulative free) — the domain needs 31
+    bits, the scan 30 — and a pod's position, the count of its domain's
+    nodes whose cumulative free is strictly below its cumulative demand, is
+    a searchsorted of its own key minus its domain's first node.
+
+    Returns proposals [N] int64 (node row, or M when the pod is unsteered,
+    its domain's capacity runs out before it, or saturation made the
+    position conservative)."""
+    N, R = req.shape
+    M = free.shape[0]
+    dev = req.device
+    # domain-major node order, best score first inside a domain; unlabeled
+    # nodes form a trailing segment no pod key can reach (BIG vs BIG + 1)
+    dkey_n = torch.where(node_dom >= 0, node_dom, BIG).long()
+    order_n = _stable_lexsort(-base_scores, dkey_n)
+    nd_s = dkey_n[order_n]                                           # [M]
+    nfree = free[order_n].clamp(min=0, max=CAP)
+    seg_n = torch.ones((M,), dtype=torch.bool, device=dev)
+    seg_n[1:] = nd_s[1:] != nd_s[:-1]
+    cum_f = _seg_sat_scan(nfree, seg_n)                              # [M, R]
+
+    mine = active & (pref_pod >= 0)
+    dkey_p = torch.where(mine, pref_pod.long(), BIG + 1)
+    order_p = _stable_lexsort(rank, dkey_p)
+    pd_s = dkey_p[order_p]                                           # [N]
+    dem = torch.where(mine[order_p][:, None], req[order_p], 0).clamp(max=CAP)
+    seg_p = torch.ones((N,), dtype=torch.bool, device=dev)
+    seg_p[1:] = pd_s[1:] != pd_s[:-1]
+    cum_d = _seg_sat_scan(dem, seg_p)                                # [N, R]
+
+    dom_lo = torch.searchsorted(nd_s, pd_s, right=False)
+    dom_hi = torch.searchsorted(nd_s, pd_s, right=True)
+    pos = torch.zeros((N,), dtype=torch.int64, device=dev)
+    for r in range(R):
+        node_key = (nd_s << 31) | cum_f[:, r].long()
+        pod_key = (pd_s << 31) | cum_d[:, r].long()
+        pos = torch.maximum(
+            pos, torch.searchsorted(node_key, pod_key, right=False) - dom_lo)
+    ok = mine[order_p] & (pos < dom_hi - dom_lo)
+    node_s = torch.where(ok, order_n[(dom_lo + pos).clamp(0, M - 1)], M)
+    out = torch.full((N,), M, dtype=torch.int64, device=dev)
+    out[order_p] = node_s
+    return out
+
+
+def _topo_node_adj(topo):
+    """The node-level topology score term [M] float32: minus the co-tenant
+    busy fraction of the node's ICI domain (x TOPO_CONTENTION_W), plus
+    TOPO_EMPTY_W when the domain is co-tenant-free; 0 for unlabeled nodes.
+    Group-independent, so the solve folds it into every group_soft row."""
+    node_dom, _pref_pod, dom_busy, dom_cap = topo
+    D = dom_busy.shape[0]
+    dcl = node_dom.clamp(0, D - 1).long()
+    busy = dom_busy[dcl].float()
+    frac = busy / dom_cap[dcl].float().clamp(min=1.0)
+    return torch.where(node_dom >= 0,
+                       TOPO_EMPTY_W * (busy == 0).float()
+                       - TOPO_CONTENTION_W * frac, 0.0)
+
+
 def _hoist_group_state(g_term_req, g_term_forb, g_term_valid, g_anyof,
                        g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
                        g_pref_weight, node_labels, node_taints,
@@ -642,12 +771,18 @@ def _hoist_group_state(g_term_req, g_term_forb, g_term_valid, g_anyof,
 def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                   cnt0, capacity, loc, loc_hoist, *, max_rounds, chunk,
                   policy, use_pallas, has_loc_soft, pallas_soft, score_cols,
-                  loc_plan=None):
+                  loc_plan=None, topo_rt=None):
     """The round loop for one pod slice against hoisted group state. free0
     [M, R] and the locality counts cnt0 [L, D] carry across chained slices;
     loc is None, or this slice's loc tuple with loc_hoist from
-    _hoist_loc_state and loc_plan from _loc_plan. Returns (assigned [N] int32, accept_round [N] int32,
-    free [M, R] int32, rounds, cnt [L, D] int32)."""
+    _hoist_loc_state and loc_plan from _loc_plan. topo_rt is None, or
+    (node_dom [M], pref_pod [N] of this slice) with the node-level topology
+    term already folded into group_soft: the gang proposals override the
+    water fill where they name a feasible node, and the odd rounds' best
+    node carries the planned-domain bonus (the kernel's exact mode, as the
+    reference's steered argmax is its plain one). Returns (assigned [N]
+    int32, accept_round [N] int32, free [M, R] int32, rounds, cnt [L, D]
+    int32)."""
     N, R = req.shape
     M = free0.shape[0]
     dev = req.device
@@ -688,6 +823,14 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
         proposals = _water_fill_proposals(req, group_id, rank_order, active,
                                           feas_round, cur_free, base_scores,
                                           soft_round, g_rr_dom, g_capped)
+        if topo_rt is not None:
+            # the segmented per-domain gang fill wins wherever it names a
+            # node of the pod's feasible row (fit is re-checked below)
+            tprop = _topo_gang_proposals(topo_rt[1], rank, active, req,
+                                         cur_free, topo_rt[0], base_scores)
+            tp_ok = ((tprop < M)
+                     & feas_round[group_id.long(), tprop.clamp(0, M - 1)])
+            proposals = torch.where(tp_ok, tprop, proposals)
         prop_real = proposals < M
         prop_cl = proposals.clamp(0, M - 1)
         at_prop = cur_free[prop_cl] - req
@@ -698,10 +841,20 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
             prop_fits = prop_fits & loc_mask[group_id.long(), prop_cl]
         if rnd % 2 == 1:
             # exact per-pod best node: guarantees an accept per contended node
+            steer = {} if topo_rt is None else dict(
+                node_dom=topo_rt[0], pref_pod=topo_rt[1])
             if policy == "align":
                 best, feasible = _best_nodes_chunked(
                     req, group_id, feas_round, soft_round, cur_free, capacity,
-                    base_scores, chunk, policy, score_cols)
+                    base_scores, chunk, policy, score_cols, **steer)
+            elif topo_rt is not None:
+                # the steered argmax is the reference's plain one whatever
+                # use_pallas says: the exact mode with the bonus
+                best, feasible = best_nodes(
+                    req, group_id, feas_round, soft_round, cur_free,
+                    base_scores, mode="exact", has_soft=True, chunk=chunk,
+                    rows=active & ~prop_fits, node_dom=topo_rt[0],
+                    pref=topo_rt[1])
             else:
                 # the exact mode always scores with the soft matrix, as the
                 # reference's argmax does; the soft-free kernel variant is
@@ -746,9 +899,11 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
     return assigned, around, cur_free, rnd, cnt
 
 
-def _prepare(args, loc, device):
-    """The solve's arguments (SOLVE_ARG_NAMES up to host_soft, then loc) as
-    tensors on `device`, with the hoisted [G, M] group state."""
+def _prepare(args, loc, device, topo=None):
+    """The solve's arguments (SOLVE_ARG_NAMES up to host_soft, then loc and
+    topo) as tensors on `device`, with the hoisted [G, M] group state; with
+    topo the node-level topology term is folded into every soft row and
+    topo_rt = (node_dom, pref_pod) comes back last (None without)."""
     (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
      g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
      g_pref_weight, node_labels, node_taints, node_taints_soft, node_ports,
@@ -767,8 +922,15 @@ def _prepare(args, loc, device):
         cnt0 = loc[1]
     else:
         cnt0 = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    topo_rt = None
+    if topo is not None:
+        # group-independent: one [M] fold shared by every group row (and,
+        # chained, by every slice)
+        topo = tuple(_tensor(a, device) for a in topo)
+        group_soft = group_soft + _topo_node_adj(topo)[None, :]
+        topo_rt = (topo[0], topo[1])
     return (req, group_id, rank, valid, free, capacity, group_feas,
-            group_soft, loc, loc_hoist, loc_plan, cnt0)
+            group_soft, loc, loc_hoist, loc_plan, cnt0, topo_rt)
 
 
 def solve(
@@ -790,7 +952,8 @@ def solve(
 ):
     """One batched solve. Arguments are numpy arrays or tensors (bitsets as
     uint32 or their int32 views) and move to `device` (default `cuda`); loc
-    is None or the locality tuple (see _loc_round_stats' section). Returns
+    is None or the locality tuple (see _loc_round_stats' section), topo
+    None or the topology tuple (see _seg_sat_scan's section). Returns
     (assigned [N] int32, accept_round [N] int32, free_after [M, R] int32,
     rounds, cnt_final [L, D] int32; [1, 1] zeros without loc).
 
@@ -800,15 +963,15 @@ def solve(
     best-node kernel's quantized mode, bit-equal to the reference's Pallas
     kernel; the default exact mode is bit-equal to its XLA argmax.
     has_loc_soft=False skips the soft locality scores (all slot weights 0)."""
-    _check_scope(topo, learned)
+    _check_scope(learned)
     device = resolve_device(device)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
-     loc_hoist, loc_plan, cnt0) = _prepare(
+     loc_hoist, loc_plan, cnt0, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), loc, device)
+         host_group_soft), loc, device, topo)
     N = req.shape[0]
     chunk = min(chunk, N)
     if N % chunk:
@@ -819,7 +982,7 @@ def solve(
         capacity, loc, loc_hoist, max_rounds=max_rounds, chunk=chunk,
         policy=policy, use_pallas=use_pallas, has_loc_soft=has_loc_soft,
         pallas_soft=pallas_has_soft or has_loc_soft, score_cols=score_cols,
-        loc_plan=loc_plan)
+        loc_plan=loc_plan, topo_rt=topo_rt)
 
 
 def solve_chunked(
@@ -842,21 +1005,21 @@ def solve_chunked(
 ):
     """Chained fixed-shape solves over rank-ordered [chunk_pods]-pod slices,
     carrying free capacity and the locality counts from slice to slice; the
-    [G, M] group state and the locality hoist are computed once for the
-    whole batch, and each slice takes its rows of contrib. Returns what
-    `solve` returns.
+    [G, M] group state, the topology fold and the locality hoist are
+    computed once for the whole batch, and each slice takes its rows of
+    contrib and pref_pod. Returns what `solve` returns.
 
     PRECONDITION: pod rows are sorted by rank (solve_batch sorts and unsorts
     around this call) — slice boundaries supersede rank priority."""
-    _check_scope(topo, learned)
+    _check_scope(learned)
     device = resolve_device(device)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
-     loc_hoist, loc_plan, cnt) = _prepare(
+     loc_hoist, loc_plan, cnt, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), loc, device)
+         host_group_soft), loc, device, topo)
     N = req.shape[0]
     mb = chunk_pods
     chunk = min(chunk, mb)
@@ -868,13 +1031,14 @@ def solve_chunked(
     for start in range(0, N, mb):
         sl = slice(start, start + mb)
         loc_k = None if loc is None else loc[:3] + (loc[3][sl],) + loc[4:]
+        topo_k = None if topo_rt is None else (topo_rt[0], topo_rt[1][sl])
         a_k, ar_k, free, r_k, cnt = _solve_rounds(
             req[sl], group_id[sl], rank[sl], valid[sl], group_feas,
             group_soft, free, cnt, capacity, loc_k, loc_hoist,
             max_rounds=max_rounds, chunk=chunk, policy=policy,
             use_pallas=use_pallas, has_loc_soft=has_loc_soft,
             pallas_soft=pallas_has_soft or has_loc_soft,
-            score_cols=score_cols, loc_plan=loc_plan)
+            score_cols=score_cols, loc_plan=loc_plan, topo_rt=topo_k)
         # offset accept rounds so the chain's order is globally monotone
         around.append(torch.where(ar_k >= 0, ar_k + round_base, -1).to(torch.int32))
         assigned.append(a_k)
@@ -902,6 +1066,9 @@ def _sort_pods_by_rank(np_args):
     loc = np_args[_ARG_LOC]
     if loc is not None:
         out[_ARG_LOC] = loc[:3] + (np.asarray(loc[3])[order],) + loc[4:]
+    topo = np_args[_ARG_TOPO]
+    if topo is not None:
+        out[_ARG_TOPO] = (topo[0], np.asarray(topo[1])[order]) + topo[2:]
     return tuple(out), order
 
 
@@ -945,8 +1112,6 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     if getattr(batch, "req_device", None) is not None:
         not_ported("a device-resident request tensor (req_device)", 6,
                     "snapshot device state")
-    if getattr(batch, "topo", None) is not None:
-        not_ported("topology steering (batch.topo)", 9, "topology steering")
     na = node_arrays
     g_ports_u32 = batch.g_ports.view(np.uint32)
     req_i = batch.req.astype(np.int32)
@@ -999,6 +1164,24 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     if lb is not None:
         loc = (lb.dom, lb.cnt0, lb.dom_valid, lb.contrib, lb.g_refs,
                lb.g_kind, lb.g_skew, lb.g_seed, lb.g_weight, lb.pair)
+    # topology steering rides its own slot (batch.topo, attached per cycle
+    # by the core); never beside locality, whose constraints already place
+    topo = None
+    topo_args = getattr(batch, "topo", None)
+    if topo_args is not None and loc is None:
+        M_ = free_i.shape[0]
+        node_dom = topo_args.node_dom
+        if node_dom.shape[0] != M_:
+            # node capacity grew since the fold: unlabeled-pad the tail
+            nd = np.full((M_,), -1, np.int32)
+            nd[: min(M_, node_dom.shape[0])] = node_dom[:M_]
+            node_dom = nd
+        pref = topo_args.pref_pod
+        if pref.shape[0] != req_i.shape[0]:
+            pp = np.full((req_i.shape[0],), -1, np.int32)
+            pp[: min(pp.shape[0], pref.shape[0])] = pref[: pp.shape[0]]
+            pref = pp
+        topo = (node_dom, pref, topo_args.dom_busy, topo_args.dom_cap)
     np_args = (
         req_i, batch.group_id, batch.rank, batch.valid,
         batch.g_term_req.view(np.uint32), batch.g_term_forb.view(np.uint32),
@@ -1008,15 +1191,17 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
         batch.g_pref_forb.view(np.uint32), batch.g_pref_weight,
         na.labels.view(np.uint32), na.taints_hard.view(np.uint32),
         na.taints_soft.view(np.uint32), node_ports_u32, node_ok,
-        free_i, cap_i, host_mask, host_soft, loc, None,
+        free_i, cap_i, host_mask, host_soft, loc, topo,
     )
     assert len(np_args) == len(SOLVE_ARG_NAMES)
     static_kwargs = dict(
         # all-hard locality batches skip the soft locality scores
         has_loc_soft=lb is not None and bool(np.any(lb.g_weight)),
         # no-soft batches take the kernel variant without the soft matrix
+        # (topology steering is itself a soft-score channel)
         pallas_has_soft=(bool(batch.g_pref_weight.any())
                          or host_soft is not None
+                         or topo is not None
                          or bool(np.any(na.taints_soft))),
         # scoring ignores the synthetic port columns appended above
         score_cols=score_cols,
@@ -1028,18 +1213,16 @@ def solve_args_from_numpy(np_args, static_kwargs, device):
     """The numpy SOLVE_ARG_NAMES tuple and static kwargs of a
     prepare_solve_args (this module's, or the JAX package's, which has the
     same layout) as the port's tensors on `device`, ready for `solve` or
-    `solve_chunked`: (args, kwargs). The loc tuple, when present, comes
-    across as a tuple of tensors in the loc position."""
+    `solve_chunked`: (args, kwargs). The loc and topo tuples, when present,
+    come across as tuples of tensors in their positions."""
     if len(np_args) != len(SOLVE_ARG_NAMES):
         raise ValueError(f"expected {len(SOLVE_ARG_NAMES)} solve args, got "
                          f"{len(np_args)}")
-    _check_scope(np_args[_ARG_TOPO])
     device = resolve_device(device)
     args = tuple(_tensor(a, device) for a in np_args[:_ARG_LOC])
-    loc = np_args[_ARG_LOC]
-    if loc is not None:
-        loc = tuple(_tensor(a, device) for a in loc)
-    return args + (loc,), dict(static_kwargs, device=device)
+    tuples = tuple(None if t is None else tuple(_tensor(a, device) for a in t)
+                   for t in np_args[_ARG_LOC:])
+    return args + tuples, dict(static_kwargs, device=device)
 
 
 def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
@@ -1050,7 +1233,7 @@ def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
     """Host wrapper: PodBatch + NodeArrays in → SolveResult (tensors on
     `device`, default `cuda`) out. Batches above max_batch (rounded down to
     a power of two) run as chained rank-ordered slices (solve_chunked)."""
-    _check_scope(learned=learned)
+    _check_scope(learned)
     device = resolve_device(device)
     mb = 1 << (max(int(max_batch), 64).bit_length() - 1)
     np_args, static_kwargs = prepare_solve_args(

@@ -19,6 +19,14 @@ pointer); the solve selects it only when the soft matrix is all zeros.
 rows, a [N] bool mask, restricts the work to the rows the caller needs
 (the solve's odd rounds pass the active pods whose proposal does not fit);
 the other rows come back as best 0, feasible False on both devices.
+
+The planned-domain bonus (topology steering): given node_dom [M] int32 (the
+node's ICI domain, -1 unlabeled) and pref [N] int32 (the pod's planned
+domain, -1 none), a pod's score on a node of its planned domain is
+fl(fl(base + soft) + TOPO_GANG_W), elsewhere fl(base + soft) + 0.0, as the
+reference's steered argmax adds it. The score then depends on the pod, not
+only on its group. The bonus runs in the exact mode only (the reference's
+steered rounds take its plain argmax, never the Pallas kernel).
 """
 from __future__ import annotations
 
@@ -36,6 +44,10 @@ MODES = ("exact", "quantized")
 _POD_CHUNK = 512
 # the kernel's library: csrc/<LIBRARY>.cu, built by utils/torchtools
 LIBRARY = "best_nodes"
+# the per-pod planned-domain bonus of topology steering: it dominates
+# base-score differences (scores are base in [0, 1] plus soft terms of that
+# scale) without overriding feasibility
+TOPO_GANG_W = 8.0
 
 
 def index_span(m: int) -> int:
@@ -45,14 +57,37 @@ def index_span(m: int) -> int:
     return 1 << max(10, m.bit_length())
 
 
+def pref_bonus(node_dom, pref):
+    """[C, M] float32: TOPO_GANG_W where node j lies in row i's planned
+    domain (pref[i] >= 0, node_dom[j] >= 0 and equal), else 0.0."""
+    in_pref = ((pref[:, None] >= 0) & (node_dom[None, :] >= 0)
+               & (node_dom[None, :] == pref[:, None]))
+    return torch.where(in_pref, TOPO_GANG_W, 0.0)
+
+
+def _check_bonus(mode, node_dom, pref):
+    """Whether the planned-domain bonus applies; raises on half a pair or
+    the quantized mode."""
+    if (node_dom is None) != (pref is None):
+        raise ValueError("node_dom and pref go together: give both or "
+                         "neither")
+    if node_dom is not None and mode != "exact":
+        raise ValueError("the planned-domain bonus runs in the exact mode")
+    return node_dom is not None
+
+
 def best_nodes_reference(req, group_id, group_feas, group_soft, free,
                          base_scores, *, mode: str = "exact",
                          has_soft: bool = True, chunk: int = _POD_CHUNK,
-                         rows: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of both modes, chunked over pods so no [N, M]
-    tensor is built. Returns (best [N] int32, feasible [N] bool)."""
+                         rows: Optional[torch.Tensor] = None,
+                         node_dom: Optional[torch.Tensor] = None,
+                         pref: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of both modes and the bonus, chunked over pods
+    so no [N, M] tensor is built. Returns (best [N] int32, feasible [N]
+    bool)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    bonus = _check_bonus(mode, node_dom, pref)
     if rows is not None:
         # the requested rows at their places, 0 / False elsewhere
         best = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
@@ -60,7 +95,8 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
                                device=rows.device)
         best[rows], feasible[rows] = best_nodes_reference(
             req[rows], group_id[rows], group_feas, group_soft, free,
-            base_scores, mode=mode, has_soft=has_soft, chunk=chunk)
+            base_scores, mode=mode, has_soft=has_soft, chunk=chunk,
+            node_dom=node_dom, pref=pref[rows] if bonus else None)
         return best, feasible
     N, R = req.shape
     M = free.shape[0]
@@ -77,6 +113,8 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
             scores = base_scores[None, :] + group_soft[cgid]
         else:
             scores = base_scores[None, :].expand(creq.shape[0], M)
+        if bonus:
+            scores = scores + pref_bonus(node_dom, pref[start:start + chunk])
         if mode == "exact":
             masked = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
             best = torch.argmax(masked, dim=1)
@@ -119,8 +157,8 @@ def _library():
     lib = torchtools.load_library(LIBRARY)
     if not getattr(lib, "_yk_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                      i, p, p, p, p, p, p, p, p]
+        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                      i, i, i, p, p, p, p, p, p, p, p, p]
         lib.yk_best_nodes.restype = i
         lib.yk_best_nodes_max_res.restype = i
         lib.yk_best_nodes_slice_nodes.restype = i
@@ -138,12 +176,15 @@ def slice_nodes() -> int:
 
 def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
                mode: str = "exact", has_soft: bool = True,
-               chunk: int = _POD_CHUNK, rows: Optional[torch.Tensor] = None):
+               chunk: int = _POD_CHUNK, rows: Optional[torch.Tensor] = None,
+               node_dom: Optional[torch.Tensor] = None,
+               pref: Optional[torch.Tensor] = None):
     """Best node per pod. Shapes: req [N, R] int32, group_id [N] int32,
     group_feas [G, M] bool, group_soft [G, M] float32 (ignored when
     has_soft=False), free [M, R] int32, base_scores [M] float32; rows
     (optional) [N] bool, the rows to compute (the kernel counts them on the
-    device: nothing is read back).
+    device: nothing is read back); node_dom [M] int32 and pref [N] int32
+    (optional, both or neither, exact mode): the planned-domain bonus.
 
     Returns (best [N] int32, feasible [N] bool), best = 0 where no node is
     feasible or the row was not requested. CPU tensors take the plain
@@ -151,12 +192,13 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     `best_nodes.launches`)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    bonus = _check_bonus(mode, node_dom, pref)
     device = req.device
     if device.type == "cpu":
         return best_nodes_reference(req, group_id, group_feas, group_soft,
                                     free, base_scores, mode=mode,
                                     has_soft=has_soft, chunk=chunk,
-                                    rows=rows)
+                                    rows=rows, node_dom=node_dom, pref=pref)
     if device.type != "cuda":
         raise ValueError(f"best_nodes runs on cuda or cpu tensors, not "
                          f"{device.type}")
@@ -171,6 +213,9 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     _check("base_scores", base_scores, torch.float32, (M,), device)
     if rows is not None:
         _check("rows", rows, torch.bool, (N,), device)
+    if bonus:
+        _check("node_dom", node_dom, torch.int32, (M,), device)
+        _check("pref", pref, torch.int32, (N,), device)
     if G < 1:
         raise ValueError("group_feas needs at least one group row")
     lib = _library()
@@ -185,6 +230,8 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     key_dtype = torch.int32 if mode == "quantized" else torch.int64
     n_words = (M + 31) // 32
     keys = torch.empty((G, n_words * 32), dtype=key_dtype, device=device)
+    # the bonus variant's second key table: the keys of fl(s + TOPO_GANG_W)
+    bonus_keys = torch.empty_like(keys) if bonus else None
     words = torch.empty((G, n_words), dtype=torch.int32, device=device)
     row_best = torch.empty((N,), dtype=key_dtype, device=device)
     # the kernel compacts the requested rows into row_list, counting them in
@@ -192,12 +239,13 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     row_list = torch.empty((N if rows is not None else 0,),
                            dtype=torch.int32, device=device)
     row_count = torch.empty((1,), dtype=torch.int32, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.yk_best_nodes(
         req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
         group_soft.data_ptr() if has_soft else None, free.data_ptr(),
-        base_scores.data_ptr(), None if rows is None else rows.data_ptr(),
+        base_scores.data_ptr(), ptr(rows), ptr(node_dom), ptr(pref),
         N, M, G, R, int(has_soft), int(mode == "quantized"),
-        index_span(M), keys.data_ptr(), words.data_ptr(),
+        index_span(M), keys.data_ptr(), ptr(bonus_keys), words.data_ptr(),
         row_best.data_ptr(), row_list.data_ptr(), row_count.data_ptr(),
         best.data_ptr(), feasible.data_ptr(),
         torchtools.current_stream_handle(device))

@@ -11,9 +11,8 @@ it and the victim-table policy below:
 
   - core/preemption.py: the host planner (differential-testing oracle and
     fallback) — loops asks × candidate nodes, one victim-subset search each.
-  - the JAX package's device planner (ops/preempt_solve.py): the same victim
-    tables encoded into dense [M, V, R] arrays, all asks × all nodes in one
-    dispatch — ROADMAP item 8, not part of the port yet.
+  - ops/preempt_solve.py: the device planner — the same victim tables encoded
+    into dense [M, V, R] arrays, all asks × all nodes in one dispatch.
 
 `victim_table` is the single source for WHICH pods are eviction candidates on
 a node and in what order; both planners consume it, so they cannot drift.

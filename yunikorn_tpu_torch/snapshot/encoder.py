@@ -2,9 +2,11 @@
 
 Host half of the JAX package's snapshot/encoder.py, copied with its imports
 rewritten: GroupSpec, PodBatch, NodeArrays and SnapshotEncoder's node sync,
-batch build and request quantization. The persistent device mirror
-(DeviceNodeState) and the device request-row pool (DeviceRowStore) are
-ROADMAP item 6; the preemption victim-table sync is item 8.
+batch build, request quantization and the lazy victim-table sync of the
+preemption planner (mark_victims_stale / sync_victims: host re-encodes of
+the stale nodes' tables, which the device planner uploads per dispatch).
+The persistent device mirror (DeviceNodeState, victim tables included) and
+the device request-row pool (DeviceRowStore) are ROADMAP item 6.
 
 This layer replaces the role the reference's SchedulerCache plays for the
 predicate plugins (pkg/cache/external/scheduler_cache.go feeding
@@ -607,6 +609,15 @@ class SnapshotEncoder:
         self._group_cache_max = 8192
         self._unschedulable_overrides: Dict[str, bool] = {}
         self._taint_version = 0
+        # victim-table staleness: node names whose tables need re-encode at
+        # the next sync_victims. Fed by sync_nodes (pod churn marks the node
+        # dirty) and by the core's allocation bookkeeping hooks
+        # (mark_victims_stale); consumed lazily so allocation-only cycles
+        # never pay for victim encoding.
+        self._victim_stale: set = set()
+        self._victims_synced = False
+        # app-id interning for the victim tables' app/gang column
+        self._app_ids: Dict[str, int] = {}
         # one-deep built-batch memo: (key, extra fingerprint, batch)
         self._batch_cache: Optional[tuple] = None
         self.last_encode_cached = False
@@ -706,6 +717,9 @@ class SnapshotEncoder:
             dirty, objects = names, names
         else:
             dirty, objects = self.cache.take_dirty_nodes()
+        # pod churn invalidates the node's victim table too; the tables are
+        # re-encoded lazily at the next sync_victims, not here
+        self._victim_stale |= set(dirty)
         # sorted: dirty/objects are SETS — hash-order iteration would make
         # node row assignment (and every downstream tensor: label bitsets,
         # locality domain ids, solve inputs) vary with PYTHONHASHSEED across
@@ -728,6 +742,75 @@ class SnapshotEncoder:
         """Core-driven schedulable state (DRAIN vs READY), kept across re-encodes."""
         self._unschedulable_overrides[name] = schedulable
         self.nodes.set_schedulable(name, schedulable)
+
+    def mark_victims_stale(self, node_name: str) -> None:
+        """Core hook: allocation bookkeeping changed for this node (an
+        allocation was restored or released), so its pods' managed-ness —
+        and therefore its victim table — may have changed without any
+        cache-side pod event."""
+        self._victim_stale.add(node_name)
+
+    def sync_victims(self, app_of_pod: Dict[str, str], pc_lookup) -> int:
+        """Re-encode victim tables for stale nodes (lazy incremental path).
+
+        app_of_pod: victim pod uid -> application id — membership defines
+        "yunikorn-managed" exactly like the host planner's filter; the app id
+        is interned into the table's app/gang column. Returns the number of
+        nodes re-encoded (0 on a clean sync)."""
+        from yunikorn_tpu_torch.common.resource import get_pod_resource
+        from yunikorn_tpu_torch.ops.preempt import pod_priority, victim_table
+
+        if not self._victims_synced:
+            # first sync: every known node (cache and already-encoded rows)
+            self._victim_stale |= set(self.cache.node_names())
+            self._victim_stale |= set(self.nodes._name_to_idx)
+            self._victims_synced = True
+        if not self._victim_stale:
+            return 0
+        stale, self._victim_stale = self._victim_stale, set()
+        rv = self.vocabs.resources
+        managed = app_of_pod.__contains__
+        count = 0
+        # sorted: deterministic encode order (same discipline as sync_nodes)
+        for name in sorted(stale):
+            idx = self.nodes.index_of(name)
+            if idx is None:
+                continue
+            # a snapshot, not get_node: informer threads mutate the live
+            # NodeInfo.pods dict under the cache lock
+            info = self.cache.snapshot_node(name)
+            if info is None:
+                self.nodes._clear_victim_row(idx)
+                count += 1
+                continue
+            victims = victim_table(info, pc_lookup, managed)
+            # intern all resource names BEFORE sizing rows (vocab growth
+            # repads the arrays first — encode_node's discipline)
+            slot_rows = [[(rv.slot(n), rv.quantize(n, val))
+                          for n, val in get_pod_resource(v).resources.items()]
+                         for v in victims]
+            self.nodes.ensure_padding()
+            rows = []
+            for slots in slot_rows:
+                row = np.zeros((rv.num_slots,), np.int32)
+                for slot, val in slots:
+                    # floor: freed capacity is UNDER-estimated so a device
+                    # plan never promises an eviction the exact host search
+                    # would refuse (integral device units are exact)
+                    row[slot] = math.floor(val)
+                rows.append(row)
+            prios, apps, uids = [], [], []
+            for v in victims:
+                prios.append(pod_priority(v))
+                app = app_of_pod.get(v.uid, "")
+                aid = self._app_ids.get(app)
+                if aid is None:
+                    aid = self._app_ids[app] = len(self._app_ids)
+                apps.append(aid)
+                uids.append(v.uid)
+            self.nodes.encode_victims(idx, rows, prios, apps, uids)
+            count += 1
+        return count
 
     # ------------------------------------------------------------------- pods
     def _group_signature(self, pod: Pod, terms=None) -> tuple:
