@@ -1,7 +1,9 @@
 """Drive the PyTorch/CUDA port of the scheduler on one NVIDIA GPU and check
 it: the batched assignment solve and its kernel, the core scheduling cycle
 around them, both again on a batch with pod locality and on a labelled
-fleet with topology steering, and the device preemption planner.
+fleet with topology steering, the device preemption planner, and the
+device admission gate with the device-resident node, victim and request
+state.
 
     python3 chip_smoke.py
 
@@ -33,14 +35,23 @@ phase fails, and when no CUDA device is present):
           share for each (the bound from the card's clocks.max.sm); a
           device profile of one solve, and one of the solve's best_nodes
           calls (each call runs a memset and three kernels: prep, main,
-          finish)
+          finish); then the same solve on the encoder's device-resident
+          state (mirror): the row store's req equal to batch.req and a 1%
+          churn uploading only the churned rows, the solve on the mirror
+          equal to the host-array solve, a full first refresh and a clean
+          warm one (0 bytes), warm ms, and the HtoD ms of a profiled solve
+          on the host arrays, on a clean mirror and right after
+          discard_device_mirror
   core    the port's CoreScheduler on `cuda`, the scheduling cycle users
           call (quota gate, rank, encode, solve, commit), in three parts:
           bench.py's core-cycle shape (10,000 kwok nodes x 50,000 sleep pods
           in 5 queues: a 512-pod warm-up cycle, a release, a cold 50,000-pod
           cycle, a release, a warm one; all 50,000 placed in each, every
           solve on the ladder's device tier, pods/s, the cold first cycle,
-          the warm cycle's stage split and its kernel launches); the
+          the warm cycle's stage split and its kernel launches, a profiled
+          warm cycle on a clean mirror (0 node bytes) and one right after
+          discard_device_mirror (a full upload) with their HtoD ms, and a
+          1% churn cycle whose row store uploads only the churned rows); the
           pressure mix through the core (10,000 x 50,000, one cycle:
           best_nodes launched, no node oversubscribed, every binding
           satisfying its pod's selector and taints, placements equal to a
@@ -81,9 +92,20 @@ phase fails, and when no CUDA device is present):
   preempt the device preemption planner: 32 asks against 10,000 nodes of
           victims (victim tables [16,384, 16, R]) on `cuda`, plan for plan
           equal to the host planner and to the JAX package's counts,
-          dispatch and finish ms; then the quota-held trace through the
+          dispatch and finish ms, the node and victim mirrors full on the
+          first dispatch and clean on the next two, the HtoD ms of a
+          profiled dispatch + finish on a clean mirror and right after
+          discard_device_mirror; then the quota-held trace through the
           port's core on `cuda` and on `cpu`, evicting what the JAX core
           evicts
+  gate    the admission gate: scripts/gate_bench.py's backlog
+          (client/synthetic's copy) at 50,000 asks in the default,
+          contended and saturated shapes, device_admit on `cuda` equal to
+          host_scan (admitted order, held count) within its pass bound,
+          admit ms / device ms / passes of both gates; then one
+          quota-bound core cycle (5,000 asks on the contended tree) on
+          `cuda` with gateDevice auto binding as one with gateDevice=False
+          and one on `cpu`
   kernels one line per kernel: launches (the wrapper's count of calls in
           the main path's run; launches_locality and launches_topology: in
           the locality and topology paths' full-width runs), error against
@@ -167,6 +189,10 @@ EXPECTED_PREEMPT_FIRST = [("hi-0-1", "n00005", ["v-5-0"]),
 # the JAX core's quota-held trace with preempt_device=True: (evicted pods,
 # asks held by quota)
 EXPECTED_QUOTA_HELD = (["qv-0"], 5)
+# the admission gate's backlog (scripts/gate_bench.py's build) and the
+# quota-bound core cycle's ask count
+GATE_ASKS = 50_000
+GATE_CORE_ASKS = 5_000
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -633,6 +659,7 @@ def phase_main(dev, stats, clock_hz):
         "bound_ms": masked_b["bound_ms"], "bound_by": masked_b["bound_by"],
         "library_ms": None,
     }
+    mirror = main_mirror(batch, enc, pods, res, dev)
     N, R = args[0].shape
     G, M = args[2].shape
     return {"nodes": MAIN_NODES, "pods": MAIN_PODS, "N": N, "M": M, "G": G,
@@ -665,7 +692,93 @@ def phase_main(dev, stats, clock_hz):
                      "share": full_b["bound_ms"] / full_ms,
                      "first_slice_formula_bound_ms": full_b["old_ms"]},
             "plain_on_card_ms": plain_ms,
-            "host_prepare_ms": prepare_ms, "profile": profile}
+            "host_prepare_ms": prepare_ms, "profile": profile,
+            "mirror": mirror}
+
+
+def main_mirror(batch, enc, pods, host_res, dev):
+    """The main path on the encoder's device-resident state, as the core
+    solves it: the request rows from the row store (all rows, then a 1%
+    churn that must upload only the churned rows) and the node arrays from
+    the persistent mirror (a full upload, then clean: 0 bytes). The solve
+    on the mirror equals the host-array solve; warm ms on the mirror; the
+    HtoD ms of a profiled warm solve on the host arrays, on a clean mirror,
+    and right after discard_device_mirror (a full upload), in this run."""
+    from yunikorn_tpu_torch.ops import assign
+
+    asks = asks_of(pods)
+    for i, a in enumerate(asks):
+        a.seq = i
+    req = enc.device_req(asks, batch, device=dev)
+    store = enc.row_store
+    if not np.array_equal(req.cpu().numpy(), batch.req.astype(np.int32)):
+        raise AssertionError("the row store's req differs from batch.req")
+    rows_first = store.last_upload_rows
+    churn = len(asks) // 100
+    for a in asks[:churn]:
+        a.seq += len(asks)
+    t0 = time.perf_counter()
+    churned = enc.device_req(asks, batch, device=dev)
+    torch.cuda.synchronize()
+    churn_ms = (time.perf_counter() - t0) * 1e3
+    if store.last_upload_rows != churn:
+        raise AssertionError(f"a {churn}-ask churn uploaded "
+                             f"{store.last_upload_rows} rows")
+    if not torch.equal(churned, req):
+        raise AssertionError("a same-request churn changed the gathered req")
+    batch.req_device = req
+
+    def on_mirror():
+        return assign.solve_batch(batch, enc.nodes, device=dev,
+                                  device_state=enc.device_arrays(device=dev),
+                                  **SOLVE_KW)
+
+    try:
+        res = on_mirror()
+        full = (enc.device.last_refresh, enc.device.take_upload_bytes())
+        same = {f: bool(torch.equal(getattr(res, f), getattr(host_res, f)))
+                for f in ("assigned", "accept_round", "free_after")}
+        same["rounds"] = res.rounds == host_res.rounds
+        if not all(same.values()):
+            raise AssertionError(f"the solve on the mirror differs: {same}")
+        warm = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_mirror()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        clean = (enc.device.last_refresh, enc.device.take_upload_bytes())
+        if clean != ("clean", 0):
+            raise AssertionError(f"a warm solve with nothing changed "
+                                 f"refreshed {clean}")
+        prof_clean = profile_solve(on_mirror)
+        enc.discard_device_mirror()
+        prof_full = profile_solve(on_mirror)
+        after_discard = (enc.device.last_refresh,
+                         enc.device.take_upload_bytes())
+    finally:
+        batch.req_device = None
+    prof_host = profile_solve(lambda: assign.solve_batch(
+        batch, enc.nodes, device=dev, **SOLVE_KW))
+    return {"equals_host_arrays_solve": same,
+            "row_store": {"upload_rows": rows_first,
+                          "churn_upload_rows": churn,
+                          "churn_sync_ms": churn_ms},
+            "first": {"node_refresh": full[0], "node_upload_bytes": full[1]},
+            "warm": {"node_refresh": clean[0], "node_upload_bytes": clean[1],
+                     "solve_ms": warm,
+                     "solve_ms_median": statistics.median(warm)},
+            "after_discard": {"node_refresh": after_discard[0],
+                              "node_upload_bytes": after_discard[1]},
+            "htod_ms": {"host_arrays": prof_host.get("htod_ms"),
+                        "mirror_clean": prof_clean.get("htod_ms"),
+                        "mirror_after_discard": prof_full.get("htod_ms")},
+            "device_busy_ms": {
+                "host_arrays": prof_host.get("device_busy_ms"),
+                "mirror_clean": prof_clean.get("device_busy_ms"),
+                "mirror_after_discard": prof_full.get("device_busy_ms")},
+            "profile_mirror_clean": prof_clean}
 
 
 class NullCallback:
@@ -779,9 +892,11 @@ def check_tiers(core, where):
 def cycle_split(core):
     entry = dict(core.metrics["last_cycle"]["default"])
     return {k: entry.get(k) for k in (
-        "pods", "gate_ms", "gate_rank_ms", "gate_admit_ms", "encode_ms",
-        "solve_ms", "commit_ms", "post_ms", "total_ms", "pipelined",
-        "solve_tier", "gate_path")}
+        "pods", "gate_ms", "gate_rank_ms", "gate_admit_ms", "gate_device_ms",
+        "gate_passes", "encode_ms", "solve_ms", "commit_ms", "post_ms",
+        "total_ms", "pipelined", "solve_tier", "gate_path", "node_refresh",
+        "node_upload_bytes", "encode_device_rows", "encode_device_bytes",
+        "encode_device_ms")}
 
 
 def core_bench_shape(dev):
@@ -817,6 +932,31 @@ def core_bench_shape(dev):
     release_all(core, asks)
     core.update_allocation(AllocationRequest(asks=list(asks)))
     profile = profile_solve(core.schedule_once, top=8)
+    clean_split = cycle_split(core)
+    if (clean_split["node_refresh"], clean_split["node_upload_bytes"]) != (
+            "clean", 0):
+        raise AssertionError(f"a warm cycle with no node change refreshed "
+                             f"the mirror: {clean_split}")
+    # the same warm cycle right after the mirror is discarded: one full
+    # upload (the HtoD of the per-cycle transfer the mirror removes)
+    release_all(core, asks)
+    core.update_allocation(AllocationRequest(asks=list(asks)))
+    core.encoder.discard_device_mirror()
+    profile_full = profile_solve(core.schedule_once, top=8)
+    full_split = cycle_split(core)
+    if full_split["node_refresh"] != "full":
+        raise AssertionError(f"after a discard the mirror refreshed "
+                             f"{full_split['node_refresh']}")
+    # a 1% churn cycle: 500 placed pods released and submitted again (a
+    # fresh core seq each): the row store uploads their rows only
+    churn = asks[:MAIN_PODS // 100]
+    release_all(core, churn)
+    n_churn, churn_s = core_cycle(core, churn)
+    churn_split = cycle_split(core)
+    if (n_churn, churn_split["encode_device_rows"]) != (len(churn),
+                                                        len(churn)):
+        raise AssertionError(f"churn cycle placed {n_churn}, uploaded "
+                             f"{churn_split['encode_device_rows']} rows")
     solves = check_tiers(core, "core-cycle shape")
     return {"nodes": MAIN_NODES, "pods": MAIN_PODS,
             "placed": {"warmup": n_warmup, "cold": n_cold, "warm": n_warm},
@@ -826,7 +966,14 @@ def core_bench_shape(dev):
             "warm_split": split, "cold_split": cold_split,
             "warmup_split": warmup_split, "solves": solves, "tiers": "device",
             "degradations": 0, "warm_best_nodes_launches": warm_launches,
-            "profiled_warm_cycle": profile}
+            "profiled_warm_cycle": profile,
+            "profiled_warm_cycle_split": clean_split,
+            "profiled_after_discard": profile_full,
+            "profiled_after_discard_split": full_split,
+            "htod_ms": {"mirror_clean": profile.get("htod_ms"),
+                        "mirror_after_discard": profile_full.get("htod_ms")},
+            "churn_cycle": {"pods": n_churn, "cycle_ms": churn_s * 1e3,
+                            "split": churn_split}}
 
 
 def check_bindings(cache, bound, asks):
@@ -1441,7 +1588,15 @@ def phase_preempt(dev):
         t2 = time.perf_counter()
         runs.append({"dispatch_ms": (t1 - t0) * 1e3,
                      "finish_ms": (t2 - t1) * 1e3,
-                     "victim_nodes_synced": pstats["victim_nodes_synced"]})
+                     "victim_nodes_synced": pstats["victim_nodes_synced"],
+                     **{k: pstats.get(k) for k in (
+                         "victim_refresh", "node_refresh",
+                         "mirror_upload_bytes")}})
+    mirror_runs = [(r["victim_refresh"], r["node_refresh"]) for r in runs]
+    if mirror_runs != [("full", "full"), ("clean", "clean"),
+                       ("clean", "clean")]:
+        raise AssertionError(f"victim/node mirror refreshes {mirror_runs}, "
+                             "expected full then clean")
     host, host_attempted = plan_preemptions(cache, asks, app_of_pod,
                                             candidate_nodes=cands)
     if plans_key(plans) != plans_key(host) or attempted != host_attempted:
@@ -1457,9 +1612,18 @@ def phase_preempt(dev):
                              f"first plans {plans_key(plans)[:3]} != the JAX "
                              f"package's {EXPECTED_PREEMPT}, "
                              f"{EXPECTED_PREEMPT_FIRST}")
-    profile = profile_solve(lambda: finish_preemption_solve(
-        dispatch_preemption_solve(cache, enc, asks, app_of_pod,
-                                  candidate_nodes=cands, device=dev)), top=8)
+    def dispatch_and_finish():
+        return finish_preemption_solve(dispatch_preemption_solve(
+            cache, enc, asks, app_of_pod, candidate_nodes=cands, device=dev))
+
+    profile = profile_solve(dispatch_and_finish, top=8)
+    # the same dispatch right after the mirror is discarded: node fields and
+    # victim tables upload in full, as every dispatch did without a mirror
+    enc.discard_device_mirror()
+    profile_full = profile_solve(dispatch_and_finish, top=8)
+    if enc.device.last_victim_refresh != "full":
+        raise AssertionError("after a discard the victim mirror refreshed "
+                             f"{enc.device.last_victim_refresh}")
 
     trace = {}
     for label, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
@@ -1476,7 +1640,167 @@ def phase_preempt(dev):
             "victim_tables": list(na.victim_req.shape),
             "plans": len(plans), "victims": victims,
             "expected": list(EXPECTED_PREEMPT), "equal_to_host": True,
-            "runs": runs, "profile": profile, "quota_held": trace}
+            "runs": runs, "profile": profile,
+            "profile_after_discard": profile_full,
+            "htod_ms": {"mirror_clean": profile.get("htod_ms"),
+                        "mirror_after_discard": profile_full.get("htod_ms")},
+            "quota_held": trace}
+
+
+def gate_problem(n_asks, scale):
+    """gate_bench's backlog (client/synthetic's copy of its build) at
+    n_asks in one contention shape, extracted: (problem, by_queue, meta,
+    tree)."""
+    from yunikorn_tpu_torch.client.synthetic import (build_gate_trace,
+                                                     build_gate_tree,
+                                                     gate_meta_for)
+    from yunikorn_tpu_torch.core.gate import extract_problem
+
+    tree = build_gate_tree(n_asks, scale=scale)
+    by_queue = build_gate_trace(tree, n_asks)
+    meta = gate_meta_for(tree, by_queue)
+    return extract_problem(by_queue, meta, tree), by_queue, meta, tree
+
+
+def gate_shape(dev, shape, scale, runs=3):
+    """One contention shape at GATE_ASKS: device_admit on the card equal
+    to host_scan (admitted order, held count) within the pass bound, and
+    both gates' admit ms (host clock around the call, extraction excluded),
+    the device scan's device_ms and passes, medians of `runs` after one
+    warm-up of each."""
+    from yunikorn_tpu_torch.core.gate import host_scan
+    from yunikorn_tpu_torch.ops.gate_solve import device_admit
+
+    def timed(fn):
+        problem = gate_problem(GATE_ASKS, scale)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(problem)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    timed(lambda p: device_admit(p, device=dev))
+    timed(host_scan)
+    dev_runs, host_runs = [], []
+    for _ in range(runs):
+        dev_runs.append(timed(lambda p: device_admit(p, device=dev)))
+        host_runs.append(timed(host_scan))
+    (d_adm, d_held, d_stats), _ = dev_runs[-1]
+    (h_adm, h_held, h_stats), _ = host_runs[-1]
+    if ([a.allocation_key for a in d_adm] != [a.allocation_key for a in h_adm]
+            or d_held != h_held):
+        raise AssertionError(f"{shape}: the device gate admitted "
+                             f"{len(d_adm)} / held {d_held}, the host scan "
+                             f"{len(h_adm)} / {h_held}")
+    if d_stats["passes"] > d_stats["max_passes"]:
+        raise AssertionError(f"{shape}: {d_stats['passes']} passes past the "
+                             f"bound {d_stats['max_passes']}")
+    med = lambda xs: statistics.median(xs)  # noqa: E731
+    problem = gate_problem(GATE_ASKS, scale)[0]
+    profile = profile_solve(lambda: device_admit(problem, device=dev), top=8)
+    return {"asks": GATE_ASKS, "scale": scale, "admitted": len(d_adm),
+            "held": d_held, "held_share": d_held / GATE_ASKS,
+            "trackers": d_stats["trackers"],
+            "device": {"passes": d_stats["passes"],
+                       "max_passes": d_stats["max_passes"],
+                       "finish_loop": d_stats["finish_loop"],
+                       "call_ms": med([ms for _, ms in dev_runs]),
+                       "admit_ms": med([o[2]["admit_ms"] for o, _ in dev_runs]),
+                       "device_ms": med([o[2]["device_ms"]
+                                         for o, _ in dev_runs]),
+                       "transfer_bytes": d_stats["transfer_bytes"]},
+            "host": {"passes": h_stats.get("passes"),
+                     "call_ms": med([ms for _, ms in host_runs]),
+                     "admit_ms": med([o[2]["admit_ms"]
+                                      for o, _ in host_runs])},
+            "device_profile": profile}
+
+
+def gate_core_cycle(device, gate_device=None):
+    """One quota-bound cycle of the port's core: GATE_CORE_ASKS sleep pods
+    (gate_bench's requests: 100/250/500m cpu, 128/512 bytes of memory) on
+    the contended tree (gate_queue_config, scale 1.0) over 1,000 kwok nodes,
+    from three users' apps on every leaf. The queue config is set on the
+    tree directly (the queues.yaml parser needs PyYAML). (bindings by pod
+    name, held count, last cycle entry)."""
+    import random
+
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.client.synthetic import (GATE_USERS,
+                                                     gate_queue_config,
+                                                     make_kwok_nodes)
+    from yunikorn_tpu_torch.common import si
+    from yunikorn_tpu_torch.common.objects import make_pod
+    from yunikorn_tpu_torch.core.scheduler import CoreScheduler, SolverOptions
+
+    cache = SchedulerCache()
+    core = CoreScheduler(cache, device=device, solver_options=SolverOptions(
+        gate_device=gate_device, pipeline=False))
+    cb = NullCallback()
+    core.register_resource_manager(si.RegisterResourceManagerRequest(
+        rm_id="gate", policy_group="queues"), cb)
+    core.queue_trees["default"].reload(gate_queue_config(GATE_CORE_ASKS,
+                                                         scale=1.0))
+    nodes = make_kwok_nodes(1_000)
+    for n in nodes:
+        cache.update_node(n)
+    core.update_node(si.NodeRequest(nodes=[
+        si.NodeInfo(node_id=n.name, action=si.NodeAction.CREATE)
+        for n in nodes]))
+    leaves = [q.full_name for q in core.queue_trees["default"].leaves()]
+    apps = []
+    for leaf in leaves:
+        for user, groups in GATE_USERS:
+            app_id = f"{leaf}-{user}"
+            core.update_application(si.ApplicationRequest(new=[
+                si.AddApplicationRequest(
+                    application_id=app_id, queue_name=leaf,
+                    user=si.UserGroupInfo(user=user, groups=list(groups)))]))
+            apps.append(app_id)
+    rng = random.Random(42)
+    pods = [make_pod(f"g-{i}", cpu_milli=rng.choice([100, 250, 500]),
+                     memory=rng.choice([128, 512]),
+                     labels={"applicationId": apps[i % len(apps)]})
+            for i in range(GATE_CORE_ASKS)]
+    names = {p.uid: p.metadata.name for p in pods}
+    n, cycle_s = core_cycle(core, asks_of(pods))
+    check_tiers(core, f"quota-bound cycle on {device}")
+    held = core.obs.get("unschedulable_total").value(reason="quota_held")
+    return ({names[k]: v for k, v in cb.bound.items()}, held,
+            dict(cycle_split(core), cycle_ms=cycle_s * 1e3,
+                 gate_path_total=core.metrics.get("gate_path_total")))
+
+
+def phase_gate(dev):
+    """The admission gate: gate_bench's backlog at 50,000 asks in the
+    default, contended and saturated shapes through device_admit on the
+    card and host_scan, then one quota-bound core cycle on the card with
+    gateDevice auto binding as one with gateDevice=False and one on the
+    CPU."""
+    from yunikorn_tpu_torch.client.synthetic import GATE_SHAPES
+
+    shapes = {shape: gate_shape(dev, shape, scale)
+              for shape, scale in GATE_SHAPES.items()}
+    cores = {}
+    binds = {}
+    for label, device, gd in (("cuda_auto", dev, None),
+                              ("cuda_gate_device_false", dev, False),
+                              ("cpu_auto", torch.device("cpu"), None)):
+        binds[label], held, cores[label] = gate_core_cycle(device, gd)
+        cores[label]["held"] = held
+    paths = {k: c["gate_path"] for k, c in cores.items()}
+    if paths != {"cuda_auto": "device", "cuda_gate_device_false": "vector",
+                 "cpu_auto": "device"}:
+        raise AssertionError(f"gate paths {paths}")
+    if not (binds["cuda_auto"] == binds["cuda_gate_device_false"]
+            == binds["cpu_auto"]):
+        raise AssertionError("the quota-bound cycle binds differently with "
+                             "the device gate, the host gate and on the CPU")
+    if not cores["cuda_auto"]["held"]:
+        raise AssertionError("the quota-bound cycle held nothing")
+    return {"shapes": shapes,
+            "core": {"asks": GATE_CORE_ASKS,
+                     "bound": len(binds["cuda_auto"]),
+                     "identical": True, **cores}}
 
 
 def profile_solve(fn, top: int = 15):
@@ -1506,8 +1830,11 @@ def profile_solve(fn, top: int = 15):
                 rows.append((dev_us / 1e3, e.count, e.key[:80]))
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows)
+        htod = [r for r in rows if "HtoD" in r[2]]
         return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+                "htod_ms": sum(r[0] for r in htod),
+                "htod_copies": sum(r[1] for r in htod),
                 "top": [{"ms": ms, "count": n, "name": k}
                         for ms, n, k in rows[:top]]}
     except Exception as e:  # a measurement aid: report, never fail the run
@@ -1543,7 +1870,8 @@ def main() -> int:
                                                   max_sm_clock_hz())),
               ("topology", lambda: phase_topology(dev, stats,
                                                   max_sm_clock_hz())),
-              ("preempt", lambda: phase_preempt(dev))]
+              ("preempt", lambda: phase_preempt(dev)),
+              ("gate", lambda: phase_gate(dev))]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

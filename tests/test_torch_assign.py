@@ -171,6 +171,3 @@ def test_unported_inputs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         tassign.solve_batch(batch_t, enc_t.nodes, learned=({}, 0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        tassign.solve_batch(batch_t, enc_t.nodes, device_state={},
-                            device="cpu")

@@ -5,8 +5,10 @@ Reference: deployments/kwok-perf-test/kwok-setup.sh:30-60 (N fake nodes with
 labeled applicationId + queue), plus the solve slice's mixed workload under
 pressure (make_pressure_nodes / make_pressure_pods), the same with pod
 locality (make_locality_pods), the JAX package's every-channel mix
-(make_rich_constraint_pods), and a fragmented ICI-domain fleet under a wave
+(make_rich_constraint_pods), a fragmented ICI-domain fleet under a wave
 of gangs (make_topology_fleet / make_gang_pods, scripts/topology_bench.py's
+build), and a quota-bound pending backlog for the admission gate
+(build_gate_tree / build_gate_trace / gate_meta_for, scripts/gate_bench.py's
 build).
 """
 from __future__ import annotations
@@ -284,3 +286,106 @@ def make_gang_pods(n_pods: int, n_nodes: int,
             gangs.append((app, size))
         g += 1
     return pods, gangs
+
+
+# --------------------------------------------------------------------------
+# admission-gate backlog (scripts/gate_bench.py's build)
+# --------------------------------------------------------------------------
+
+# quota scale of each contention shape: default ~6% of the backlog held (a
+# backlog that mostly fits), contended ~26% (every (leaf, user) limit
+# saturated), saturated ~85% (the multi-pass worst case)
+GATE_SHAPES = {"default": 1.3, "contended": 1.0, "saturated": 0.2}
+GATE_USERS = (("alice", ("dev",)), ("bob", ("dev", "ops")), ("carol", ()))
+
+
+class GateApp:
+    """The three attributes the gate reads off an application."""
+
+    def __init__(self, user, groups, submit_time, queue_name):
+        from yunikorn_tpu_torch.common.si import UserGroupInfo
+
+        self.user = UserGroupInfo(user=user, groups=list(groups))
+        self.submit_time = submit_time
+        self.queue_name = queue_name
+
+
+def build_gate_tree(n_asks: int, scale: float = 1.3):
+    """gate_queue_config's tree, live (a QueueTree)."""
+    from yunikorn_tpu_torch.core.queues import QueueTree
+
+    return QueueTree(gate_queue_config(n_asks, scale))
+
+
+def gate_queue_config(n_asks: int, scale: float = 1.3):
+    """A three-level queue config with quotas sized relative to the
+    backlog's demand (n/8 asks a leaf averaging ~283m cpu / ~320 memory
+    units): quotas on the eight leaves and on parent `pa`, a per-user cpu
+    limit on every other leaf, a group memory limit on `pa`, priority
+    offsets on a slice of the leaves. Returns the root QueueConfig."""
+    from yunikorn_tpu_torch.common.resource import Resource
+    from yunikorn_tpu_torch.core.queues import LimitConfig, QueueConfig
+
+    cpu_q = max(int(n_asks * 28.3 * scale), 1000)
+    mem_q = max(int(n_asks * 32.0 * scale), 1000)
+    leaves = []
+    for i in range(8):
+        cfg = QueueConfig(name=f"leaf{i}")
+        cfg.max_resource = Resource({"cpu": cpu_q, "memory": mem_q})
+        if i % 2 == 0:
+            cfg.limits = [LimitConfig(
+                users=["*"],
+                max_resources=Resource({"cpu": max(int(cpu_q * 0.34), 500)}))]
+        if i % 3 == 0:
+            cfg.properties["priority.offset"] = str(i % 3)
+        leaves.append(cfg)
+    parents = [
+        QueueConfig(name="pa", parent=True,
+                    max_resource=Resource({"cpu": int(cpu_q * 3.4)}),
+                    limits=[LimitConfig(groups=["dev"],
+                                        max_resources=Resource(
+                                            {"memory": int(mem_q * 2.3)}))],
+                    children=leaves[:4]),
+        QueueConfig(name="pb", parent=True, children=leaves[4:]),
+    ]
+    return QueueConfig(name="root", parent=True, children=parents)
+
+
+def build_gate_trace(tree, n_asks: int):
+    """n_asks pending asks round-robin over the tree's leaves and three
+    users (seeded): {queue: [(app, ask)]}, the gate's input shape."""
+    from yunikorn_tpu_torch.common.resource import Resource
+    from yunikorn_tpu_torch.common.si import AllocationAsk
+
+    rng = random.Random(42)
+    leaves = [q.full_name for q in tree.leaves()]
+    apps = {}
+    by_queue: Dict[str, list] = {}
+    for i in range(n_asks):
+        qname = leaves[i % len(leaves)]
+        user, groups = GATE_USERS[i % len(GATE_USERS)]
+        app = apps.setdefault(
+            (qname, user), GateApp(user, groups,
+                                   round(rng.random() * 100, 3), qname))
+        ask = AllocationAsk(
+            f"ask-{i}", "app",
+            Resource({"cpu": rng.choice([100, 250, 500]),
+                      "memory": rng.choice([128, 512])}),
+            priority=rng.choice([0, 0, 0, 1, 5]), seq=i)
+        by_queue.setdefault(qname, []).append((app, ask))
+    return by_queue
+
+
+def gate_meta_for(tree, by_queue):
+    """The gate's per-queue meta (leaf, DRF dominant share, priority
+    adjustment) against a fixed cluster capacity."""
+    from yunikorn_tpu_torch.common.resource import Resource
+
+    cap = Resource({"cpu": 10_000_000, "memory": 20_000_000})
+    meta = {}
+    for qname in by_queue:
+        leaf = tree.resolve(qname, create=False)
+        meta[qname] = (leaf,
+                       leaf.dominant_share(cap) if leaf else 0.0,
+                       leaf.priority_adjustment() if leaf else 0)
+    return meta

@@ -26,7 +26,8 @@ planner deciding WHICH asks preempt WHERE:
   DEVICE (dispatch/finish_preemption_solve) — the same decision procedure as
   ONE dispatch over all asks x all nodes x all victim slots
   (ops/preempt_solve.py) on the caller's device, reading victim tables the
-  encoder re-encodes lazily (sync_victims) and uploads per dispatch. Both
+  encoder re-encodes lazily (sync_victims) from its persistent device
+  mirror (victim_arrays: uploaded only when the tables changed). Both
   planners consume ops.preempt.victim_table and the clamped priority-sum
   helper, so their choices are identical whenever the device models the ask
   (pinned by tests/test_torch_preempt_solve.py); every device plan is
@@ -270,14 +271,23 @@ def dispatch_preemption_solve(
     inflight_by_node: Optional[Dict[str, object]] = None,
     candidate_nodes: Optional[List[str]] = None,
     device=None,
+    mirror_epoch: Optional[int] = None,
 ) -> Optional[PreemptSolveHandle]:
     """Encode + dispatch the batched victim-selection solve on `device`
-    (default `cuda`).
+    (default `cuda`), its node-side inputs from the encoder's persistent
+    device mirror (victim tables included; uploaded only where they
+    changed).
 
     Returns None when nothing is eligible, or when no eligible ask is one
     the device can model (the caller then plans those on the host) — asks
     in groups the device cannot model otherwise ride the handle and are
-    re-planned on the host at finish, sharing the claimed-victim set."""
+    re-planned on the host at finish, sharing the claimed-victim set.
+
+    mirror_epoch: the encoder's mirror_epoch captured on the scheduler
+    thread before a supervised dispatch; a call that outlived a
+    discard_device_mirror raises MirrorDiscarded instead of touching the
+    replacement mirror. A failed mirror refresh raises: there is no
+    per-call upload to fall back to."""
     import numpy as np
 
     from yunikorn_tpu_torch.ops import preempt_solve as ps_mod
@@ -298,6 +308,9 @@ def dispatch_preemption_solve(
     if not any(device_rows):
         return None
 
+    # zombie checkpoint: a dispatch abandoned while wedged above must not
+    # reach the victim tables after a replacement mirror went live
+    encoder.ensure_mirror_epoch(mirror_epoch)
     synced = encoder.sync_victims(app_of_pod, cache.get_priority_class)
     na = encoder.nodes
     node_order = np.full((na.capacity,), ps_mod.NODE_ORDER_EXCLUDED, np.int32)
@@ -316,9 +329,10 @@ def dispatch_preemption_solve(
                 row = encoder.quantize_request(res)
                 free_delta[idx, : row.shape[0]] += row
 
+    device_state = encoder.victim_arrays(device=device, epoch=mirror_epoch)
     np_args = ps_mod.prepare_preempt_args(
         batch, len(asks), [(a.priority or 0) for a in asks], na, node_order,
-        free_delta=free_delta)
+        free_delta=free_delta, device_state=device_state)
     # rows the device cannot model leave the solve (their claims would skew
     # later asks' eligibility against the host re-plan at finish)
     a_valid = np_args[3].copy()
@@ -333,6 +347,11 @@ def dispatch_preemption_solve(
         "device_asks": sum(device_rows),
         "victim_nodes_synced": synced,
     }
+    mirror = encoder.device   # None once a discard orphaned this dispatch
+    if mirror is not None:
+        stats.update(victim_refresh=mirror.last_victim_refresh,
+                     node_refresh=mirror.last_refresh,
+                     mirror_upload_bytes=mirror.take_upload_bytes())
     return PreemptSolveHandle(
         asks=asks, device_rows=device_rows, node_idx=node_idx,
         victim_mask=victim_mask, cache=cache, encoder=encoder,

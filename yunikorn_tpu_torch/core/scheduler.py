@@ -25,19 +25,23 @@ The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
   - solver.shard=True (multi-GPU node-dim sharding, item 14) and an AOT
     namespace (the warm-start layer, item 15)
-  - solver.gateDevice=True (gate device scan, item 7): auto runs the host
-    array scan (core/gate.host_scan), which the JAX package pins identical
-    to its device scan
   - solver.policy other than greedy (optimal: item 11; learned, all:
     item 12)
-  - the persistent device node state and request rows (item 6): every
-    solve uploads the node arrays, and every device preemption dispatch
-    the victim tables
-  - any fallback below the device tier: a solve that fails after its
-    retries fails the cycle; nothing re-solves the card's work on the CPU.
-    A device preemption dispatch or finish that fails is counted as a
-    failed cycle stage ("preempt") and plans nothing that cycle: the host
-    planner does not re-plan it
+  - any fallback below the device tier: a gate scan, row-store sync,
+    mirror refresh or solve that fails after its retries fails the cycle;
+    nothing re-runs the card's work on the CPU. A device preemption
+    dispatch or finish that fails is counted as a failed cycle stage
+    ("preempt") and plans nothing that cycle: the host planner does not
+    re-plan it
+
+The default cycle is the JAX package's: with solver.gateDevice auto the
+admission gate scans on the core's device (ops/gate_solve.device_admit),
+each encoded batch takes its request rows from the encoder's device row
+store (_attach_device_req), every solve reads the node arrays from the
+persistent device mirror (SnapshotEncoder.device_arrays, O(what changed)
+uploads), and every device preemption dispatch the victim mirror.
+gateDevice=False keeps the host array scan (core/gate.host_scan) and the
+host request rows.
 
 Topology steering (solver.topology, auto on a fleet with ICI-domain labels)
 and the device preemption planner (solver.preemptDevice, auto = on) run as
@@ -115,6 +119,7 @@ from yunikorn_tpu_torch.ops.assign import load_kernels, not_ported, solve_batch
 from yunikorn_tpu_torch.robustness.health import HealthMonitor, solver_source
 from yunikorn_tpu_torch.robustness.supervisor import (
     ASSIGN_LADDER,
+    DeadlineExceeded,
     SupervisedExecutor,
     SupervisorOptions,
 )
@@ -179,8 +184,10 @@ class SolverOptions:
     # cycles the exact int64 arithmetic cannot represent. Tri-state: None =
     # "auto" = on.
     gate_vector: Optional[bool] = None
-    # device-resident gate+encode pipeline (solver.gateDevice): ROADMAP
-    # items 7 and 6 — True raises; auto runs the host array scan.
+    # device-resident gate+encode pipeline (solver.gateDevice): the
+    # bounded-pass gate scan on the core's device (ops/gate_solve) and the
+    # request rows from the encoder's device row store. Tri-state: None =
+    # "auto" = on; False keeps the host array scan and the host req.
     gate_device: Optional[bool] = None
     # differential oracle (solver.gateVerify): run the legacy loop after
     # every vectorized gate and pin the results identical — a mismatch
@@ -257,6 +264,7 @@ class _PipelineCycle:
     gate_stats: dict = dataclasses.field(default_factory=dict)
     encode_rows: int = 0
     encode_reencoded: int = 0
+    encode_device: dict = dataclasses.field(default_factory=dict)
     t_prepare_start: float = 0.0
     t_gate: float = 0.0
     t_encode_end: float = 0.0
@@ -280,6 +288,10 @@ class _SolveHandle:
     inflight_ports: object
     tier: str = "device"
     result: Optional[object] = None   # SolveResult awaiting materialization
+    # encoder mirror epoch captured on the scheduler thread right before
+    # each supervised execute: an abandoned dispatch that unwedges after a
+    # discard finds it stale and bails instead of racing the live mirror
+    mirror_epoch: Optional[int] = None
 
 
 class CoreScheduler(SchedulerAPI):
@@ -482,7 +494,8 @@ class CoreScheduler(SchedulerAPI):
         # ---- array-form admission gate (rounds 10/11) ----
         self._m_gate_path = m.counter(
             "gate_path_total",
-            "admission-gate executions by path (vector = host array-form "
+            "admission-gate executions by path (device = the bounded-pass "
+            "scan on the core's device, vector = host array-form "
             "prefix-scan admission, legacy = per-ask loop, fallback = "
             "extraction raised GateFallback and the legacy loop ran)",
             labelnames=("path",))
@@ -493,12 +506,13 @@ class CoreScheduler(SchedulerAPI):
         self._m_gate_stage = m.histogram(
             "gate_stage_ms",
             "admission-gate sub-stage latency (rank = lexsort ranking, "
-            "admit = prefix-scan / per-ask-loop admission)",
+            "admit = prefix-scan / per-ask-loop admission, encode = the "
+            "device row store's sync + gather)",
             labelnames=("stage",), buckets=MS_BUCKETS)
         self._m_gate_passes = m.counter(
             "gate_passes_total",
-            "admission-scan passes executed across cycles (host "
-            "vectorized scan)")
+            "admission-scan passes executed across cycles (device and "
+            "host vectorized scans)")
         # stats of the most recent gate pass (path, passes, sub-stage ms);
         # ride the cycle entry and the gate tracer span
         self._last_gate_stats: dict = {}
@@ -573,6 +587,11 @@ class CoreScheduler(SchedulerAPI):
         self._span_mu = threading.Lock()
         # filled by _dispatch_solve for the cycle's trace span
         self._last_solve_stats: dict = {}
+        # the row store's sync of the last encoded batch (rows, bytes, ms)
+        self._last_encode_device: dict = {}
+        self._m_transfer_bytes = m.counter(
+            "device_transfer_bytes_total",
+            "host->device bytes of the persistent node-mirror uploads")
         # recent preemption plans (operator surface: /ws/v1/preemptions)
         from collections import deque
 
@@ -617,9 +636,12 @@ class CoreScheduler(SchedulerAPI):
         self.supervisor.on_exhausted = self._on_breaker_exhausted
         # per-cycle delta baseline for the journey's solved-mark attrs
         self._ledger_retries_seen = 0
-        if self.solver.gate_vector is not False:
+        if self._gate_device_on():
+            logger.info("admission gate: device scan (ops/gate_solve."
+                        "device_admit) on %s", self.device)
+        elif self.solver.gate_vector is not False:
             logger.info("admission gate: host array scan (core/gate."
-                        "host_scan); the device scan is ROADMAP item 7")
+                        "host_scan)")
 
     # ------------------------------------------------------------ SchedulerAPI
     def register_resource_manager(self, request: RegisterResourceManagerRequest,
@@ -1265,12 +1287,17 @@ class CoreScheduler(SchedulerAPI):
     def _on_dispatch_abandoned(self, path: str, tier: str) -> None:
         """Supervisor hook: a dispatch blew its deadline and was abandoned.
 
-        The JAX package also orphans its persistent device mirror here (the
-        wedged call may still write to it); the port's solve uploads the
-        node arrays with every call, so there is no mirror to orphan until
-        ROADMAP item 6."""
+        The watchdog thread is still running the wedged call and will touch
+        whatever it was touching if it ever unwedges — the persistent
+        device mirror's tensors and dirty-field bookkeeping among them,
+        which the next cycle's refresh would race. Orphan the mirror so the
+        late writes land on an unreferenced object; the replacement starts
+        with one full upload."""
+        # capture the evidence BEFORE touching any lock
         self.flightrec.record("watchdog_abandoned",
                               reason=f"path {path} tier {tier}")
+        with self._lock:
+            self.encoder.discard_device_mirror()
 
     def _on_slo_violation(self, objectives: List[str]) -> None:
         """SLO hook (fires after tick() releases its lock): one bundle per
@@ -1318,26 +1345,47 @@ class CoreScheduler(SchedulerAPI):
                           solve_ms=round(solve_ms, 2), aot="warm")
 
     def _dispatch_solve(self, batch, policy, overlay, node_mask,
-                        inflight_ports):
-        """One batch through the port's solve_batch on the core's device.
-        The solve returns when it is done (its round loop reads two flags
-        on the host each round), so what it returns is final. The
-        supervisor runs this on a watchdog thread: the device is made
-        current there explicitly.
+                        inflight_ports, mirror_epoch=None):
+        """One batch through the port's solve_batch on the core's device,
+        its node-side inputs from the encoder's persistent device mirror
+        (refreshed here: O(what changed) uploads). The solve returns when it
+        is done (its round loop reads two flags on the host each round), so
+        what it returns is final. The supervisor runs this on a watchdog
+        thread: the device is made current there explicitly. A failed
+        refresh fails the dispatch like a failed solve.
 
-        Side channel: fills self._last_solve_stats for the cycle's trace
-        span."""
+        mirror_epoch: captured on the scheduler thread before the supervised
+        call (a direct caller captures it here); a dispatch abandoned
+        mid-wedge then finds it stale and bails (MirrorDiscarded).
+
+        Side channel: fills self._last_solve_stats (tier, rounds, the
+        mirror's refresh mode and upload bytes) for the cycle's trace span
+        and entry."""
         so = self.solver
+        epoch = (mirror_epoch if mirror_epoch is not None
+                 else self.encoder.mirror_epoch)
         with self._device_scope():
+            device_state = self.encoder.device_arrays(device=self.device,
+                                                      epoch=epoch)
             result = solve_batch(batch, self.encoder.nodes, policy=policy,
                                  max_rounds=so.max_rounds, chunk=so.chunk,
                                  use_pallas=self._use_pallas,
                                  free_delta=overlay, node_mask=node_mask,
                                  ports_delta=inflight_ports,
-                                 max_batch=so.max_batch, device=self.device)
+                                 max_batch=so.max_batch,
+                                 device_state=device_state,
+                                 device=self.device)
         self._m_batch_pods.observe(batch.num_pods)
-        self._last_solve_stats = {"pods": int(batch.num_pods),
-                                  "tier": "device", "rounds": result.rounds}
+        stats = {"pods": int(batch.num_pods), "tier": "device",
+                 "rounds": result.rounds}
+        mirror = self.encoder.device
+        if mirror is not None:
+            uploaded = mirror.take_upload_bytes()
+            stats["node_upload_bytes"] = uploaded
+            stats["node_refresh"] = mirror.last_refresh
+            if uploaded:
+                self._m_transfer_bytes.inc(uploaded)
+        self._last_solve_stats = stats
         return result
 
     def _device_scope(self):
@@ -1363,10 +1411,12 @@ class CoreScheduler(SchedulerAPI):
         result proves the tier healthy."""
         h = _SolveHandle(admitted=admitted, batch=batch, policy=policy,
                          overlay=overlay, node_mask=node_mask,
-                         inflight_ports=inflight_ports)
+                         inflight_ports=inflight_ports,
+                         mirror_epoch=self.encoder.mirror_epoch)
         h.result, h.tier = self.supervisor.execute(
             "assign", [(ASSIGN_LADDER[0], lambda: self._dispatch_solve(
-                batch, policy, overlay, node_mask, inflight_ports))],
+                batch, policy, overlay, node_mask, inflight_ports,
+                mirror_epoch=h.mirror_epoch))],
             commit_success=False)
         return h
 
@@ -1375,12 +1425,16 @@ class CoreScheduler(SchedulerAPI):
         under the dispatch deadline; a retry re-solves the handle's
         captured inputs. Raises AllTiersFailed when the retries fail."""
         n = h.batch.num_pods
+        # a re-solve at materialize time is a new dispatch: it carries the
+        # current epoch, not the (possibly superseded) dispatch-time one
+        h.mirror_epoch = self.encoder.mirror_epoch
 
         def fn():
             result, h.result = h.result, None
             if result is None:  # a retry re-dispatches
                 result = self._dispatch_solve(h.batch, h.policy, h.overlay,
-                                              h.node_mask, h.inflight_ports)
+                                              h.node_mask, h.inflight_ports,
+                                              mirror_epoch=h.mirror_epoch)
             return _host_rows(result.assigned, n)
 
         assigned, h.tier = self.supervisor.execute(
@@ -1640,13 +1694,15 @@ class CoreScheduler(SchedulerAPI):
             return None
         from yunikorn_tpu_torch.core.preemption import dispatch_preemption_solve
 
+        epoch = self.encoder.mirror_epoch
+
         def fn():
             with self._device_scope():
                 return dispatch_preemption_solve(
                     self.cache, self.encoder, prospective, self._app_of_pod(),
                     inflight_by_node=self._inflight_by_node(),
                     candidate_nodes=self._preempt_candidate_nodes(),
-                    device=self.device)
+                    device=self.device, mirror_epoch=epoch)
 
         t0 = time.time()
         try:
@@ -1849,6 +1905,7 @@ class CoreScheduler(SchedulerAPI):
             batch = self.encoder.build_batch_cached(admitted, ranks=ranks,
                                                     extra_placed=inflight_placed)
             self._resolve_solver_runtime()
+            self._attach_device_req(admitted, batch)
             self._attach_topology(admitted, batch, overlay=overlay)
             t_encode = time.time()
             policy = self._policy_for_partition()
@@ -1903,8 +1960,10 @@ class CoreScheduler(SchedulerAPI):
                 "encode_rows": self.encoder.last_encode_rows,
                 "encode_reencoded": self.encoder.last_encode_rows_reencoded,
             }
+            entry.update(_encode_device_extras(self._last_encode_device))
             entry.update(_gate_extras(self._last_gate_stats))
             entry.update(_topo_extras(self._last_topo_stats))
+            entry.update(_mirror_extras(self._last_solve_stats))
             entry["solver_policy"] = "greedy"
             entry["solve_tier"] = handle.tier
             if fb_rounds:
@@ -2029,6 +2088,7 @@ class CoreScheduler(SchedulerAPI):
             batch = self.encoder.build_batch_cached(
                 admitted, ranks=ranks, extra_placed=inflight_placed)
             self._resolve_solver_runtime_locked()
+            self._attach_device_req(admitted, batch)
             self._cycle_seq += 1
             cyc = _PipelineCycle(
                 cycle_id=self._cycle_seq, admitted=admitted, ranks=ranks,
@@ -2039,6 +2099,7 @@ class CoreScheduler(SchedulerAPI):
                 gate_stats=dict(self._last_gate_stats),
                 encode_rows=self.encoder.last_encode_rows,
                 encode_reencoded=self.encoder.last_encode_rows_reencoded,
+                encode_device=dict(self._last_encode_device),
                 t_prepare_start=t0, t_gate=t_gate, t_encode_end=time.time())
             self.tracer.add("gate", cyc.cycle_id, t0, t_gate,
                             pods=len(admitted), **_gate_extras(cyc.gate_stats))
@@ -2221,8 +2282,10 @@ class CoreScheduler(SchedulerAPI):
                 "overlap_ms": round(overlap_ms, 2),
                 "overlap_ratio": round(overlap_ms / max(solve_ms, 1e-6), 3),
             }
+            entry.update(_encode_device_extras(cyc.encode_device))
             entry.update(_gate_extras(cyc.gate_stats))
             entry.update(_topo_extras(self._last_topo_stats))
+            entry.update(_mirror_extras(self._last_solve_stats))
             entry["solver_policy"] = "greedy"
             entry["solve_tier"] = cyc.result.tier
             if fb_rounds:
@@ -2546,14 +2609,17 @@ class CoreScheduler(SchedulerAPI):
         in-cycle admissions — conservatively reproducing the queue usage the
         sequential order would have committed before this gate.
 
-        Two admission paths: the host array-form scan (core/gate.host_scan)
-        and the legacy per-ask loop, both consuming the same extracted
-        GateProblem (the JAX package's third, the device scan, is ROADMAP
-        item 7). GateFallback (quantities the exact int64 arithmetic cannot
-        represent) is raised at extraction — the legacy loop is the
-        authority for those cycles. Both paths are pure w.r.t. queue-tree
-        state, so the verify mode can run the legacy oracle after the scan
-        on the same cycle.
+        Admission paths, all consuming the same extracted GateProblem: the
+        bounded-pass scan on the core's device (ops/gate_solve.device_admit,
+        solver.gateDevice auto or True), the host array-form scan
+        (core/gate.host_scan, gateDevice=False) and the legacy per-ask loop
+        (gateVectorized=False with gateDevice=False). The device scan has
+        one tier: a scan that fails past its retries fails the cycle,
+        nothing re-decides it on the host. GateFallback (quantities the
+        exact int64 arithmetic cannot represent) is raised at extraction —
+        the legacy loop is the authority for those cycles. Every path is
+        pure w.r.t. queue-tree state, so the verify mode can run the legacy
+        oracle after the scan on the same cycle.
         """
         t0 = time.perf_counter()
         cluster_cap = self._cluster_capacity()
@@ -2574,9 +2640,10 @@ class CoreScheduler(SchedulerAPI):
         admitted: Optional[List[object]] = None
         held = 0
         stats: dict = {}
+        use_device = self._gate_device_on()
         use_vector = self.solver.gate_vector is not False
         problem = None
-        if use_vector:
+        if use_device or use_vector:
             try:
                 with gate_mod.paused_gc():
                     problem = gate_mod.extract_problem(
@@ -2589,7 +2656,11 @@ class CoreScheduler(SchedulerAPI):
                                "loop: %s", e)
                 self._m_gate_path.inc(path="fallback")
                 stats = {"path": "legacy", "fallback": str(e)}
-        if problem is not None:
+        if problem is not None and use_device:
+            (admitted, held, stats), _tier = self.supervisor.execute(
+                "gate", [("device", lambda: self._device_admit(problem))])
+            self._m_gate_path.inc(path="device")
+        elif problem is not None:
             admitted, held, stats = gate_mod.host_scan(problem)
             self._m_gate_path.inc(path="vector")
         if admitted is None:
@@ -2705,6 +2776,49 @@ class CoreScheduler(SchedulerAPI):
     # orders preemption candidates toward freeing contiguous domains. With
     # the tri-state off (or a fleet with no topology labels) batch.topo
     # stays None and every solve runs the topology-free program.
+
+    def _gate_device_on(self) -> bool:
+        """Tri-state solver.gateDevice resolved: auto = on."""
+        return self.solver.gate_device is not False
+
+    def _device_admit(self, problem):
+        """The gate's device scan on the core's device (the supervisor may
+        run this on a watchdog thread: the device is made current there)."""
+        from yunikorn_tpu_torch.ops import gate_solve
+
+        with self._device_scope():
+            return gate_solve.device_admit(problem, device=self.device)
+
+    def _attach_device_req(self, admitted, batch) -> None:
+        """Attach the row store's req tensor on the core's device to a built
+        batch (batch.req_device): a churn cycle then uploads only the
+        changed rows plus an int32 slot index instead of the whole [N, R]
+        req. Supervised under the "encode" path; a sync that fails past its
+        retries fails the cycle (no host req substitutes for it). A blown
+        deadline orphans the store, since its zombie may still write into
+        it (the successor starts cold)."""
+        batch.req_device = None
+        self._last_encode_device = {}
+        if not self._gate_device_on():
+            return
+        t0 = time.perf_counter()
+
+        def fn():
+            with self._device_scope():
+                return self.encoder.device_req(admitted, batch,
+                                               device=self.device)
+
+        try:
+            batch.req_device = self.supervisor.run("encode", fn)
+        except DeadlineExceeded:
+            self.encoder.row_store = None
+            raise
+        ms = (time.perf_counter() - t0) * 1000
+        self._m_gate_stage.observe(ms, stage="encode")
+        store = self.encoder.row_store
+        self._last_encode_device = {"rows": store.last_upload_rows,
+                                    "bytes": store.last_upload_bytes,
+                                    "ms": round(ms, 3)}
 
     def _topology_on(self) -> bool:
         t = self.solver.topology
@@ -3286,9 +3400,6 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
     if aot_namespace:
         not_ported("an AOT executable namespace (aot_namespace)", 15,
                    "warm-start layer")
-    if so.gate_device:
-        not_ported("the gate device scan (solver.gateDevice=True)", 7,
-                   "gate device scan")
     if so.policy == "optimal":
         not_ported("the pack and cvx duel arms (solver.policy=optimal)", 11,
                    "pack and cvx duel arms")
@@ -3317,6 +3428,25 @@ def _topo_extras(stats: dict) -> dict:
         if src in stats:
             out[dst] = stats[src]
     return out
+
+
+def _encode_device_extras(stats: dict) -> dict:
+    """The row store's sync for the cycle entry: rows and bytes shipped for
+    the encoded batch (0 rows on a clean cycle) and its host ms (part of
+    encode_ms)."""
+    if not stats:
+        return {}
+    return {"encode_device_rows": stats["rows"],
+            "encode_device_bytes": stats["bytes"],
+            "encode_device_ms": stats["ms"]}
+
+
+def _mirror_extras(stats: dict) -> dict:
+    """The node mirror's refresh for the cycle entry, as the cycle's last
+    solve dispatch found it (clean / fields / full, and the bytes it
+    uploaded: 0 when clean)."""
+    return {k: stats[k] for k in ("node_refresh", "node_upload_bytes")
+            if k in stats}
 
 
 def _gate_extras(stats: dict) -> dict:

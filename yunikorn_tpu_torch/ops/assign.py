@@ -40,10 +40,12 @@ _loc_accept_cap). The round loop is a Python loop: each round reads two
 flags on the host (one synchronisation a round), and a locality solve reads
 its LocPlan once before the loop; everything else stays on the device.
 
-Inputs the port does not have yet raise NotImplementedError naming the
-ROADMAP item that ports them: the persistent device node state
-(`device_state`, `req_device`, item 6) and the learned policy (`learned`,
-item 12).
+The node-side inputs come from the host arrays or, with `device_state`,
+from the encoder's persistent device mirror (snapshot/encoder.
+DeviceNodeState), and the pod requests from the row store's gather
+(`batch.req_device`) when the batch is solved in one piece. The learned
+policy (`learned`) is not ported yet and raises NotImplementedError naming
+its ROADMAP item (12).
 """
 from __future__ import annotations
 
@@ -1095,27 +1097,11 @@ def pad2d(arr, width, fill):
     return out
 
 
-def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
-                       ports_delta=None, device_state=None):
-    """Assemble the positional numpy args (SOLVE_ARG_NAMES) + static kwargs
-    for `solve` from a PodBatch and NodeArrays, on the host path.
-
-    free_delta: optional [capacity, R] float overlay subtracted from node free
-    capacity (the core's in-flight allocations). node_mask: optional
-    [capacity] bool restricting candidate nodes. ports_delta: optional
-    [capacity, Wp] u32 port mask OR-ed into node port occupancy. Each host
-    port any group requests becomes a capacity-1 synthetic resource column,
-    so two batch pods cannot share a port on one node."""
-    if device_state is not None:
-        not_ported("the persistent device node state (device_state)", 6,
-                    "snapshot device state")
-    if getattr(batch, "req_device", None) is not None:
-        not_ported("a device-resident request tensor (req_device)", 6,
-                    "snapshot device state")
-    na = node_arrays
-    g_ports_u32 = batch.g_ports.view(np.uint32)
-    req_i = batch.req.astype(np.int32)
-    score_cols = req_i.shape[1]
+def _host_node_args(batch, na, req_i, g_ports_u32, free_delta, node_mask,
+                    ports_delta):
+    """The node-side solve args from the host arrays: (free_i, cap_i,
+    node_ports, node_ok, req_i), with the intra-batch host-port columns
+    appended to req/free/capacity when a group requests host ports."""
     free_i = np.floor(na.free).astype(np.int32)
     if free_delta is not None:
         free_i = apply_free_delta(free_i, free_delta)
@@ -1153,6 +1139,72 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     node_ok = na.valid & na.schedulable
     if node_mask is not None:
         node_ok = node_ok & node_mask[: node_ok.shape[0]]
+    return free_i, cap_i, node_ports_u32, node_ok, req_i
+
+
+def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
+                       ports_delta=None, device_state=None,
+                       allow_req_device=True):
+    """Assemble the positional args (SOLVE_ARG_NAMES) + static kwargs for
+    `solve` from a PodBatch and NodeArrays.
+
+    free_delta: optional [capacity, R] float overlay subtracted from node free
+    capacity (the core's in-flight allocations). node_mask: optional
+    [capacity] bool restricting candidate nodes. ports_delta: optional
+    [capacity, Wp] u32 port mask OR-ed into node port occupancy. Each host
+    port any group requests becomes a capacity-1 synthetic resource column,
+    so two batch pods cannot share a port on one node.
+
+    device_state: optional dict of persistent node tensors
+    (SnapshotEncoder.device_arrays, refreshed to match node_arrays): the
+    node-side inputs then come from the mirror, the overlays apply as device
+    ops, and the node→domain column of topology steering rides its topo
+    field. Batches requesting host ports bypass it (the synthetic port
+    columns reshape free/capacity per batch). With it, batch.req_device
+    (the row store's gather, equal to req.astype(int32)) replaces the host
+    req when allow_req_device holds."""
+    na = node_arrays
+    g_ports_u32 = batch.g_ports.view(np.uint32)
+    use_device = device_state is not None and not g_ports_u32.any()
+    # the chunked path rank-sorts pod args on the host: it takes the host
+    # req (allow_req_device=False)
+    req_dev = getattr(batch, "req_device", None) if allow_req_device else None
+    if (use_device and req_dev is not None
+            and tuple(req_dev.shape) == batch.req.shape):
+        req_i = req_dev
+    else:
+        req_i = batch.req.astype(np.int32)
+    score_cols = req_i.shape[1]
+    topo_mirror = None
+    if use_device:
+        dev = device_state
+        free_i = dev["free_i"]
+        if free_delta is not None:
+            free_i = apply_free_delta(free_i, free_delta)
+        cap_i = dev["cap_i"]
+        node_ports = dev["ports"]
+        if ports_delta is not None:
+            pd = np.zeros(tuple(node_ports.shape), np.uint32)
+            rows = min(pd.shape[0], ports_delta.shape[0])
+            cols = min(pd.shape[1], ports_delta.shape[1])
+            pd[:rows, :cols] = ports_delta[:rows, :cols]
+            node_ports = node_ports | torch.from_numpy(pd.view(np.int32)).to(
+                node_ports.device)
+        node_ok = dev["node_ok"]
+        if node_mask is not None:
+            node_ok = node_ok & torch.from_numpy(
+                np.ascontiguousarray(node_mask[: node_ok.shape[0]])).to(
+                    node_ok.device)
+        labels, taints_hard, taints_soft = (
+            dev["labels"], dev["taints_hard"], dev["taints_soft"])
+        topo_mirror = dev.get("topo")
+    else:
+        free_i, cap_i, node_ports, node_ok, req_i = _host_node_args(
+            batch, na, req_i, g_ports_u32, free_delta, node_mask,
+            ports_delta)
+        labels, taints_hard, taints_soft = (
+            na.labels.view(np.uint32), na.taints_hard.view(np.uint32),
+            na.taints_soft.view(np.uint32))
     host_mask = batch.g_host_mask
     if host_mask is not None:
         host_mask = pad2d(host_mask, na.capacity, False)
@@ -1170,12 +1222,16 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     topo_args = getattr(batch, "topo", None)
     if topo_args is not None and loc is None:
         M_ = free_i.shape[0]
-        node_dom = topo_args.node_dom
-        if node_dom.shape[0] != M_:
-            # node capacity grew since the fold: unlabeled-pad the tail
-            nd = np.full((M_,), -1, np.int32)
-            nd[: min(M_, node_dom.shape[0])] = node_dom[:M_]
-            node_dom = nd
+        if topo_mirror is not None and topo_mirror.shape[0] == M_:
+            # device path: the node→domain column is already resident
+            node_dom = topo_mirror[:, 2]
+        else:
+            node_dom = topo_args.node_dom
+            if node_dom.shape[0] != M_:
+                # node capacity grew since the fold: unlabeled-pad the tail
+                nd = np.full((M_,), -1, np.int32)
+                nd[: min(M_, node_dom.shape[0])] = node_dom[:M_]
+                node_dom = nd
         pref = topo_args.pref_pod
         if pref.shape[0] != req_i.shape[0]:
             pp = np.full((req_i.shape[0],), -1, np.int32)
@@ -1189,8 +1245,7 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
         batch.g_anyof_valid, batch.g_tol.view(np.uint32),
         batch.g_ports.view(np.uint32), batch.g_pref_req.view(np.uint32),
         batch.g_pref_forb.view(np.uint32), batch.g_pref_weight,
-        na.labels.view(np.uint32), na.taints_hard.view(np.uint32),
-        na.taints_soft.view(np.uint32), node_ports_u32, node_ok,
+        labels, taints_hard, taints_soft, node_ports, node_ok,
         free_i, cap_i, host_mask, host_soft, loc, topo,
     )
     assert len(np_args) == len(SOLVE_ARG_NAMES)
@@ -1232,13 +1287,15 @@ def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
                 learned=None) -> SolveResult:
     """Host wrapper: PodBatch + NodeArrays in → SolveResult (tensors on
     `device`, default `cuda`) out. Batches above max_batch (rounded down to
-    a power of two) run as chained rank-ordered slices (solve_chunked)."""
+    a power of two) run as chained rank-ordered slices (solve_chunked), with
+    the host req. See prepare_solve_args for device_state."""
     _check_scope(learned)
     device = resolve_device(device)
     mb = 1 << (max(int(max_batch), 64).bit_length() - 1)
     np_args, static_kwargs = prepare_solve_args(
         batch, node_arrays, free_delta=free_delta, node_mask=node_mask,
-        ports_delta=ports_delta, device_state=device_state)
+        ports_delta=ports_delta, device_state=device_state,
+        allow_req_device=batch.req.shape[0] <= mb)
     kwargs = dict(static_kwargs, max_rounds=max_rounds, chunk=chunk,
                   policy=policy, use_pallas=use_pallas, device=device)
     N = np_args[0].shape[0]

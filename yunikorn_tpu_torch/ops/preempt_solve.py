@@ -5,7 +5,9 @@ Replaces the host planner's triple loop — asks x candidate nodes x victims,
 one `preemption_victim_search` per (ask, node) (core/preemption.py) — with
 one dispatch that plans for every unplaced ask against every node at once.
 
-Data model (snapshot/encoder.sync_victims, host numpy uploaded per call):
+Data model (snapshot/encoder.sync_victims; on the card the persistent
+victim mirror, SnapshotEncoder.victim_arrays, re-uploaded only when the
+tables changed):
 
   victim_req   [M, V, R] int32  per-node victim freed-resource rows, already
                                 in eviction order (priority asc, newest first
@@ -52,7 +54,7 @@ import numpy as np
 import torch
 
 from yunikorn_tpu_torch.ops.assign import (CAP, _cumsum_rows, _tensor,
-                                           apply_free_delta, not_ported)
+                                           apply_free_delta)
 from yunikorn_tpu_torch.ops.predicates import group_screen
 from yunikorn_tpu_torch.ops.preempt import (
     MAX_CANDIDATE_NODES,
@@ -157,18 +159,16 @@ def preempt_solve(
 
 def prepare_preempt_args(batch, n_asks, prios, node_arrays, node_order, *,
                          free_delta=None, device_state=None):
-    """Assemble preempt_solve's positional args (host numpy).
+    """Assemble preempt_solve's positional args.
 
     batch: a PodBatch encoding the preempting asks (rows 0..n_asks-1, already
     in priority-desc order) — batch.req rows are quantize_request outputs,
     already ceil'd to integers; prios: their int priorities. node_order: [M]
     int32 node-order ranks (big = not a candidate). free_delta: the core's
-    in-flight allocation overlay ([capacity, R] float). The victim tables
-    come from the host arrays (encoder.sync_victims); the persistent device
-    mirror (device_state) is ROADMAP item 6."""
-    if device_state is not None:
-        not_ported("the persistent device victim mirror (device_state)", 6,
-                   "snapshot device state")
+    in-flight allocation overlay ([capacity, R] float). device_state: the
+    persistent device mirror INCLUDING the victim fields
+    (SnapshotEncoder.victim_arrays); the node-side inputs then come from it
+    (O(what changed) uploads) instead of the host arrays."""
     na = node_arrays
     A = MAX_PREEMPTING_ASKS_PER_CYCLE
     R = batch.req.shape[1]
@@ -182,7 +182,21 @@ def prepare_preempt_args(batch, n_asks, prios, node_arrays, node_order, *,
     a_prio[:n] = np.asarray(list(prios[:n]), np.int32)
     a_valid[:n] = True
 
-    free_i = np.floor(na.free).astype(np.int32)
+    if device_state is not None:
+        free_i = device_state["free_i"]
+        labels = device_state["labels"]
+        taints = device_state["taints_hard"]
+        node_ok = device_state["node_ok"]
+        victim_req = device_state["victim_req"]
+        victim_prio = device_state["victim_prio"]
+        victim_valid = device_state["victim_valid"]
+    else:
+        free_i = np.floor(na.free).astype(np.int32)
+        labels = na.labels.view(np.uint32)
+        taints = na.taints_hard.view(np.uint32)
+        node_ok = na.valid & na.schedulable
+        victim_req, victim_prio, victim_valid = (
+            na.victim_req, na.victim_prio, na.victim_valid)
     if free_delta is not None:
         free_i = apply_free_delta(free_i, free_delta)
     return (
@@ -193,9 +207,8 @@ def prepare_preempt_args(batch, n_asks, prios, node_arrays, node_order, *,
         batch.g_anyof.view(np.uint32),
         batch.g_anyof_valid,
         batch.g_tol.view(np.uint32),
-        na.labels.view(np.uint32), na.taints_hard.view(np.uint32),
-        na.valid & na.schedulable,
+        labels, taints, node_ok,
         node_order,
         free_i,
-        na.victim_req, na.victim_prio, na.victim_valid,
+        victim_req, victim_prio, victim_valid,
     )

@@ -1,12 +1,12 @@
 """Snapshot encoder: incremental cluster state → dense device-ready arrays.
 
-Host half of the JAX package's snapshot/encoder.py, copied with its imports
-rewritten: GroupSpec, PodBatch, NodeArrays and SnapshotEncoder's node sync,
-batch build, request quantization and the lazy victim-table sync of the
-preemption planner (mark_victims_stale / sync_victims: host re-encodes of
-the stale nodes' tables, which the device planner uploads per dispatch).
-The persistent device mirror (DeviceNodeState, victim tables included) and
-the device request-row pool (DeviceRowStore) are ROADMAP item 6.
+The JAX package's snapshot/encoder.py, copied with its imports rewritten:
+GroupSpec, PodBatch, NodeArrays and SnapshotEncoder's node sync, batch
+build, request quantization and the lazy victim-table sync of the
+preemption planner, and the device-resident state as torch tensors on the
+caller's device: the persistent node and victim mirror (DeviceNodeState,
+refreshed O(what changed) per solve and per preemption dispatch) and the
+request-row pool (DeviceRowStore, O(changed asks) uploads per cycle).
 
 This layer replaces the role the reference's SchedulerCache plays for the
 predicate plugins (pkg/cache/external/scheduler_cache.go feeding
@@ -35,9 +35,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from yunikorn_tpu_torch.cache.external.scheduler_cache import NodeInfo, SchedulerCache
 from yunikorn_tpu_torch.common import constants
@@ -66,16 +68,23 @@ VICTIM_PRIO_PAD = 2**30
 
 
 from yunikorn_tpu_torch.snapshot.vocab import _next_pow2 as _bucket
+from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
 
-# device-mirror array names: NodeArrays marks them dirty for the persistent
-# device mirror (ROADMAP item 6), which reads them through take_device_dirty.
+# device-mirror array names (single source: NodeArrays dirty marking and
+# DeviceNodeState uploads must agree, or a stale array is served as "clean").
 # "topo" is the [M, 3] interned (slice, rack, ici-domain) coordinate tensor
 # (topology/model.py): tiny, and it changes only when node OBJECTS change,
 # so mirroring it as its own field costs a 12-byte-per-node upload on label
 # churn and nothing on pod churn.
 DEVICE_FIELDS = ("free_i", "cap_i", "labels", "taints_hard", "taints_soft",
                  "ports", "node_ok", "topo")
+
+# victim-table mirror (the batched preemption planner's node-side state),
+# uploaded as its own field group so allocation-path refreshes never pay
+# for it; one encode writes a node's whole table, so the group is
+# dirty-tracked as a unit. victim_app stays host-side: no device op reads it.
+VICTIM_FIELDS = ("victim_req", "victim_prio", "victim_valid")
 
 
 def _set_bit(arr: np.ndarray, bit: int) -> None:
@@ -594,6 +603,320 @@ class NodeArrays:
         return len(self._name_to_idx)
 
 
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a NEW tensor on `device` (a copy even on the CPU, so
+    a mirror never aliases the live host arrays); uint32 bitsets become
+    int32 views with the same bits."""
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, copy=True)
+
+
+class DeviceNodeState:
+    """Persistent device-resident mirror of NodeArrays.
+
+    Holds the solve's chunk-invariant node tensors (int32 free/capacity,
+    symbol bitsets as int32 views, node_ok, topo) on one device so a
+    cycle's solve transfers O(what changed), not everything: a clean cycle
+    re-uses the previous tensors outright (no host conversion, no
+    transfer), and a dirty cycle re-uploads only the STALE fields — pod
+    churn touches just free/ports, so the wide label/taint bitsets upload
+    only when a node OBJECT changes. A refresh swaps in NEW tensors and
+    never writes into one a solve or a preemption handle may still hold.
+    Field granularity, as in the JAX package: whole-field uploads, no
+    row scatters.
+    """
+
+    FIELDS = DEVICE_FIELDS
+
+    def __init__(self, nodes: NodeArrays):
+        self.nodes = nodes
+        self._arrays: Optional[dict] = None
+        self._dims: Optional[tuple] = None
+        self._device: Optional[torch.device] = None
+        # victim-table mirror (refresh_victims): its own tensors + dirty
+        # cycle so the allocation path never uploads it
+        self._victim_arrays: Optional[dict] = None
+        self._victim_dims: Optional[tuple] = None
+        self._victim_device: Optional[torch.device] = None
+        self.last_victim_refresh = "none"   # none | clean | full
+        # how the last refresh ran
+        self.last_refresh = "none"   # none | clean | fields | full
+        self.last_fields: tuple = ()
+        # host bytes uploaded since the last take_upload_bytes() (a clean
+        # cycle reads 0)
+        self.upload_bytes = 0
+        # set by SnapshotEncoder.discard_device_mirror when a deadline-blown
+        # dispatch was abandoned while (possibly) still inside this object
+        # on its watchdog thread: its late swaps land here, unreferenced,
+        # and any dirty delta it consumed is restored on exit
+        self.dead = False
+
+    def take_upload_bytes(self) -> int:
+        b, self.upload_bytes = self.upload_bytes, 0
+        return b
+
+    def _host_view(self, field):
+        na = self.nodes
+        if field == "free_i":
+            return np.floor(na.free).astype(np.int32)
+        if field == "cap_i":
+            return np.floor(na.capacity_arr).astype(np.int32)
+        if field == "node_ok":
+            return na.valid & na.schedulable
+        if field == "topo":
+            return na.topo
+        return getattr(na, field).view(np.uint32)
+
+    def refresh(self, device) -> dict:
+        """Bring the mirror on `device` up to date; returns the field dict
+        (tensors)."""
+        na = self.nodes
+        if self.dead:
+            raise MirrorDiscarded("device mirror was discarded")
+        full, fields = na.take_device_dirty()
+        try:
+            return self._refresh_taken(na, full, fields, torch.device(device))
+        except Exception:
+            # the delta was consumed above; a failed upload must not leave
+            # later cycles serving stale tensors as "clean"
+            na._full_dirty = True
+            raise
+        finally:
+            # an orphaned mirror gives back the delta it consumed: the live
+            # replacement must see everything as dirty
+            if self.dead:
+                na._full_dirty = True
+
+    def _refresh_taken(self, na, full, fields, device) -> dict:
+        dims = (na.capacity, na._R, na._W, na._Wt, na._Wp)
+        if (self._arrays is None or full or dims != self._dims
+                or device != self._device):
+            views = {f: self._host_view(f) for f in self.FIELDS}
+            self._arrays = {k: _upload(v, device) for k, v in views.items()}
+            self._dims = dims
+            self._device = device
+            self.last_refresh, self.last_fields = "full", tuple(self.FIELDS)
+            self.upload_bytes += sum(v.nbytes for v in views.values())
+            return self._arrays
+        if not fields:
+            self.last_refresh, self.last_fields = "clean", ()
+            return self._arrays
+        fresh = dict(self._arrays)
+        uploaded = 0
+        for f in sorted(fields):
+            view = self._host_view(f)
+            fresh[f] = _upload(view, device)
+            uploaded += view.nbytes
+        # swap in only after every upload succeeded (no partial mirror)
+        self._arrays = fresh
+        self.last_refresh, self.last_fields = "fields", tuple(sorted(fields))
+        self.upload_bytes += uploaded
+        return self._arrays
+
+    def refresh_victims(self, device) -> dict:
+        """Bring the victim-table mirror up to date and return the node
+        fields merged with the victim group. Separate from refresh(): the
+        allocation path never uploads victim state; the preemption path
+        uploads it only when the tables changed."""
+        device = torch.device(device)
+        base = self.refresh(device)
+        na = self.nodes
+        vdims = (na.capacity, na.victim_slots, na._R)
+        stale = na.take_victim_dirty()
+        if (self._victim_arrays is None or stale or vdims != self._victim_dims
+                or device != self._victim_device):
+            views = {f: getattr(na, f) for f in VICTIM_FIELDS}
+            try:
+                self._victim_arrays = {k: _upload(v, device)
+                                       for k, v in views.items()}
+            except Exception:
+                # the dirty flag was consumed; a failed upload must not
+                # leave later planners reading a stale mirror as "clean"
+                na._victim_dirty = True
+                raise
+            self._victim_dims = vdims
+            self._victim_device = device
+            self.upload_bytes += sum(v.nbytes for v in views.values())
+            self.last_victim_refresh = "full"
+        else:
+            self.last_victim_refresh = "clean"
+        if self.dead:  # orphaned mid-call: see refresh()
+            na._victim_dirty = True
+        out = dict(base)
+        out.update(self._victim_arrays)
+        return out
+
+
+class MirrorDiscarded(RuntimeError):
+    """A device-mirror call outlived a discard_device_mirror (its dispatch
+    was deadline-abandoned and a replacement mirror is live): it must bail
+    without touching shared state, or it would race the scheduler thread."""
+
+
+class DeviceRowStore:
+    """Persistent device-resident quantized request rows ([cap, R] int32).
+
+    Each allocation key owns a pool slot keyed by its core seq; a churn
+    cycle uploads only the changed rows' RAW values, quantized on the
+    device by ops/gate_solve.encode_rows (the host quantize_request
+    chain's arithmetic), and a batch's req tensor is a device gather over
+    an O(n) int32 slot index. Slot 0 is the reserved all-zero row (batch
+    padding). LRU-evicted past the host row cache's 2^18 ceiling; vocab
+    growth past the padded row width resets the pool (one full re-upload,
+    counted in `resets`).
+
+    Single-writer: the scheduler thread under the core lock. The pool is
+    written in place, but a gather returns a new tensor, so a batch never
+    sees a later write.
+    """
+
+    def __init__(self, vocabs: Vocabs, device, min_capacity: int = 1024,
+                 max_rows: int = 1 << 18):
+        from collections import OrderedDict
+
+        self.vocabs = vocabs
+        self.device = torch.device(device)
+        self._slot_of: "OrderedDict[str, list]" = OrderedDict()  # key -> [seq, slot]
+        self._free: List[int] = []
+        self._capacity = max(int(min_capacity), 2)
+        self._max_rows = max_rows
+        self._R: Optional[int] = None
+        self.pool: Optional[torch.Tensor] = None
+        # bumped by every write to the pool or its replacement: the gather
+        # memo's validity stamp
+        self._pool_version = 0
+        # transfer accounting (the O(changed) contract tests assert on)
+        self.last_upload_rows = 0
+        self.last_upload_bytes = 0
+        self.upload_rows_total = 0
+        self.resets = 0
+        self._upload_bytes_acc = 0
+        # one-deep gather memo: a no-change cycle (same slot index, no
+        # uploads) reuses the previous req tensor outright
+        self._gather_memo: Optional[tuple] = None  # (idx bytes, version, req)
+
+    def take_upload_bytes(self) -> int:
+        """Row-data bytes uploaded since the last take."""
+        b, self._upload_bytes_acc = self._upload_bytes_acc, 0
+        return b
+
+    def _reset(self, R: int) -> None:
+        if self.pool is not None:
+            self.resets += 1
+        self._slot_of.clear()
+        self._free = []
+        self._R = R
+        self.pool = torch.zeros((self._capacity, R), dtype=torch.int32,
+                                device=self.device)
+        self._pool_version += 1
+
+    def _grow(self, need: int) -> None:
+        new_cap = self._capacity
+        while new_cap < need:
+            new_cap *= 2
+        if new_cap == self._capacity:
+            return
+        pad = torch.zeros((new_cap - self._capacity, self._R),
+                          dtype=torch.int32, device=self.device)
+        self.pool = torch.cat([self.pool, pad], dim=0)
+        self._capacity = new_cap
+        self._pool_version += 1
+
+    def sync_and_gather(self, asks: Sequence[AllocationAsk], n_pad: int):
+        """Ensure every ask's quantized row is pool-resident (uploading only
+        new/changed rows) and return the [n_pad, R] int32 req tensor on the
+        store's device in ask order (padding rows all-zero via slot 0).
+        Returns None when the vocab width changed mid-call."""
+        from yunikorn_tpu_torch.ops import gate_solve
+
+        rv = self.vocabs.resources
+        R = rv.num_slots
+        if self.pool is None or self._R != R:
+            self._reset(R)
+        slot_of = self._slot_of
+        cols: Dict[str, tuple] = {}    # resource name -> (slot, scale)
+        changed: List[int] = []        # pool slot of each changed row
+        # raw values of the changed rows as (row, column, value) entries:
+        # exact integers; a non-integral value pre-quantizes on the host and
+        # ships q*scale, which the device ceil-div maps back to exactly q
+        ent_row: List[int] = []
+        ent_col: List[int] = []
+        ent_val: List[int] = []
+        idx = [0] * len(asks)
+        for i, ask in enumerate(asks):
+            key = ask.allocation_key
+            rec = slot_of.get(key)
+            if rec is not None and rec[0] == ask.seq:
+                slot_of.move_to_end(key)
+                idx[i] = rec[1]
+                continue
+            row = len(changed)
+            for name, value in ask.resource.resources.items():
+                col = cols.get(name)
+                if col is None:
+                    col = cols[name] = (rv.slot(name), rv.scale(name))
+                if col[0] >= R:
+                    return None  # vocab grew mid-batch: the next call resets
+                if not (isinstance(value, int) or (isinstance(value, float)
+                                                   and value.is_integer())):
+                    value = math.ceil(value / col[1]) * col[1]
+                ent_row.append(row)
+                ent_col.append(col[0])
+                ent_val.append(int(value))
+            if rec is None:
+                if self._free:
+                    slot = self._free.pop()
+                else:
+                    # evict LRU once past the ceiling (floored at the live
+                    # batch, same discipline as the host row cache)
+                    while (len(slot_of) >= max(self._max_rows, len(asks))
+                           and slot_of):
+                        _, (_seq, s) = slot_of.popitem(last=False)
+                        self._free.append(s)
+                    if self._free:
+                        slot = self._free.pop()
+                    else:
+                        slot = len(slot_of) + 1        # slot 0 reserved
+                        self._grow(slot + 1)
+                slot_of[key] = rec = [ask.seq, slot]
+            else:
+                rec[0] = ask.seq
+                slot_of.move_to_end(key)
+            changed.append(rec[1])
+            idx[i] = rec[1]
+        idx = np.pad(np.asarray(idx, np.int32), (0, n_pad - len(asks)))
+        self.last_upload_rows = len(changed)
+        self.last_upload_bytes = 0
+        if changed:
+            C_pad = _bucket(len(changed), 64)
+            raw_m = np.zeros((C_pad, R), np.int64)
+            raw_m[ent_row, ent_col] = ent_val
+            slots_m = np.zeros((C_pad,), np.int32)
+            slots_m[: len(changed)] = changed
+            scales = np.ones((R,), np.float64)
+            for name, slot, scale in rv.items():
+                scales[slot] = float(scale)
+            dev = self.device
+            gate_solve.encode_rows(self.pool, torch.from_numpy(raw_m).to(dev),
+                                   torch.from_numpy(scales).to(dev),
+                                   torch.from_numpy(slots_m).to(dev))
+            self._pool_version += 1
+            self.last_upload_bytes = int(raw_m.nbytes + slots_m.nbytes
+                                         + scales.nbytes)
+            self.upload_rows_total += len(changed)
+            self._upload_bytes_acc += self.last_upload_bytes
+        key = idx.tobytes()
+        memo = self._gather_memo
+        if (memo is not None and memo[1] == self._pool_version
+                and memo[0] == key):
+            return memo[2]
+        req = gate_solve.gather_rows(self.pool,
+                                     torch.from_numpy(idx).to(self.device))
+        self._gather_memo = (key, self._pool_version, req)
+        return req
+
+
 class SnapshotEncoder:
     """Maintains NodeArrays against a SchedulerCache + encodes pod batches."""
 
@@ -618,6 +941,14 @@ class SnapshotEncoder:
         self._victims_synced = False
         # app-id interning for the victim tables' app/gang column
         self._app_ids: Dict[str, int] = {}
+        # device-resident node mirror, built lazily at the first solve.
+        # _mirror_mu + the epoch make mirror entry atomic against
+        # discard_device_mirror: a deadline-abandoned dispatch that finally
+        # unwedges finds its captured epoch stale and bails (MirrorDiscarded)
+        # instead of racing the live thread on the replacement mirror.
+        self.device: Optional[DeviceNodeState] = None
+        self._mirror_mu = threading.Lock()
+        self._mirror_epoch = 0
         # one-deep built-batch memo: (key, extra fingerprint, batch)
         self._batch_cache: Optional[tuple] = None
         self.last_encode_cached = False
@@ -645,6 +976,90 @@ class SnapshotEncoder:
         # O(changed) contract gate-smoke and the bench assert on)
         self.last_encode_rows = 0
         self.last_encode_rows_reencoded = 0
+        # device-resident request-row pool (the device gate+encode
+        # pipeline), built lazily on the first device_req
+        self.row_store: Optional[DeviceRowStore] = None
+
+    def device_row_store(self, device=None) -> DeviceRowStore:
+        """The request-row pool on `device` (default `cuda`); a store on
+        another device is replaced (one full re-upload)."""
+        device = resolve_device(device)
+        if self.row_store is None or self.row_store.device != device:
+            self.row_store = DeviceRowStore(self.vocabs, device)
+        return self.row_store
+
+    def device_req(self, asks: Sequence[AllocationAsk], batch, device=None):
+        """[N, R] int32 req tensor on `device` for a built batch: the row
+        store's O(changed)-upload gather. None when the store cannot serve
+        this batch (the vocab width raced the encode); the solve then
+        uploads the host batch.req."""
+        store = self.device_row_store(device)
+        req = store.sync_and_gather(asks, batch.req.shape[0])
+        if req is not None and req.shape[1] != batch.req.shape[1]:
+            return None  # width drifted from the encoded batch
+        return req
+
+    @property
+    def mirror_epoch(self) -> int:
+        """Capture BEFORE a supervised dispatch (on the scheduler thread)
+        and pass to device_arrays/victim_arrays: a call whose dispatch was
+        abandoned mid-wedge then finds the epoch advanced and bails."""
+        with self._mirror_mu:
+            return self._mirror_epoch
+
+    def _check_epoch_locked(self, epoch: Optional[int]) -> None:
+        if epoch is not None and epoch != self._mirror_epoch:
+            raise MirrorDiscarded(
+                f"mirror epoch {epoch} superseded by "
+                f"{self._mirror_epoch} (dispatch was abandoned)")
+
+    def ensure_mirror_epoch(self, epoch: Optional[int]) -> None:
+        """Raise MirrorDiscarded when the captured epoch is stale (a discard
+        happened since): checkpoints in longer dispatch code paths stop an
+        unwedged zombie thread before it touches shared state."""
+        with self._mirror_mu:
+            self._check_epoch_locked(epoch)
+
+    def _mirror_enter(self, epoch: Optional[int]) -> DeviceNodeState:
+        """Epoch check + get-or-create, atomic against discard: a stale call
+        can never install or grab the LIVE replacement mirror."""
+        with self._mirror_mu:
+            self._check_epoch_locked(epoch)
+            if self.device is None:
+                self.device = DeviceNodeState(self.nodes)
+            return self.device
+
+    def device_arrays(self, device=None, epoch: Optional[int] = None) -> dict:
+        """Refresh and return the persistent node tensors on `device`
+        (default `cuda`)."""
+        device = resolve_device(device)
+        return self._mirror_enter(epoch).refresh(device)
+
+    def victim_arrays(self, device=None, epoch: Optional[int] = None) -> dict:
+        """Refresh and return the node tensors INCLUDING the victim tables
+        (the batched preemption planner's inputs) on `device`. Call
+        sync_victims first so the tables reflect the current cache."""
+        device = resolve_device(device)
+        return self._mirror_enter(epoch).refresh_victims(device)
+
+    def discard_device_mirror(self) -> None:
+        """Orphan the device mirror after a deadline-abandoned dispatch.
+
+        The supervisor's watchdog abandons (never kills) a wedged dispatch:
+        its thread may still be inside DeviceNodeState.refresh() and will
+        swap tensors and consume dirty deltas when it unwedges. The mirror
+        is therefore replaced: the orphan is flagged dead so its exit path
+        restores any delta it consumed, its late swaps land on an
+        unreferenced object, and the successor starts cold (one full
+        upload). The epoch bump makes a zombie that never reached the mirror
+        bail at entry."""
+        with self._mirror_mu:
+            dev, self.device = self.device, None
+            if dev is not None:
+                dev.dead = True
+            self._mirror_epoch += 1
+        self.nodes._full_dirty = True
+        self.nodes._victim_dirty = True
 
     @staticmethod
     def placed_fingerprint(extra_placed) -> tuple:
