@@ -3,7 +3,8 @@ it: the batched assignment solve and its kernel, the core scheduling cycle
 around them, both again on a batch with pod locality and on a labelled
 fleet with topology steering, the device preemption planner, and the
 device admission gate with the device-resident node, victim and request
-state.
+state, and the shim, mock scheduler and scheduler binary that bring a
+cluster's pods to the core.
 
     python3 chip_smoke.py
 
@@ -106,9 +107,33 @@ phase fails, and when no CUDA device is present):
           quota-bound core cycle (5,000 asks on the contended tree) on
           `cuda` with gateDevice auto binding as one with gateDevice=False
           and one on `cpu`
+  shim    the port's shim and MockScheduler on `cuda`, the path a user's
+          pods take (informers -> application and task state machines ->
+          dispatcher -> core -> allocation callback -> bind pool -> binding
+          at the fake API server): bench.py's shim run (10,000 kwok nodes x
+          50,000 sleep pods in 5 queues, added before start, WARN logging)
+          binding all 50,000 within SHIM_DEADLINE_S (else the phase fails
+          with its partial count), every solve on the device tier, no failed
+          cycle, no node over its allocatable at the fake API server; the
+          bound count, the wall time, first-to-last-bind pods/s
+          (BindStats.throughput, as bench.py reports it), the warm cycles'
+          stage split, the host threads' sampled split; then the pressure
+          mix at the cut (2,000 x 10,000) through a hand-run harness (the
+          core not started: the shim's pump delivers every ask, then
+          schedule_once until a cycle places nothing) on `cuda` and on
+          `cpu`: identical allocations by pod name, the JAX package's count
+          under the same harness, best_nodes launched
+  cmd     `python -m yunikorn_tpu_torch.cmd.scheduler --nodes 1000 --pods
+          5000` in a subprocess: /ws/v1/nodes reaches 1,000,
+          a profile started over REST and stopped 3 s later, while the pods
+          stream in, writes a trace holding CUDA kernels, every pod binds,
+          /metrics carries the core's series, SIGTERM exits 0 within 30 s
+          with the
+          --trace-out JSON written, and the child's log names device=cuda
   kernels one line per kernel: launches (the wrapper's count of calls in
-          the main path's run; launches_locality and launches_topology: in
-          the locality and topology paths' full-width runs), error against
+          the main path's run; launches_locality, launches_topology and
+          launches_shim: in the locality and topology paths' full-width
+          runs and the shim's pressure run on the card), error against
           the plain version, kernel / plain /
           bound milliseconds (at the first odd round's inputs, as the main
           path calls it)
@@ -193,6 +218,19 @@ EXPECTED_QUOTA_HELD = (["qv-0"], 5)
 # quota-bound core cycle's ask count
 GATE_ASKS = 50_000
 GATE_CORE_ASKS = 5_000
+# the shim phase: bench.py's shim run (10,000 kwok nodes x 50,000 sleep
+# pods in 5 queues) must bind every pod within SHIM_DEADLINE_S
+SHIM_DEADLINE_S = 240.0
+# the JAX package's MockScheduler (CPU) on the pressure mix at the cut,
+# driven by the same hand-run harness as shim_harness drives the port's
+# (tests/test_torch_shim.py --cut prints it): pods placed, and the pods
+# each schedule_once placed until one placed none
+EXPECTED_SHIM_CUT = (10_000, [9_455, 534, 11, 0])
+# the cmd phase: the scheduler binary with 1,000 synthetic nodes and a
+# stream of 5,000 sleep pods (its --pods: 200 a second), profiled over
+# CMD_PROFILE_S seconds of the stream
+CMD_NODES, CMD_PODS = 1_000, 5_000
+CMD_PROFILE_S = 3.0
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -1803,6 +1841,404 @@ def phase_gate(dev):
                      "identical": True, **cores}}
 
 
+class ThreadSampler:
+    """Where the host's CPU time goes over a run: every `period` seconds
+    each thread's CPU time (user + system, Linux /proc/self/task, in clock
+    ticks of 1/SC_CLK_TCK s) is read, and what it spent since the last read
+    is counted for its thread group (the thread's name without its trailing
+    index) and for the module of the port on top of its stack at the read
+    ("other" when none is). A thread that ends between two reads loses its
+    last interval."""
+
+    def __init__(self, period: float = 0.02):
+        import threading
+
+        self.period = period
+        self.tick = os.sysconf("SC_CLK_TCK")
+        self.cpu = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="sampler",
+                                        daemon=True)
+
+    @staticmethod
+    def group(name: str) -> str:
+        import re
+
+        return re.sub(r"[-_]?(s\d+w\d+|\d+)$", "", name)
+
+    def _times(self, path="/proc/self/task"):
+        out = {}
+        for tid in os.listdir(path):
+            try:
+                with open(f"{path}/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+                out[int(tid)] = (int(fields[11]) + int(fields[12])) / self.tick
+            except (OSError, IndexError, ValueError):
+                continue
+        return out
+
+    def _process_cpu(self) -> float:
+        with open("/proc/self/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / self.tick
+
+    def _read(self, last) -> None:
+        import threading
+
+        pkg = os.sep + "yunikorn_tpu_torch" + os.sep
+        frames = sys._current_frames()
+        threads = {t.native_id: t for t in threading.enumerate()}
+        for nid, cpu in self._times().items():
+            spent = cpu - last.get(nid, 0.0)
+            last[nid] = cpu
+            t = threads.get(nid)
+            if spent <= 0 or t is self._thread:
+                continue
+            if t is None:   # not a Python thread: PyTorch's or CUDA's
+                self.cpu[("native", "other")] = self.cpu.get(
+                    ("native", "other"), 0.0) + spent
+                continue
+            where, f = "other", frames.get(t.ident)
+            while f is not None:
+                if pkg in f.f_code.co_filename:
+                    where = f.f_code.co_filename.split(pkg, 1)[1]
+                    break
+                f = f.f_back
+            key = (self.group(t.name), where)
+            self.cpu[key] = self.cpu.get(key, 0.0) + spent
+
+    def _run(self) -> None:
+        last = dict(self._start)
+        while not self._stop.wait(self.period):
+            self._read(last)
+        self._read(last)
+
+    def __enter__(self):
+        self._start = self._times()
+        self._cpu0 = self._process_cpu()
+        self._t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.wall_s = time.perf_counter() - self._t0
+        self.process_cpu_s = self._process_cpu() - self._cpu0
+
+    def report(self, top: int = 5) -> dict:
+        """Process CPU s and wall s, and per thread group its CPU s and
+        the modules it spent the most CPU in."""
+        groups = {}
+        for (group, where), cpu in self.cpu.items():
+            g = groups.setdefault(group, {"cpu_s": 0.0, "modules": {}})
+            g["cpu_s"] += cpu
+            g["modules"][where] = g["modules"].get(where, 0.0) + cpu
+        for g in groups.values():
+            g["modules"] = dict(sorted(g["modules"].items(),
+                                       key=lambda kv: -kv[1])[:top])
+        return {"wall_s": self.wall_s, "process_cpu_s": self.process_cpu_s,
+                "groups": dict(sorted(groups.items(),
+                                      key=lambda kv: -kv[1]["cpu_s"]))}
+
+
+def check_fake_cluster(ms):
+    """No node of the fake API server holds bound pods requesting more
+    than its allocatable: (nodes used, pods bound)."""
+    from yunikorn_tpu_torch.common.resource import (Resource,
+                                                    get_node_resource,
+                                                    get_pod_resource)
+
+    used = {}
+    for pod in ms.cluster.list_pods():
+        if pod.spec.node_name:
+            used[pod.spec.node_name] = used.get(
+                pod.spec.node_name, Resource()).add(get_pod_resource(pod))
+    for name, total in used.items():
+        alloc = get_node_resource(ms.cluster.get_node(name).status.allocatable)
+        if not total.fits_in(alloc):
+            raise AssertionError(f"node {name} over its allocatable at the "
+                                 f"API server: {total} > {alloc}")
+    return len(used), sum(1 for p in ms.cluster.list_pods()
+                          if p.spec.node_name)
+
+
+def shim_bench_shape(dev):
+    """bench.py's shim run (bench.py:667-746) on the port's MockScheduler
+    on `dev`: 10,000 kwok nodes x 50,000 sleep pods in 5 queues, the pods
+    in the cluster before start (the shim's recovery lists them), WARN
+    logging, measured first bind to last bind."""
+    from yunikorn_tpu_torch.client.synthetic import (make_kwok_nodes,
+                                                     make_sleep_pods)
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+    from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler
+
+    ms = MockScheduler()
+    ms.init(interval=0.05, core_interval=0.05,
+            conf_extra={"log.level": "WARN"}, device=dev)
+    entries = []
+    record = ms.core._record_cycle_entry
+
+    def spy(pname, entry):
+        entries.append(dict(entry))
+        record(pname, entry)
+
+    ms.core._record_cycle_entry = spy
+    try:
+        for node in make_kwok_nodes(MAIN_NODES):
+            ms.cluster.add_node(node)
+        pods = []
+        for q in range(5):
+            pods.extend(make_sleep_pods(
+                MAIN_PODS // 5, f"bench-shim-{q}", queue=f"root.q{q}",
+                name_prefix=f"sq{q}"))
+        for pod in pods:
+            ms.cluster.add_pod(pod)
+        stats = ms.bind_stats()
+        best_nodes.launches = 0
+        with ThreadSampler() as sampler:
+            t_start = time.perf_counter()
+            ms.start()
+            deadline = t_start + SHIM_DEADLINE_S
+            while (stats.success_count < len(pods)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.05)
+            wall = time.perf_counter() - t_start
+        launches = best_nodes.launches
+        if stats.success_count < len(pods):
+            raise AssertionError(f"bound {stats.success_count} of "
+                                 f"{len(pods)} in {wall:.1f} s (deadline "
+                                 f"{SHIM_DEADLINE_S:.0f} s)")
+        solves = check_tiers(ms.core, "shim")
+        nodes_used, bound = check_fake_cluster(ms)
+        warm = entries[1:]
+        split = {k: sum(e.get(k) or 0.0 for e in warm) for k in (
+            "gate_ms", "encode_ms", "solve_ms", "commit_ms", "post_ms",
+            "total_ms")}
+        return {"nodes": MAIN_NODES, "pods": len(pods), "bound": bound,
+                "binds": stats.success_count, "bind_failures":
+                stats.fail_count, "wall_s": wall,
+                "pods_per_s_first_to_last_bind": stats.throughput(),
+                "first_to_last_bind_s": (stats.last_bind_time
+                                         - stats.first_bind_time),
+                "cycles": len(entries), "cycle_pods": [e.get("pods")
+                                                       for e in entries],
+                "first_cycle": entries[0] if entries else None,
+                "warm_cycles": len(warm), "warm_split_ms_sum": split,
+                "solves": solves, "tiers": "device",
+                "nodes_used": nodes_used, "oversubscribed": 0,
+                "best_nodes_launches": launches,
+                "host_threads": sampler.report()}
+    finally:
+        ms.stop()
+
+
+def shim_harness(device, n_nodes, n_pods, deadline_s=180.0):
+    """The pressure mix through the port's MockScheduler on `device` with
+    its core not started: every pod in the cluster before the shim runs,
+    the shim's pump delivers every ask, then schedule_once until a cycle
+    places nothing, and every allocation's bind awaited. (allocations as
+    (pod name, node) in order, pods placed per cycle)."""
+    from yunikorn_tpu_torch.client.synthetic import (make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler
+
+    ms = MockScheduler()
+    ms.init(conf_extra={"log.level": "WARN"}, device=device)
+    try:
+        for node in make_pressure_nodes(n_nodes):
+            ms.cluster.add_node(node)
+        pods = make_pressure_pods(n_pods)
+        names = {p.uid: p.metadata.name for p in pods}
+        for pod in pods:
+            ms.cluster.add_pod(pod)
+        ms.shim.run()
+        allocs = []
+        forward = ms.core.callback.update_allocation
+
+        def record(response):
+            allocs.extend((a.allocation_key, a.node_id) for a in response.new)
+            forward(response)
+
+        ms.core.callback.update_allocation = record
+
+        def pending():
+            with ms.core._lock:
+                return sum(len(a.pending_asks)
+                           for a in ms.core.partition.applications.values())
+
+        deadline = time.perf_counter() + deadline_s
+        while pending() < n_pods:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{pending()} of {n_pods} asks reached "
+                                     "the core")
+            time.sleep(0.02)
+        cycles = []
+        while not cycles or cycles[-1]:
+            cycles.append(ms.core.schedule_once())
+            if len(cycles) > 32:
+                raise AssertionError(f"no quiet cycle: {cycles}")
+        while ms.bind_stats().success_count < len(allocs):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{ms.bind_stats().success_count} of "
+                                     f"{len(allocs)} binds")
+            time.sleep(0.02)
+        check_tiers(ms.core, f"shim harness on {device}")
+        check_fake_cluster(ms)
+        return [(names[k], n) for k, n in allocs], cycles
+    finally:
+        ms.stop()
+
+
+def phase_shim(dev, stats):
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    bench = shim_bench_shape(dev)
+    t0 = time.perf_counter()
+    best_nodes.launches = 0
+    on_card, cycles = shim_harness(dev, CUT_NODES, CUT_PODS)
+    launches = best_nodes.launches
+    card_s = time.perf_counter() - t0
+    stats.setdefault("best_nodes", {})["launches_shim"] = launches
+    on_cpu, cpu_cycles = shim_harness(torch.device("cpu"), CUT_NODES,
+                                      CUT_PODS)
+    if on_card != on_cpu:
+        diff = sum(a != b for a, b in zip(on_card, on_cpu))
+        raise AssertionError(f"cuda and cpu shims allocate differently "
+                             f"({diff} of {len(on_card)}; cycles {cycles} "
+                             f"vs {cpu_cycles})")
+    if (len(on_card), cycles) != EXPECTED_SHIM_CUT:
+        raise AssertionError(f"placed {len(on_card)} in cycles {cycles}, the "
+                             f"JAX package's {EXPECTED_SHIM_CUT}")
+    if launches < 1:
+        raise AssertionError("the shim's pressure run launched no "
+                             "best_nodes kernel")
+    return {"bench_shape": bench,
+            "pressure_cut": {"nodes": CUT_NODES, "pods": CUT_PODS,
+                             "placed": len(on_card), "cycles": cycles,
+                             "identical_cuda_cpu": True,
+                             "expected": list(EXPECTED_SHIM_CUT),
+                             "best_nodes_launches": launches,
+                             "card_run_s": card_s}}
+
+
+def rest_call(port, path, body=None, timeout=30):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else body.encode(),
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def phase_cmd():
+    """The scheduler binary as a user starts it, on the card."""
+    import signal
+    import socket
+    import tempfile
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="yk-cmd-")
+    trace_out = os.path.join(tmp, "cycles.json")
+    log_path = os.path.join(tmp, "scheduler.log")
+    env = dict(os.environ, YK_PROFILE_DIR=os.path.join(tmp, "profile"))
+    argv = [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
+            "--nodes", str(CMD_NODES), "--rest-port", str(port),
+            "--trace-out", trace_out, "--pods", str(CMD_PODS)]
+    out = {"argv": argv[2:]}
+
+    def wait(cond, what, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"the scheduler exited "
+                                     f"{proc.returncode} waiting for {what}")
+            try:
+                if cond():
+                    return time.perf_counter()
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    def bound():
+        status, body = rest_call(port, "/ws/v1/apps")
+        return sum(len(a["allocations"]) for a in json.loads(body).values())
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            t_nodes = wait(lambda: len(json.loads(rest_call(
+                port, "/ws/v1/nodes")[1])) == CMD_NODES,
+                f"{CMD_NODES} nodes", 180)
+            out["nodes_ready_s"] = t_nodes - t0
+            status, start = rest_call(port, "/ws/v1/profile/start?name=cmd",
+                                      "")
+            if status != 200:
+                raise AssertionError(f"profile start: {status} {start}")
+            out["profile_start_s"] = time.perf_counter() - t_nodes
+            out["bound_at_profile_start"] = bound()
+            time.sleep(CMD_PROFILE_S)
+            t_stop = time.perf_counter()
+            status, stop = rest_call(port, "/ws/v1/profile/stop", "",
+                                     timeout=180)
+            out["profile_stop_s"] = time.perf_counter() - t_stop
+            out["bound_at_profile_stop"] = bound()
+            if status != 200:
+                raise AssertionError(f"profile stop: {status} {stop}")
+            trace = json.loads(stop)["trace"]
+            events = json.load(open(trace))["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if not kernels:
+                raise AssertionError("the profile holds no CUDA kernel")
+            t_bound = wait(lambda: bound() == CMD_PODS,
+                           f"{CMD_PODS} pods bound", 180)
+            out["all_bound_s"] = t_bound - t0
+            status, metrics = rest_call(port, "/metrics")
+            series = [ln for ln in metrics.splitlines()
+                      if ln.startswith("yunikorn_cycle_stage_ms_count")]
+            if status != 200 or not series:
+                raise AssertionError("/metrics lacks the core's cycle series")
+            proc.send_signal(signal.SIGTERM)
+            t_term = time.perf_counter()
+            rc = proc.wait(timeout=30)
+            out.update({"bound": CMD_PODS, "profile_events": len(events),
+                        "profile_kernels": len(kernels),
+                        "profile_kernel_names": sorted(
+                            {e["name"][:60] for e in kernels})[:8],
+                        "metrics_cycle_series": series,
+                        "exit_code": rc,
+                        "exit_s": time.perf_counter() - t_term})
+        except Exception as e:
+            tail = open(log_path).read()[-1500:]
+            raise AssertionError(f"{type(e).__name__}: {e}; the scheduler's "
+                                 f"log ends: {tail}") from e
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    if out.get("exit_code") != 0:
+        raise AssertionError(f"exit code {out.get('exit_code')}")
+    cycles = json.load(open(trace_out))
+    log_text = open(log_path).read()
+    if "device=cuda" not in log_text:
+        raise AssertionError("the scheduler's log does not name device=cuda")
+    out.update({"trace_out_events": len(cycles["traceEvents"]),
+                "log_device_line": next(ln for ln in log_text.splitlines()
+                                        if "device=cuda" in ln)[-120:]})
+    return out
+
+
 def profile_solve(fn, top: int = 15):
     """Device time by kernel over one run of fn, such as one warm solve
     (torch.profiler), the device-busy sum and the idle share of the
@@ -1871,7 +2307,9 @@ def main() -> int:
               ("topology", lambda: phase_topology(dev, stats,
                                                   max_sm_clock_hz())),
               ("preempt", lambda: phase_preempt(dev)),
-              ("gate", lambda: phase_gate(dev))]
+              ("gate", lambda: phase_gate(dev)),
+              ("shim", lambda: phase_shim(dev, stats)),
+              ("cmd", lambda: phase_cmd())]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -68,6 +68,37 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     res = assign.solve_batch(batch, enc.nodes, device="cpu")
     assert res.assigned.device.type == "cpu" and int(res.assigned.max()) >= 0
 
+    from yunikorn_tpu_torch.cmd import scheduler as cmd
+    from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
+    from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler
+
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MockScheduler().init()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cmd.main(["--nodes", "2", "--rest-port", "0"])
+        ms = MockScheduler()
+        ms.init(device="cpu")
+        try:
+            assert ms.core.device.type == "cpu"
+        finally:
+            ms.stop()
+    finally:
+        reset_for_tests()
+
+
+def test_importing_the_port_starts_no_thread():
+    code = (
+        "import importlib, sys, threading\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(t.name for t in threading.enumerate()))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['MainThread']"
+
 
 @pytest.mark.parametrize("missing", ["cuda", "package"])
 def test_chip_smoke_refuses_to_run(missing, monkeypatch, capsys):

@@ -1,0 +1,211 @@
+"""yunikorn-scheduler binary.
+
+Role-equivalent to pkg/cmd/shim/main.go:38-70: bootstrap configmaps, start the
+core in-process, create + run the shim, expose the REST API, wait for
+SIGINT/SIGTERM. The cluster backend is the in-memory FakeCluster (also the
+kwok-style perf mode).
+
+Usage:
+    python -m yunikorn_tpu_torch.cmd.scheduler [--nodes N] [--rest-port P]
+        [--pods N]
+
+The JAX package's cmd/scheduler.py, ported. The core runs on the card:
+main(argv, device=None) passes `device` to it, so the command line always
+runs on `cuda` and raises without a CUDA device; device="cpu" (a caller's
+choice, as the tests make it) runs the plain PyTorch path. The flags are
+the JAX binary's; those whose feature the port lacks raise
+NotImplementedError naming their ROADMAP item before the core is built:
+--shards above 1, --shard-epoch-seconds, --ledger-endpoint and
+--ledger-serve (item 13, the sharded control plane), --aot-store (also from
+$YK_AOT_STORE or conf solver.aotStore) and --prewarm (item 15, the
+warm-start layer), --kubeconfig (item 16, the real-cluster client).
+--policy other than greedy raises in the core (items 11 and 12). One flag
+is the port's own: --pods streams synthetic sleep pods into the fake
+cluster after startup, so the kwok-style mode has work to schedule.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+
+from yunikorn_tpu_torch.cache.context import Context
+from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+from yunikorn_tpu_torch.client.fake import FakeCluster
+from yunikorn_tpu_torch.client.synthetic import make_kwok_nodes, make_sleep_pods
+from yunikorn_tpu_torch.conf.schedulerconf import get_holder
+from yunikorn_tpu_torch.log.logger import log
+from yunikorn_tpu_torch.ops.assign import not_ported
+from yunikorn_tpu_torch.shim.scheduler import KubernetesShim
+from yunikorn_tpu_torch.webapp.rest import RestServer
+
+logger = log("shim")
+
+# --pods arrive in waves of this many pods, one wave a second
+POD_WAVE = 200
+
+
+def _check_flags(args, conf) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for each flag (or
+    configmap key) whose feature the port does not have yet."""
+    from yunikorn_tpu_torch.core.scheduler import resolve_shards
+
+    if args.kubeconfig:
+        not_ported("--kubeconfig", 16, "real-cluster client")
+    resolve_shards(args.shards or conf.solver_shards)
+    if args.shard_epoch_seconds:
+        not_ported("--shard-epoch-seconds", 13, "sharded control plane")
+    if args.ledger_endpoint or conf.solver_ledger_endpoint:
+        not_ported("--ledger-endpoint", 13, "sharded control plane")
+    if args.ledger_serve:
+        not_ported("--ledger-serve", 13, "sharded control plane")
+    if args.aot_store or conf.solver_aot_store:
+        not_ported("--aot-store", 15, "warm-start layer")
+    if args.prewarm:
+        not_ported("--prewarm", 15, "warm-start layer")
+
+
+def main(argv=None, device=None) -> int:
+    parser = argparse.ArgumentParser(description="yunikorn scheduler on the card")
+    parser.add_argument("--nodes", type=int, default=0,
+                        help="pre-create N synthetic kwok-style nodes")
+    parser.add_argument("--rest-port", type=int, default=9080)
+    parser.add_argument("--pods", type=int, default=0,
+                        help="after startup, add N synthetic sleep pods in "
+                             "5 queues (root.q0..q4) to the fake cluster, "
+                             f"{POD_WAVE} a second")
+    parser.add_argument("--queues-yaml", type=str, default="",
+                        help="path to a queues.yaml config file")
+    parser.add_argument("--kubeconfig", type=str, default="",
+                        help="schedule against a real cluster via this "
+                             "kubeconfig: not ported yet (ROADMAP item 16)")
+    parser.add_argument("--prewarm", type=str, default="",
+                        help="warm standard solve buckets at startup, e.g. "
+                             "'1024x4096,16384x65536' (nodes x pods): not "
+                             "ported yet (ROADMAP item 15)")
+    parser.add_argument("--aot-store", type=str,
+                        default=os.environ.get("YK_AOT_STORE", ""),
+                        help="prebuilt executable store directory (default "
+                             "$YK_AOT_STORE, else conf solver.aotStore): not "
+                             "ported yet (ROADMAP item 15)")
+    parser.add_argument("--trace-out", type=str, default="",
+                        help="dump the cycle tracer as Chrome trace-event "
+                             "JSON to this path at shutdown (the live ring "
+                             "is always available at /debug/traces)")
+    parser.add_argument("--shards", type=str, default="",
+                        help="control-plane shards: 'auto' or a count in "
+                             "[1, 64]; above 1 is not ported yet (ROADMAP "
+                             "item 13). Default: conf solver.shards (auto=1)")
+    parser.add_argument("--policy", type=str, default="",
+                        choices=("", "greedy", "optimal", "learned", "all"),
+                        help="solver.policy override; the port runs greedy "
+                             "(optimal is ROADMAP item 11, learned and all "
+                             "item 12). Unknown values reject here, matching "
+                             "the configmap validation")
+    parser.add_argument("--policy-checkpoint", type=str, default="",
+                        help="learned-policy checkpoint prefix: not ported "
+                             "yet (ROADMAP item 12)")
+    parser.add_argument("--shard-epoch-seconds", type=float, default=0.0,
+                        help="re-seed the shard partition every N seconds: "
+                             "not ported yet (ROADMAP item 13)")
+    parser.add_argument("--ledger-endpoint", type=str, default="",
+                        help="couple the sharded control plane to a quota "
+                             "ledger in another process: not ported yet "
+                             "(ROADMAP item 13)")
+    parser.add_argument("--ledger-serve", action="store_true",
+                        help="host the ledger authority behind a local "
+                             "socket: not ported yet (ROADMAP item 13)")
+    args = parser.parse_args(argv)
+
+    # The JAX binary seeds its persistent compilation cache here; the port's
+    # kernels build at the core's first solve and their libraries are cached
+    # by source hash. A warm-start layer is ROADMAP item 15.
+
+    queues_yaml = ""
+    if args.queues_yaml:
+        with open(args.queues_yaml) as f:
+            queues_yaml = f.read()
+    holder = get_holder()
+    holder.update_config_maps([{"queues.yaml": queues_yaml}], initial=True)
+    _check_flags(args, holder.get())
+    cluster = FakeCluster()
+    if args.nodes:
+        for node in make_kwok_nodes(args.nodes):
+            cluster.add_node(node)
+
+    from yunikorn_tpu_torch.core.scheduler import CoreScheduler, SolverOptions
+    from yunikorn_tpu_torch.obs.flightrec import FlightRecorderOptions
+    from yunikorn_tpu_torch.obs.slo import SloOptions
+    from yunikorn_tpu_torch.robustness.supervisor import SupervisorOptions
+
+    cache = SchedulerCache()
+    solver_opts = SolverOptions.from_conf(holder.get())
+    if args.policy:
+        solver_opts.policy = args.policy
+    if args.policy_checkpoint:
+        solver_opts.policy_checkpoint = args.policy_checkpoint
+    core = CoreScheduler(
+        cache,
+        solver_options=solver_opts,
+        trace_spans=holder.get().obs_trace_spans,
+        supervisor_options=SupervisorOptions.from_conf(holder.get()),
+        slo_options=SloOptions.from_conf(holder.get()),
+        journey_capacity=holder.get().obs_journey_capacity,
+        flightrec_options=FlightRecorderOptions.from_conf(holder.get()),
+        device=device)
+    context = Context(cluster, core, cache=cache)
+    shim = KubernetesShim(cluster, core, context=context)
+    rest = RestServer(core, context, port=args.rest_port)
+
+    core.start()
+    shim.run()
+    port = rest.start()
+    logger.info("scheduler up; REST on :%d; device=%s", port, core.device)
+
+    stop = threading.Event()
+
+    def handle_signal(signum, frame):
+        logger.info("signal %s received, shutting down", signum)
+        stop.set()
+
+    signal.signal(signal.SIGINT, handle_signal)
+    signal.signal(signal.SIGTERM, handle_signal)
+    feeder = None
+    if args.pods:
+        feeder = threading.Thread(
+            target=_feed_pods, args=(cluster, args.pods, stop),
+            name="pod-feeder", daemon=True)
+        feeder.start()
+    stop.wait()
+    if feeder is not None:
+        feeder.join()
+    rest.stop()
+    core.stop()   # before the shim: no callbacks into a stopped dispatcher
+    shim.stop()
+    if args.trace_out:
+        import json
+
+        with open(args.trace_out, "w") as f:
+            json.dump(core.tracer.chrome_trace(), f)
+        logger.info("cycle trace written to %s", args.trace_out)
+    return 0
+
+
+def _feed_pods(cluster, n_pods: int, stop) -> None:
+    """Add n_pods synthetic sleep pods (5 apps, one per queue root.q0..q4)
+    to the fake cluster, POD_WAVE a second, until stop."""
+    pods = [pod for q in range(5) for pod in make_sleep_pods(
+        n_pods // 5 + (q < n_pods % 5), f"cmd-app-{q}", queue=f"root.q{q}",
+        name_prefix=f"q{q}")]
+    for k in range(0, len(pods), POD_WAVE):
+        if k and stop.wait(1.0):
+            return
+        for pod in pods[k:k + POD_WAVE]:
+            cluster.add_pod(pod)
+    logger.info("%d synthetic pods added", len(pods))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3410,6 +3410,20 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
                    12, "learned policy")
 
 
+def resolve_shards(value) -> int:
+    """solver.shards -> shard count, resolved as the JAX package resolves it
+    ("auto" = 1, integers clamp to [1, 64], unparsable = 1). The port has
+    the single-shard core only: a count above 1 raises."""
+    s = str(value).strip().lower()
+    try:
+        n = 1 if s in ("", "auto") else max(1, min(int(s), 64))
+    except ValueError:
+        n = 1
+    if n > 1:
+        not_ported(f"solver.shards={n}", 13, "sharded control plane")
+    return n
+
+
 def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:
     """The first n rows of a solve's assignment as a host array: a CUDA
     tensor is copied off the card (numpy cannot read one)."""
