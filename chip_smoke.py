@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port of the scheduler on one NVIDIA GPU and check
 it: the batched assignment solve and its kernel, the core scheduling cycle
 around them, both again on a batch with pod locality and on a labelled
-fleet with topology steering, the device preemption planner, and the
-device admission gate with the device-resident node, victim and request
-state, and the shim, mock scheduler and scheduler binary that bring a
-cluster's pods to the core.
+fleet with topology steering, the device preemption planner, the device
+admission gate with the device-resident node, victim and request state,
+the pack and cvx duel arms of solver.policy=optimal, and the shim, mock
+scheduler and scheduler binary that bring a cluster's pods to the core.
 
     python3 chip_smoke.py
 
@@ -107,6 +107,30 @@ phase fails, and when no CUDA device is present):
           quota-bound core cycle (5,000 asks on the contended tree) on
           `cuda` with gateDevice auto binding as one with gateDevice=False
           and one on `cpu`
+  duel    the duel arms (solver.policy=optimal): the random streams on
+          the card equal to the CPU's (keys, split, fold_in, bits, uniform,
+          permutation(65,536)) and a Gumbel draw over [16, 4,096, 1,024]
+          within 1e-6 of the CPU's on its first and last parts; the pack
+          arm at scripts/pack_bench.py's three shapes and the cvx arm at
+          scripts/cvx_bench.py's four (client/synthetic.make_pack_nodes /
+          make_pack_pods, arm seed 7): each plan feasible, greedy's plan
+          exactly the JAX package's, each arm's normalized units within
+          0.5% of EXPECTED_PACK / EXPECTED_CVX, the pack plan winning the
+          largest shape's duel as the JAX package's does, warm ms (median
+          of 5 after a warm-up); the core with solver.policy=optimal at
+          full width (the pressure mix, 10,000 x 50,000: 16 parts, random
+          partitioner; a warm-up cycle, then the measured one) with its
+          stage split, pack_plan_ms, winner, pack_util, no node over its
+          allocatable, and best_nodes' launches counted from 0 around the
+          cycle, split between the greedy dispatch and the pack repair;
+          the core on the topology cut (the ICI-domain partitioner); the
+          core with solver.pack=cvx at the pressure cut (16,384 x 2,048
+          cells, the budget's edge); MockScheduler with solver.policy
+          optimal on the 1,024 x 128 fleet, pods in the cluster before
+          start: pack_plans_total won >= 1, none failed, more bound than a
+          greedy run; and a device profile of a full-width pack solve and
+          a cut cvx solve, with the Gumbel draw of one rounding round and
+          the row projection of one primal step timed alone
   shim    the port's shim and MockScheduler on `cuda`, the path a user's
           pods take (informers -> application and task state machines ->
           dispatcher -> core -> allocation callback -> bind pool -> binding
@@ -131,9 +155,11 @@ phase fails, and when no CUDA device is present):
           with the
           --trace-out JSON written, and the child's log names device=cuda
   kernels one line per kernel: launches (the wrapper's count of calls in
-          the main path's run; launches_locality, launches_topology and
-          launches_shim: in the locality and topology paths' full-width
-          runs and the shim's pressure run on the card), error against
+          the main path's run; launches_locality, launches_topology,
+          launches_duel (launches_duel_repair of them in the pack arm's
+          repair) and launches_shim: in the locality and topology paths'
+          full-width runs, the optimal core's full-width cycle and the
+          shim's pressure run on the card), error against
           the plain version, kernel / plain /
           bound milliseconds (at the first odd round's inputs, as the main
           path calls it)
@@ -218,6 +244,45 @@ EXPECTED_QUOTA_HELD = (["qv-0"], 5)
 # quota-bound core cycle's ask count
 GATE_ASKS = 50_000
 GATE_CORE_ASKS = 5_000
+# the duel phase: scripts/pack_bench.py's shapes (pods, nodes) and
+# scripts/cvx_bench.py's (pods, nodes, gang) on client/synthetic's
+# two-flavor fleet (make_pack_nodes / make_pack_pods, fleet seed 0), the
+# arms' seed DUEL_SEED
+PACK_SHAPES = ((1_024, 128), (2_048, 256), (4_096, 512))
+CVX_SHAPES = ((2_048, 1_024, 0), (2_048, 1_024, 8), (4_096, 4_096, 0),
+              (4_096, 4_096, 8))
+DUEL_SEED = 7
+# the JAX package's plans on them (CPU): the duel's winner, and each arm's
+# (placed, capacity-normalized units); the card's units must lie within
+# DUEL_UNITS_RTOL of these, its greedy plan on them (the same placed count,
+# units to 1e-9: a float64 sum over the placed rows, whose order numpy
+# versions may change)
+EXPECTED_PACK = {
+    (1_024, 128): ("optimal", {"greedy": (366, 291.95454545454544),
+                               "optimal": (544, 426.77090909090913)}),
+    (2_048, 256): ("optimal", {"greedy": (719, 574.0427272727272),
+                               "optimal": (996, 787.699090909091)}),
+    (4_096, 512): ("optimal", {"greedy": (1_355, 1082.1363636363635),
+                               "optimal": (2_060, 1624.0645454545452)})}
+EXPECTED_CVX = {
+    (2_048, 1_024, 0): ("cvx", {"greedy": (1_205, 961.4190909090908),
+                                "optimal": (2_048, 1601.8863636363635),
+                                "cvx": (2_048, 1601.8863636363635)}),
+    (2_048, 1_024, 8): ("cvx", {"greedy": (1_205, 961.4190909090908),
+                                "optimal": (2_048, 1601.8863636363635),
+                                "cvx": (2_048, 1601.8863636363635)}),
+    (4_096, 4_096, 0): ("cvx", {"greedy": (2_297, 1834.3836363636362),
+                                "optimal": (4_096, 3203.592727272727),
+                                "cvx": (4_096, 3203.592727272727)}),
+    (4_096, 4_096, 8): ("cvx", {"greedy": (2_297, 1834.3836363636362),
+                                "optimal": (4_096, 3203.592727272727),
+                                "cvx": (4_096, 3203.592727272727)})}
+DUEL_UNITS_RTOL = 0.005
+# the pack arm's per-round noise at full width: (parts, asks, nodes) of a
+# part
+DUEL_NOISE_SHAPE = (16, 4_096, 1_024)
+# the MockScheduler duel: the pack bench's smallest shape as pods
+DUEL_MOCK_PODS, DUEL_MOCK_NODES = 1_024, 128
 # the shim phase: bench.py's shim run (10,000 kwok nodes x 50,000 sleep
 # pods in 5 queues) must bind every pod within SHIM_DEADLINE_S
 SHIM_DEADLINE_S = 240.0
@@ -855,16 +920,17 @@ class NullCallback:
         return "{}"
 
 
-def make_core(device, nodes, apps):
-    """A port CoreScheduler on `device` with `nodes` registered in its cache
-    and at the core, and `apps` as (app id, queue) on dynamic queues (no
-    queues.yaml, as bench.py's core cycle)."""
+def make_core(device, nodes, apps, solver=None):
+    """A port CoreScheduler on `device` (with SolverOptions `solver`, else
+    the defaults) with `nodes` registered in its cache and at the core,
+    and `apps` as (app id, queue) on dynamic queues (no queues.yaml, as
+    bench.py's core cycle)."""
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
     from yunikorn_tpu_torch.common import si
     from yunikorn_tpu_torch.core.scheduler import CoreScheduler
 
     cache = SchedulerCache()
-    core = CoreScheduler(cache, device=device)
+    core = CoreScheduler(cache, device=device, solver_options=solver)
     cb = NullCallback()
     core.register_resource_manager(si.RegisterResourceManagerRequest(
         rm_id="smoke", policy_group="queues"), cb)
@@ -1841,6 +1907,383 @@ def phase_gate(dev):
                      "identical": True, **cores}}
 
 
+# --------------------------------------------------------------------------
+# the duel arms (solver.policy=optimal)
+# --------------------------------------------------------------------------
+
+def duel_fleet(n_pods, n_nodes, gang=0):
+    """scripts/pack_bench.py's (gang 0) or cvx_bench.py's build through the
+    port: (encoder, batch, priorities)."""
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.client.synthetic import (make_pack_nodes,
+                                                     make_pack_pods, pack_asks)
+    from yunikorn_tpu_torch.snapshot.encoder import SnapshotEncoder
+
+    cache = SchedulerCache()
+    for node in make_pack_nodes(n_nodes):
+        cache.update_node(node)
+    asks, prio, ranks = pack_asks(make_pack_pods(n_pods),
+                                  app_id="cvx-app" if gang > 1 else "pack-app",
+                                  gang=gang)
+    enc = SnapshotEncoder(cache)
+    enc.sync_nodes(full=True)
+    return enc, enc.build_batch(asks, ranks=ranks), prio
+
+
+def warm_median_ms(fn, runs=5):
+    """(median host ms of fn() over `runs` synchronised runs after one
+    warm-up, the last result)."""
+    out = fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def duel_prng(dev):
+    """The random streams on the card against the CPU's: keys, split,
+    fold_in, random bits and permutation(65,536) bit for bit; a Gumbel
+    draw over [16, 4,096, 1,024] (the pack arm's per-round noise at full
+    width) with its first and last parts held against the CPU's within
+    1e-6 (the CPU would take most of a minute for all sixteen)."""
+    from yunikorn_tpu_torch.utils import prng
+
+    cpu = torch.device("cpu")
+    for seed in (0, DUEL_SEED, 2**31 - 1):
+        kc, kd = prng.prng_key(seed, cpu), prng.prng_key(seed, dev)
+        pairs = [(prng.split(kc, 16), prng.split(kd, 16)),
+                 (prng.fold_in(kc, 5), prng.fold_in(kd, 5)),
+                 (prng.random_bits(kc, (4_096, 1_024)),
+                  prng.random_bits(kd, (4_096, 1_024))),
+                 (prng.uniform(kc, (1_024, 1_024)),
+                  prng.uniform(kd, (1_024, 1_024))),
+                 (prng.permutation(kc, 65_536), prng.permutation(kd, 65_536))]
+        for k, (c, d) in enumerate(pairs):
+            if not torch.equal(c, d.cpu()):
+                raise AssertionError(f"seed {seed}: stream {k} differs "
+                                     "between the card and the CPU")
+    k, n, m = DUEL_NOISE_SHAPE
+    keys = prng.fold_in(prng.split(prng.prng_key(DUEL_SEED, dev), k), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noise = prng.gumbel(keys, (n, m))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    gumbel_ms = cuda_ms(lambda: prng.gumbel(keys, (n, m)), 3)
+    parts = [0, k - 1]
+    ref = prng.gumbel(keys[parts].cpu(), (n, m))
+    err = float((noise[parts].cpu() - ref).abs().max())
+    if err > 1e-6 or not bool(torch.isfinite(noise).all()):
+        raise AssertionError(f"Gumbel noise off the CPU's by {err}")
+    return {"exact": ["split", "fold_in", "random_bits", "uniform",
+                      "permutation(65536)"],
+            "gumbel_shape": list(noise.shape), "gumbel_max_abs_err": err,
+            "gumbel_ms": gumbel_ms, "gumbel_first_call_ms": first_ms}
+
+
+def duel_shape(dev, n_pods, n_nodes, gang, expected, arms):
+    """One bench shape on the card: greedy and the arms, warm ms, the
+    duel, every plan feasible, each arm's (placed, units_norm) against the
+    JAX package's."""
+    from yunikorn_tpu_torch.ops import cvx_solve, pack_solve
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+
+    enc, batch, prio = duel_fleet(n_pods, n_nodes, gang)
+    n = batch.num_pods
+    runs = {"greedy": lambda: solve_batch(batch, enc.nodes, device=dev,
+                                          **SOLVE_KW),
+            "optimal": lambda: pack_solve.pack_solve_batch(
+                batch, enc.nodes, seed=DUEL_SEED, device=dev),
+            "cvx": lambda: cvx_solve.cvx_solve_batch(
+                batch, enc.nodes, seed=DUEL_SEED, device=dev)}
+    ms, plans, extra = {}, [], {}
+    for arm in ("greedy",) + arms:
+        ms[arm], res = warm_median_ms(runs[arm])
+        if int(res.free_after.min()) < 0:
+            raise AssertionError(f"{arm} over-committed a node")
+        if arm != "greedy" and not bool(res.feasible):
+            raise AssertionError(f"{arm} returned an infeasible plan")
+        if arm == "optimal":
+            extra["parts"] = res.n_parts
+        plans.append((arm, res.assigned[:n].cpu().numpy()))
+    winner, st = pack_solve.choose_plan_n(
+        plans, batch.req.astype(np.int32), batch.valid,
+        cap_i=np.floor(enc.nodes.capacity_arr).astype(np.int64),
+        priorities=np.asarray(prio))
+    want_winner, want = expected
+    got = {arm: (st[arm]["placed"], st[arm]["units_norm"]) for arm, _ in plans}
+    if (got["greedy"][0] != want["greedy"][0]
+            or abs(got["greedy"][1] - want["greedy"][1])
+            > 1e-9 * want["greedy"][1]):
+        raise AssertionError(f"greedy {got['greedy']} != the JAX package's "
+                             f"{want['greedy']}")
+    for arm in arms:
+        if abs(got[arm][1] - want[arm][1]) > DUEL_UNITS_RTOL * want[arm][1]:
+            raise AssertionError(f"{arm} units {got[arm]} off the JAX "
+                                 f"package's {want[arm]}")
+    return {"pods": n_pods, "nodes": n_nodes, "gang": gang, "winner": winner,
+            "expected_winner": want_winner, "placed_units": got,
+            "expected": want, "warm_ms": ms,
+            "util_ratio": {arm: got[arm][1] / got["greedy"][1]
+                           for arm in arms}, **extra}
+
+
+def duel_core_full(dev):
+    """solver.policy=optimal through the core at full width: the pressure
+    mix, 10,000 nodes x 50,000 pods (N 65,536, M 16,384: 16 parts of
+    4,096 x 1,024, the random partitioner, on the node mirror). A warm-up
+    cycle and a release, then the measured cycle with best_nodes' launches
+    counted from 0, split between the greedy solve's dispatch and the pack
+    dispatch (the repair rounds)."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+    from yunikorn_tpu_torch.ops.pack_solve import pick_parts
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    cache, core, cb = make_core(dev, make_pressure_nodes(MAIN_NODES), apps,
+                                SolverOptions(policy="optimal"))
+    asks = asks_of(make_pressure_pods(MAIN_PODS))
+    core_cycle(core, asks)
+    release_all(core, asks)
+    split = {"greedy": 0, "pack": 0}
+    parts = []
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            before = best_nodes.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[name] += best_nodes.launches - before
+        return run
+
+    dispatch, pack = core._dispatch_solve, core._pack_dispatch
+
+    def pack_spy(h):
+        pack(h)
+        parts.append((getattr(h.pack, "n_parts", None),
+                      pick_parts(h.batch.req.shape[0],
+                                 core.encoder.nodes.capacity)))
+
+    core._dispatch_solve = counted("greedy", dispatch)
+    core._pack_dispatch = counted("pack", pack_spy)
+    try:
+        best_nodes.launches = 0
+        n, cycle_s = core_cycle(core, asks)
+        launches = best_nodes.launches
+    finally:
+        core._dispatch_solve, core._pack_dispatch = dispatch, pack
+    entry = dict(core.metrics["last_cycle"]["default"])
+    outcomes = core.metrics.get("pack_plans_total") or {}
+    check_tiers(core, "optimal core")
+    if set(outcomes) - {"outcome=won", "outcome=fell_back"} or not outcomes:
+        raise AssertionError(f"pack outcomes {outcomes}")
+    if (entry.get("partitioner") != "random" or len(parts) != 1
+            or parts[0][0] != parts[0][1]):
+        raise AssertionError(f"partitioner {entry.get('partitioner')}, "
+                             f"parts {parts}")
+    if split["greedy"] < 1 or launches != split["greedy"] + split["pack"]:
+        raise AssertionError(f"best_nodes launches {launches}: {split}")
+    nodes_used = check_bindings(cache, cb.bound, asks)
+    return {"nodes": MAIN_NODES, "pods": MAIN_PODS, "placed": n,
+            "cycle_ms": cycle_s * 1e3, "split": cycle_split(core),
+            "winner": entry.get("solver_policy"),
+            "pack_util": entry.get("pack_util"),
+            "pack_plan_ms": entry.get("pack_plan_ms"),
+            "pack_placed": entry.get("pack_placed"),
+            "greedy_placed": entry.get("greedy_placed"), "parts": parts[0][0],
+            "pack_outcomes": outcomes, "best_nodes_launches": launches,
+            "launches_greedy": split["greedy"],
+            "launches_repair": split["pack"], "nodes_used": nodes_used,
+            "oversubscribed": 0}
+
+
+def duel_core_topology(dev):
+    """The core on the labelled fleet (the topology cut, 1,024 nodes in 32
+    ICI domains x 768 gang asks) with solver.policy=optimal: steering
+    engages and the pack dispatch takes the ICI-domain partitioner."""
+    from yunikorn_tpu_torch.client.synthetic import (make_gang_pods,
+                                                     make_topology_fleet)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+
+    nodes, co_tenants = make_topology_fleet(TOPO_CUT_NODES, TOPO_CUT_DOMAINS)
+    pods, _ = make_gang_pods(TOPO_CUT_PODS, TOPO_CUT_NODES)
+    apps = sorted({p.metadata.labels["applicationId"] for p in pods})
+    cache, core, cb = make_core(dev, nodes, [(a, "root.gangs") for a in apps],
+                                SolverOptions(policy="optimal"))
+    for pod in co_tenants:
+        cache.update_pod(pod)
+    asks = asks_of(pods)
+    n, cycle_s = core_cycle(core, asks)
+    check_tiers(core, "optimal topology core")
+    entry = core.metrics["last_cycle"]["default"]
+    modes = core.metrics.get("pack_partitioner_total")
+    if not core._topology_active or modes != {"mode=topo": 1}:
+        raise AssertionError(f"topology {core._topology_active}, "
+                             f"partitioner {modes}")
+    check_bindings(cache, cb.bound, asks)
+    return {"placed": n, "cycle_ms": cycle_s * 1e3,
+            "winner": entry.get("solver_policy"),
+            "partitioner": entry.get("partitioner"),
+            "pack_util": entry.get("pack_util"),
+            "pack_plan_ms": entry.get("pack_plan_ms"),
+            "pack_outcomes": core.metrics.get("pack_plans_total")}
+
+
+def duel_core_cvx(dev):
+    """solver.pack=cvx through the core at the pressure cut (2,000 x
+    10,000: N 16,384 x M 2,048 = 2^25 cells, the cell budget's edge): the
+    cvx arm runs and duels."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    cache, core, cb = make_core(dev, make_pressure_nodes(CUT_NODES), apps,
+                                SolverOptions(policy="optimal", pack="cvx"))
+    asks = asks_of(make_pressure_pods(CUT_PODS))
+    n, cycle_s = core_cycle(core, asks)
+    check_tiers(core, "cvx core")
+    entry = core.metrics["last_cycle"]["default"]
+    outcomes = core.metrics.get("cvx_plans_total") or {}
+    if set(outcomes) - {"outcome=won", "outcome=fell_back"} or not outcomes:
+        raise AssertionError(f"cvx outcomes {outcomes}, skip "
+                             f"{entry.get('cvx_skip')}")
+    check_bindings(cache, cb.bound, asks)
+    return {"nodes": CUT_NODES, "pods": CUT_PODS, "placed": n,
+            "cycle_ms": cycle_s * 1e3, "split": cycle_split(core),
+            "winner": entry.get("solver_policy"),
+            "cvx_util": entry.get("cvx_util"),
+            "cvx_solve_ms": entry.get("cvx_solve_ms"),
+            "cvx_placed": entry.get("cvx_placed"),
+            "cvx_outcomes": outcomes}
+
+
+def duel_mock(dev, policy):
+    """MockScheduler on `dev` with solver.policy=`policy`: the pack bench's
+    smallest fleet and wave (1,024 pods, 128 nodes), every pod in the
+    cluster before start; run until the bound count holds still for 2 s.
+    (bound, pack outcomes, wall s)."""
+    from yunikorn_tpu_torch.client.synthetic import (make_pack_nodes,
+                                                     make_pack_pods)
+    from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler
+
+    ms = MockScheduler()
+    ms.init(interval=0.05, core_interval=0.05,
+            conf_extra={"log.level": "WARN", "solver.policy": policy},
+            device=dev)
+    try:
+        for node in make_pack_nodes(DUEL_MOCK_NODES):
+            ms.cluster.add_node(node)
+        for pod in make_pack_pods(DUEL_MOCK_PODS):
+            ms.cluster.add_pod(pod)
+        stats = ms.bind_stats()
+        t0 = time.perf_counter()
+        ms.start()
+        last, still = -1, time.perf_counter()
+        while time.perf_counter() - t0 < 60:
+            time.sleep(0.1)
+            if stats.success_count != last:
+                last, still = stats.success_count, time.perf_counter()
+            elif time.perf_counter() - still > 2.0 and last > 0:
+                break
+        check_tiers(ms.core, f"mock {policy}")
+        _, bound = check_fake_cluster(ms)
+        return bound, ms.core.metrics.get("pack_plans_total") or {}, \
+            time.perf_counter() - t0
+    finally:
+        ms.stop()
+
+
+def duel_profiles(dev):
+    """Device time by kernel of one warm pack solve at full width (the
+    pressure mix's batch, 16 parts of 4,096 x 1,024) and one warm cvx
+    solve at the cut (16,384 x 2,048), with the two stages named in
+    advance as kernel candidates timed alone: the Gumbel draw of one
+    rounding round and the row projection of one primal step."""
+    from yunikorn_tpu_torch.ops import cvx_solve, pack_solve
+    from yunikorn_tpu_torch.utils import prng
+
+    out = {}
+    enc, batch, _, _ = build_workload(MAIN_NODES, MAIN_PODS)
+    pack = lambda: pack_solve.pack_solve_batch(  # noqa: E731
+        batch, enc.nodes, seed=DUEL_SEED, device=dev)
+    ms, res = warm_median_ms(pack, runs=3)
+    keys = prng.fold_in(prng.split(prng.prng_key(DUEL_SEED, dev),
+                                   res.n_parts), 0)
+    n = batch.req.shape[0] // res.n_parts
+    m = enc.nodes.capacity // res.n_parts
+    gumbel = cuda_ms(lambda: prng.gumbel(keys, (n, m)), 3)
+    prof = profile_solve(pack, top=12)
+    out["pack_full"] = {"warm_ms": ms, "parts": res.n_parts,
+                        "profile": prof, "gumbel_round_ms": gumbel,
+                        "gumbel_share": (pack_solve.ROUND_ROUNDS * gumbel
+                                         / prof["device_busy_ms"]
+                                         if prof.get("device_busy_ms")
+                                         else None)}
+    enc, batch, _, _ = build_workload(CUT_NODES, CUT_PODS)
+    cvx = lambda: cvx_solve.cvx_solve_batch(  # noqa: E731
+        batch, enc.nodes, seed=DUEL_SEED, device=dev)
+    ms, res = warm_median_ms(cvx, runs=3)
+    N, M = batch.req.shape[0], enc.nodes.capacity
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((N, M), device=dev, generator=g)
+    ok = (torch.rand((N, M), device=dev, generator=g) < 0.7).float()
+    project = cuda_ms(lambda: cvx_solve._project_rows(x, ok), 3)
+    prof = profile_solve(cvx, top=12)
+    out["cvx_cut"] = {"warm_ms": ms, "shape": [N, M], "profile": prof,
+                      "project_rows_step_ms": project,
+                      "project_share": (cvx_solve.CVX_ITERS * project
+                                        / prof["device_busy_ms"]
+                                        if prof.get("device_busy_ms")
+                                        else None)}
+    return out
+
+
+def phase_duel(dev, stats):
+    """The pack and cvx duel arms: the random streams on the card, the
+    bench shapes of both arms against the JAX package's plans, the core
+    with solver.policy=optimal at full width (random partitioner), on the
+    labelled fleet (ICI-domain partitioner) and with solver.pack=cvx at
+    the cut, MockScheduler optimal against greedy, and each arm's device
+    profile."""
+    out = {"prng": duel_prng(dev)}
+    out["pack"] = [duel_shape(dev, n, m, 0, EXPECTED_PACK[(n, m)],
+                              ("optimal",)) for n, m in PACK_SHAPES]
+    last = out["pack"][-1]
+    if last["expected_winner"] == "optimal" and last["winner"] != "optimal":
+        raise AssertionError(f"the card's pack plan lost the largest "
+                             f"shape's duel: {last}")
+    out["cvx"] = [duel_shape(dev, n, m, g, EXPECTED_CVX[(n, m, g)],
+                             ("optimal", "cvx")) for n, m, g in CVX_SHAPES]
+    out["core_full"] = duel_core_full(dev)
+    stats.setdefault("best_nodes", {})["launches_duel"] = \
+        out["core_full"]["best_nodes_launches"]
+    stats["best_nodes"]["launches_duel_repair"] = \
+        out["core_full"]["launches_repair"]
+    out["core_topology"] = duel_core_topology(dev)
+    out["core_cvx_cut"] = duel_core_cvx(dev)
+    bound_opt, outcomes, wall = duel_mock(dev, "optimal")
+    bound_greedy, _, _ = duel_mock(dev, "greedy")
+    if (outcomes.get("outcome=won", 0) < 1
+            or set(outcomes) - {"outcome=won", "outcome=fell_back"}
+            or bound_opt <= bound_greedy):
+        raise AssertionError(f"mock optimal bound {bound_opt} (outcomes "
+                             f"{outcomes}) against greedy {bound_greedy}")
+    out["mock"] = {"bound_optimal": bound_opt, "bound_greedy": bound_greedy,
+                   "pack_outcomes": outcomes, "wall_s": wall}
+    out["profiles"] = duel_profiles(dev)
+    return out
+
+
 class ThreadSampler:
     """Where the host's CPU time goes over a run: every `period` seconds
     each thread's CPU time (user + system, Linux /proc/self/task, in clock
@@ -2308,6 +2751,7 @@ def main() -> int:
                                                   max_sm_clock_hz())),
               ("preempt", lambda: phase_preempt(dev)),
               ("gate", lambda: phase_gate(dev)),
+              ("duel", lambda: phase_duel(dev, stats)),
               ("shim", lambda: phase_shim(dev, stats)),
               ("cmd", lambda: phase_cmd())]
     t_all = time.perf_counter()

@@ -663,7 +663,8 @@ def test_pipelined_cycles_publish_their_overlap():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, item", [
-    ({"shard": True}, 14), ({"policy": "optimal"}, 11), ({"policy": "learned"}, 12),
+    ({"shard": True}, 14), ({"policy": "all", "pack": "cvx"}, 12),
+    ({"policy": "learned"}, 12),
     ({"policy": "all"}, 12), ({"policy_checkpoint": "/ckpt/p"}, 12),
     ({"aot_namespace": "s0"}, 15),
 ])

@@ -35,11 +35,10 @@ from test_torch_shim import (PORT, REF, Harness, h_two_apps_two_queues,
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# metric families of features the port does not have yet: the pack and
-# cvx duel arms (ROADMAP item 11), the learned policy (item 12) and the
+# metric families of features the port does not have yet: the learned
+# policy (ROADMAP item 12; the duel's policy_duels_total is ported) and the
 # compile cache of the warm-start layer (item 15)
-UNPORTED_FAMILIES = ("yunikorn_cvx_", "yunikorn_pack_", "yunikorn_duel_",
-                     "yunikorn_policy_", "yunikorn_solve_compile_")
+UNPORTED_FAMILIES = ("yunikorn_policy_", "yunikorn_solve_compile_")
 
 VALID_CONF = """
 partitions:
@@ -180,14 +179,18 @@ def free_port():
         return s.getsockname()[1]
 
 
-def test_cmd_scheduler_serves_and_exits_on_sigterm(tmp_path):
+def drive_binary(tmp_path, extra=()):
+    """Run the binary (main(..., device="cpu")) in a subprocess with 50
+    nodes and 20 streamed pods plus `extra` flags: wait until REST serves
+    the nodes and every pod is allocated, then SIGTERM it (exit 0).
+    Returns (/metrics body, the child's log, the --trace-out path)."""
     port = free_port()
     trace_out = tmp_path / "cycles.json"
+    argv = ["--nodes", "50", "--rest-port", str(port), "--pods", "20",
+            "--trace-out", str(trace_out), *extra]
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r})\n"
             "from yunikorn_tpu_torch.cmd.scheduler import main\n"
-            f"sys.exit(main(['--nodes', '50', '--rest-port', '{port}', "
-            "'--pods', '20', "
-            f"'--trace-out', {str(trace_out)!r}], device='cpu'))\n")
+            f"sys.exit(main({argv!r}, device='cpu'))\n")
     log = tmp_path / "scheduler.log"
     with open(log, "w") as err:
         proc = subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path,
@@ -212,15 +215,34 @@ def test_cmd_scheduler_serves_and_exits_on_sigterm(tmp_path):
             wait_until(lambda: allocated() == 20, "20 pods allocated",
                        timeout=45)
             status, body = http(port, "/metrics")
-            assert status == 200 and "yunikorn_cycle_stage_ms" in body
+            assert status == 200
             proc.send_signal(signal.SIGTERM)
             assert proc.wait(timeout=30) == 0
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=10)
+    return body, log.read_text(), trace_out
+
+
+def test_cmd_scheduler_serves_and_exits_on_sigterm(tmp_path):
+    body, log, trace_out = drive_binary(tmp_path)
+    assert "yunikorn_cycle_stage_ms" in body
     assert "traceEvents" in json.loads(trace_out.read_text())
-    assert "device=cpu" in log.read_text()
+    assert "device=cpu" in log
+
+
+def test_cmd_scheduler_policy_optimal_binds_pods(tmp_path):
+    """--policy optimal: every streamed pod binds, and each cycle's duel
+    ran (the pack arm won or fell back; never failed or infeasible)."""
+    body, log, _ = drive_binary(tmp_path, ["--policy", "optimal"])
+    series = exposition(body)[0]
+    outcomes = {k: float(v) for k, v in series.items()
+                if k.startswith("yunikorn_pack_plans_total")}
+    assert sum(outcomes.values()) >= 1, outcomes
+    assert set(outcomes) <= {'yunikorn_pack_plans_total{outcome="won"}',
+                             'yunikorn_pack_plans_total{outcome="fell_back"}'}
+    assert "device=cpu" in log
 
 
 @pytest.mark.parametrize("argv,env,item", [
@@ -232,7 +254,7 @@ def test_cmd_scheduler_serves_and_exits_on_sigterm(tmp_path):
     ([], {"YK_AOT_STORE": "aot"}, 15),
     (["--prewarm", "1024x4096"], {}, 15),
     (["--kubeconfig", "kubeconfig"], {}, 16),
-    (["--policy", "optimal"], {}, 11),
+    (["--policy", "all"], {}, 12),
     (["--policy", "learned"], {}, 12),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_unported_flags_raise(argv, env, item, monkeypatch):

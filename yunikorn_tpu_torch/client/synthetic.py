@@ -7,9 +7,11 @@ pressure (make_pressure_nodes / make_pressure_pods), the same with pod
 locality (make_locality_pods), the JAX package's every-channel mix
 (make_rich_constraint_pods), a fragmented ICI-domain fleet under a wave
 of gangs (make_topology_fleet / make_gang_pods, scripts/topology_bench.py's
-build), and a quota-bound pending backlog for the admission gate
-(build_gate_tree / build_gate_trace / gate_meta_for, scripts/gate_bench.py's
-build).
+build), the duel arms' fragmented two-flavor fleet under a mixed,
+priority-skewed wave (make_pack_nodes / make_pack_pods / pack_asks,
+scripts/pack_bench.py's and cvx_bench.py's build), and a quota-bound
+pending backlog for the admission gate (build_gate_tree / build_gate_trace
+/ gate_meta_for, scripts/gate_bench.py's build).
 """
 from __future__ import annotations
 
@@ -286,6 +288,64 @@ def make_gang_pods(n_pods: int, n_nodes: int,
             gangs.append((app, size))
         g += 1
     return pods, gangs
+
+
+# --------------------------------------------------------------------------
+# the duel arms' contended fleet (scripts/pack_bench.py and cvx_bench.py's
+# build)
+# --------------------------------------------------------------------------
+
+def make_pack_nodes(n_nodes: int) -> List[Node]:
+    """A fragmented fleet of two node flavors with opposite headroom
+    shapes: even rows 8,000m / 4 GiB, odd rows 2,000m / 16 GiB."""
+    return [make_node(f"n{i:05d}", cpu_milli=8000, memory=4 * 2**30)
+            if i % 2 == 0 else
+            make_node(f"n{i:05d}", cpu_milli=2000, memory=16 * 2**30)
+            for i in range(n_nodes)]
+
+
+def make_pack_pods(n_pods: int, seed: int = 0, app_id: str = "pack-app",
+                   queue: str = "root.default") -> List[Pod]:
+    """The mixed wave the fleet strands capacity under: each pod (from
+    random.Random(seed)) either cpu-heavy, 1,900m / 256 MiB, or mem-heavy,
+    300m / 3 GiB, with priority 0 or 5; labelled with app_id and queue
+    for the shim."""
+    rng = random.Random(seed)
+    labels = {constants.LABEL_APPLICATION_ID: app_id,
+              constants.LABEL_QUEUE_NAME: queue}
+    pods = []
+    for k in range(n_pods):
+        cpu, mem = ((1900, 2**28) if rng.random() < 0.5
+                    else (300, 3 * 2**30))
+        pods.append(make_pod(f"p{k}", cpu_milli=cpu, memory=mem,
+                             labels=dict(labels),
+                             scheduler_name=constants.SCHEDULER_NAME,
+                             priority=rng.choice([0, 5])))
+    return pods
+
+
+def pack_asks(pods: List[Pod], app_id: str = "pack-app", gang: int = 0):
+    """The asks of make_pack_pods' wave, each carrying its pod's priority
+    (and with gang > 1 the task group tg{k // gang}, which the encoder
+    folds into one all-or-nothing constraint group), and the gate's rank
+    order: priority descending, then submission. (asks, priorities,
+    ranks)."""
+    from yunikorn_tpu_torch.common.resource import get_pod_resource
+    from yunikorn_tpu_torch.common.si import AllocationAsk
+
+    asks = []
+    for k, p in enumerate(pods):
+        ask = AllocationAsk(p.uid, app_id, get_pod_resource(p),
+                            priority=p.spec.priority or 0, pod=p)
+        if gang > 1:
+            ask.task_group_name = f"tg{k // gang}"
+        asks.append(ask)
+    priorities = [p.spec.priority or 0 for p in pods]
+    order = sorted(range(len(pods)), key=lambda k: (-priorities[k], k))
+    ranks = [0] * len(pods)
+    for r, k in enumerate(order):
+        ranks[k] = r
+    return asks, priorities, ranks
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,7 @@ kwok-style perf mode).
 
 Usage:
     python -m yunikorn_tpu_torch.cmd.scheduler [--nodes N] [--rest-port P]
-        [--pods N]
+        [--pods N] [--policy greedy|optimal]
 
 The JAX package's cmd/scheduler.py, ported. The core runs on the card:
 main(argv, device=None) passes `device` to it, so the command line always
@@ -19,7 +19,10 @@ NotImplementedError naming their ROADMAP item before the core is built:
 --ledger-serve (item 13, the sharded control plane), --aot-store (also from
 $YK_AOT_STORE or conf solver.aotStore) and --prewarm (item 15, the
 warm-start layer), --kubeconfig (item 16, the real-cluster client).
---policy other than greedy raises in the core (items 11 and 12). One flag
+--policy optimal runs the duel of the pack arm (or, with conf
+solver.pack=cvx, the cvx arm) against the greedy plan on the core's
+device; --policy learned or all and --policy-checkpoint raise in the core
+(item 12, the learned policy). One flag
 is the port's own: --pods streams synthetic sleep pods into the fake
 cluster after startup, so the kwok-style mode has work to schedule.
 """
@@ -100,10 +103,12 @@ def main(argv=None, device=None) -> int:
                              "item 13). Default: conf solver.shards (auto=1)")
     parser.add_argument("--policy", type=str, default="",
                         choices=("", "greedy", "optimal", "learned", "all"),
-                        help="solver.policy override; the port runs greedy "
-                             "(optimal is ROADMAP item 11, learned and all "
-                             "item 12). Unknown values reject here, matching "
-                             "the configmap validation")
+                        help="solver.policy override: greedy, or optimal "
+                             "(the pack or cvx arm dueling the greedy plan; "
+                             "conf solver.pack picks the arm); learned and "
+                             "all are not ported yet (ROADMAP item 12). "
+                             "Unknown values reject here, matching the "
+                             "configmap validation")
     parser.add_argument("--policy-checkpoint", type=str, default="",
                         help="learned-policy checkpoint prefix: not ported "
                              "yet (ROADMAP item 12)")

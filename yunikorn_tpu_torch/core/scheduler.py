@@ -25,8 +25,8 @@ The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
   - solver.shard=True (multi-GPU node-dim sharding, item 14) and an AOT
     namespace (the warm-start layer, item 15)
-  - solver.policy other than greedy (optimal: item 11; learned, all:
-    item 12)
+  - solver.policy learned or all, and a policy checkpoint (the learned
+    policy, item 12)
   - any fallback below the device tier: a gate scan, row-store sync,
     mirror refresh or solve that fails after its retries fails the cycle;
     nothing re-runs the card's work on the CPU. A device preemption
@@ -49,6 +49,17 @@ in the JAX package: the steering args fold onto each batch at dispatch
 (_attach_topology), and the victim-selection solve is dispatched on the
 core's device before the commit and finished after it (_preempt_dispatch,
 _plan_preemption).
+
+solver.policy=optimal runs the JAX package's duel: next to the greedy
+solve the core dispatches one challenger on the core's device, the
+partitioned LP arm (ops/pack_solve, solver.pack auto or pop) or the
+full-fleet convex arm (ops/cvx_solve, solver.pack=cvx), each as its own
+supervised path ("pack", "cvx") with one device tier. The challenger's
+plan commits only when choose_plan_n finds it strictly better than the
+greedy plan; a challenger that is out of scope, fails or returns an
+infeasible plan leaves the greedy plan standing for the cycle
+(pack_plans_total / cvx_plans_total by outcome). Nothing re-runs an arm
+on the CPU.
 """
 from __future__ import annotations
 
@@ -115,10 +126,13 @@ from yunikorn_tpu_torch.obs.flightrec import FlightRecorder, FlightRecorderOptio
 from yunikorn_tpu_torch.obs.journey import JourneyLedger
 from yunikorn_tpu_torch.obs.slo import SloEngine, SloOptions
 from yunikorn_tpu_torch.obs.trace import CycleTracer
+from yunikorn_tpu_torch.ops import cvx_solve as cvx_mod
+from yunikorn_tpu_torch.ops import pack_solve as pack_mod
 from yunikorn_tpu_torch.ops.assign import load_kernels, not_ported, solve_batch
 from yunikorn_tpu_torch.robustness.health import HealthMonitor, solver_source
 from yunikorn_tpu_torch.robustness.supervisor import (
     ASSIGN_LADDER,
+    AbandonedDispatch,
     DeadlineExceeded,
     SupervisedExecutor,
     SupervisorOptions,
@@ -194,11 +208,13 @@ class SolverOptions:
     # counts gate_mismatch_total and the legacy result wins. Doubles the
     # gate's host cost; test/debug knob.
     gate_verify: bool = False
-    # assignment policy (solver.policy): the port runs "greedy" (the
-    # rank-ordered solve) only — "optimal" (ROADMAP item 11) and "learned" /
-    # "all" (item 12) raise.
+    # assignment policy (solver.policy): "greedy" (the rank-ordered solve)
+    # or "optimal" (greedy dueled by a pack or cvx challenger); "learned"
+    # and "all" (ROADMAP item 12) raise.
     policy: str = "greedy"
-    # pack-arm flavor (solver.pack) of an "optimal" cycle: item 11
+    # challenger of an "optimal" cycle (solver.pack): auto / pop = the
+    # partitioned LP arm (ops/pack_solve), cvx = the full-fleet convex arm
+    # (ops/cvx_solve)
     pack: str = "auto"
     # learned-policy checkpoint prefix (solver.policyCheckpoint): item 12 —
     # set raises
@@ -292,6 +308,16 @@ class _SolveHandle:
     # each supervised execute: an abandoned dispatch that unwedges after a
     # discard finds it stale and bails instead of racing the live mirror
     mirror_epoch: Optional[int] = None
+    # solver.policy=optimal: the pack arm's plan dispatched next to the
+    # greedy solve (None = skipped or failed; greedy is the floor)
+    pack: Optional[object] = None
+    pack_t0: float = 0.0              # pack dispatch start (plan ms)
+    # solver.pack=cvx: the cvx arm's plan (None = skipped or failed)
+    cvx: Optional[object] = None
+    cvx_t0: float = 0.0               # cvx dispatch start (solve ms)
+    # the persistent device mirror the greedy dispatch used: the arms reuse
+    # it read-only
+    device_state: Optional[dict] = None
 
 
 class CoreScheduler(SchedulerAPI):
@@ -513,6 +539,65 @@ class CoreScheduler(SchedulerAPI):
             "gate_passes_total",
             "admission-scan passes executed across cycles (device and "
             "host vectorized scans)")
+        # ---- the duel arms (solver.policy=optimal) ----
+        self._m_pack = m.counter(
+            "pack_plans_total",
+            "pack-solver (partitioned LP, solver.policy=optimal) cycles by "
+            "outcome (won = pack plan committed, fell_back = greedy packed "
+            "at least as well, skipped = batch outside the pack model or "
+            "circuit open, failed = dispatch/materialize error, infeasible "
+            "= plan refused by the capacity re-check — any nonzero count is "
+            "a bug)",
+            labelnames=("outcome",))
+        self._g_pack_util = m.gauge(
+            "pack_last_util",
+            "most recent cycle's packed-units ratio pack/greedy "
+            "(> 1 = the pack plan packed more of the cluster)")
+        self._g_pack_ms = m.gauge(
+            "pack_last_plan_ms",
+            "dispatch-to-decision latency of the most recent pack plan (ms)")
+        self._m_policy_duels = m.counter(
+            "policy_duels_total",
+            "choose_plan duel outcomes by participating policy (won = that "
+            "policy's plan committed the cycle, lost = another plan beat "
+            "it)", labelnames=("policy", "outcome"))
+        self._m_cvx = m.counter(
+            "cvx_plans_total",
+            "cvx-solver (full-fleet convex relaxation, solver.pack=cvx) "
+            "cycles by outcome (won = cvx plan committed, fell_back = the "
+            "incumbent packed at least as well, skipped = batch outside "
+            "the full-fleet model or circuit open, failed = "
+            "dispatch/materialize error, infeasible = plan refused by the "
+            "capacity re-check — any nonzero count is a bug)",
+            labelnames=("outcome",))
+        self._h_cvx_ms = m.histogram(
+            "cvx_solve_latency_ms",
+            "dispatch-to-decision latency of the cvx plan (ms): the "
+            "fixed-trip primal-dual relaxation + rounding + repair",
+            buckets=MS_BUCKETS)
+        self._g_cvx_ms = m.gauge(
+            "cvx_last_solve_ms",
+            "most recent cycle's cvx plan latency (ms)")
+        self._g_cvx_util = m.gauge(
+            "cvx_last_util",
+            "most recent cycle's packed-units ratio cvx/greedy "
+            "(> 1 = the cvx plan packed more of the cluster)")
+        self._m_duel_wins = m.counter(
+            "duel_wins_total",
+            "choose_plan_n cycles by WINNING arm (one increment per duel "
+            "cycle; policy_duels_total counts per-participant outcomes)",
+            labelnames=("arm",))
+        self._m_pack_partitioner = m.counter(
+            "pack_partitioner_total",
+            "pack-solver dispatches by partitioner mode (random = POP "
+            "seeded permutation, topo = ICI-domain-boundary partitioning)",
+            labelnames=("mode",))
+        # stats of the most recent pack and cvx dispatch and duel (chosen
+        # policy or skip reason, util ratio, plan ms); ride the cycle entry
+        self._last_pack_stats: dict = {}
+        self._last_cvx_stats: dict = {}
+        # the device mirror of the last greedy dispatch (the arms reuse it)
+        self._last_solve_device_state = None
         # stats of the most recent gate pass (path, passes, sub-stage ms);
         # ride the cycle entry and the gate tracer span
         self._last_gate_stats: dict = {}
@@ -1321,6 +1406,11 @@ class CoreScheduler(SchedulerAPI):
         fr.add_source(
             "journeys", lambda: self.journey.tail(fr.options.journey_tail))
         fr.add_source("solve", lambda: dict(self._last_solve_stats))
+        fr.add_source("duel", lambda: {
+            "last_solve": dict(self._last_solve_stats),
+            "last_pack": dict(self._last_pack_stats),
+            "last_cvx": dict(self._last_cvx_stats),
+        })
         fr.add_source("slo", lambda: {"verdicts": self.slo.verdicts(),
                                       "violations": self.slo.violations()})
         fr.add_source("supervisor", lambda: self.supervisor.snapshot())
@@ -1341,7 +1431,8 @@ class CoreScheduler(SchedulerAPI):
             jattrs["ledger_retries"] = r - self._ledger_retries_seen
             self._ledger_retries_seen = r
         self.journey.mark(keys, "gated", t_gate, **jattrs)
-        self.journey.mark(keys, "solved", t_solve, arm="greedy",
+        self.journey.mark(keys, "solved", t_solve,
+                          arm=self._last_pack_stats.get("policy", "greedy"),
                           solve_ms=round(solve_ms, 2), aot="warm")
 
     def _dispatch_solve(self, batch, policy, overlay, node_mask,
@@ -1375,6 +1466,8 @@ class CoreScheduler(SchedulerAPI):
                                  max_batch=so.max_batch,
                                  device_state=device_state,
                                  device=self.device)
+        # the cycle's duel arms reuse the mirror read-only
+        self._last_solve_device_state = device_state
         self._m_batch_pods.observe(batch.num_pods)
         stats = {"pods": int(batch.num_pods), "tier": "device",
                  "rounds": result.rounds}
@@ -1405,20 +1498,254 @@ class CoreScheduler(SchedulerAPI):
     # materialize-time retry re-solves the SAME captured inputs.
 
     def _solve_dispatch(self, admitted, batch, policy, overlay, node_mask,
-                        inflight_ports) -> "_SolveHandle":
+                        inflight_ports, duel: bool = True) -> "_SolveHandle":
         """Supervised dispatch. Dispatch success alone never re-closes a
         half-open circuit (commit_success=False) — only a materialized
-        result proves the tier healthy."""
+        result proves the tier healthy. With duel (every solve but the
+        locality-fallback drain's) the cycle's challenger arms dispatch
+        next to it."""
         h = _SolveHandle(admitted=admitted, batch=batch, policy=policy,
                          overlay=overlay, node_mask=node_mask,
                          inflight_ports=inflight_ports,
                          mirror_epoch=self.encoder.mirror_epoch)
+        # the solver.policy label rides every supervised dispatch this cycle
+        self.supervisor.policy_label = self._policy_mode()
+        if duel:
+            # drain solves ride the cycle's main duel stats
+            self._last_pack_stats = {}
+            self._last_cvx_stats = {}
+        self._last_solve_device_state = None
         h.result, h.tier = self.supervisor.execute(
             "assign", [(ASSIGN_LADDER[0], lambda: self._dispatch_solve(
                 batch, policy, overlay, node_mask, inflight_ports,
                 mirror_epoch=h.mirror_epoch))],
             commit_success=False)
+        h.device_state = self._last_solve_device_state
+        if duel:
+            self._pack_dispatch(h)
+            self._cvx_dispatch(h)
         return h
+
+    # ------------------------------------------------- the duel arms
+    # solver.policy=optimal: a challenger solve (the partitioned LP arm,
+    # ops/pack_solve, or with solver.pack=cvx the full-fleet convex arm,
+    # ops/cvx_solve) runs on the core's device as its own single-tier
+    # supervised path next to the greedy solve. A dispatch that is out of
+    # scope, fails, blows its deadline or finds its circuit open leaves the
+    # greedy plan standing, and a materialized plan commits only when the
+    # duel (choose_plan_n) proves it strictly better. Feasibility is
+    # structural: the arms round and repair through the greedy solve's
+    # feasibility masks, overlays and prefix-fit arithmetic, and a plan
+    # whose free_after check fails is refused outright.
+
+    def _pack_on(self) -> bool:
+        return (self.solver.policy == "optimal"
+                and self.solver.pack != "cvx")
+
+    def _cvx_on(self) -> bool:
+        return (self.solver.policy == "optimal"
+                and self.solver.pack == "cvx")
+
+    def _policy_mode(self) -> str:
+        """The configured policy label for supervised-dispatch series."""
+        return "optimal" if self.solver.policy == "optimal" else "greedy"
+
+    def _arm_scope(self, batch, node_capacity_ok) -> Optional[str]:
+        """The skip reason of a batch outside both arms' model (None when
+        in scope): the deterministic gates run before the supervised
+        dispatch, so a skip never rides the retry and breaker machinery."""
+        if batch.locality is not None:
+            return "locality"
+        if batch.g_ports.view(np.uint32).any():
+            return "ports"
+        if not node_capacity_ok(batch.req.shape[0],
+                                self.encoder.nodes.capacity):
+            return "shape"
+        return None
+
+    def _pack_eligible(self, batch) -> Optional[str]:
+        """None when the pack arm models this batch; else the skip
+        reason."""
+        return self._arm_scope(batch, pack_mod.shape_supported)
+
+    def _cvx_eligible(self, h: "_SolveHandle") -> Optional[str]:
+        """None when the cvx arm models this cycle; else the skip reason
+        (over the cell budget: the shapes the pack arm exists for)."""
+        return self._arm_scope(h.batch, cvx_mod.cvx_shape_supported)
+
+    def _pack_dispatch(self, h: "_SolveHandle") -> None:
+        """Dispatch the pack solve of an eligible optimal cycle; failures
+        leave h.pack None (greedy stays authoritative)."""
+        if not self._pack_on():
+            return
+        reason = self._pack_eligible(h.batch)
+        if reason is not None:
+            self._m_pack.inc(outcome="skipped")
+            self._last_pack_stats = {"policy": "greedy", "skip": reason}
+            return
+        if not self.supervisor.allow("pack"):
+            self._m_pack.inc(outcome="skipped")
+            self._last_pack_stats = {"policy": "greedy", "skip": "circuit"}
+            return
+        h.pack_t0 = time.perf_counter()
+        # the ICI-domain partitioner whenever topology steering is on
+        mode = ("topo" if getattr(h.batch, "topo", None) is not None
+                else "random")
+
+        def pack_fn():
+            with self._device_scope():
+                return pack_mod.pack_solve_batch(
+                    h.batch, self.encoder.nodes, policy=h.policy,
+                    free_delta=h.overlay, node_mask=h.node_mask,
+                    ports_delta=h.inflight_ports, seed=self._cycle_seq,
+                    chunk=self.solver.chunk, device_state=h.device_state,
+                    partitioner=mode, device=self.device)
+        try:
+            h.pack = self.supervisor.run("pack", pack_fn,
+                                         commit_success=False)
+            # counted only on a dispatch that produced a plan
+            self._m_pack_partitioner.inc(mode=mode)
+        except AbandonedDispatch:
+            raise  # zombie thread: stop, don't continue a stale cycle
+        except pack_mod.PackUnsupported as e:
+            self._m_pack.inc(outcome="skipped")
+            self._last_pack_stats = {"policy": "greedy", "skip": str(e)}
+        except Exception:
+            self._m_pack.inc(outcome="failed")
+            self._last_pack_stats = {"policy": "greedy", "skip": "error"}
+            logger.exception("pack solve dispatch failed; greedy plan "
+                             "stands this cycle")
+
+    def _cvx_dispatch(self, h: "_SolveHandle") -> None:
+        """Dispatch the full-fleet convex solve of an eligible cycle;
+        failures leave h.cvx None (the rest of the duel stands)."""
+        if not self._cvx_on():
+            return
+        reason = self._cvx_eligible(h)
+        if reason is not None:
+            self._m_cvx.inc(outcome="skipped")
+            self._last_cvx_stats = {"skip": reason}
+            return
+        if not self.supervisor.allow("cvx"):
+            self._m_cvx.inc(outcome="skipped")
+            self._last_cvx_stats = {"skip": "circuit"}
+            return
+        h.cvx_t0 = time.perf_counter()
+
+        def cvx_fn():
+            with self._device_scope():
+                return cvx_mod.cvx_solve_batch(
+                    h.batch, self.encoder.nodes, policy=h.policy,
+                    free_delta=h.overlay, node_mask=h.node_mask,
+                    ports_delta=h.inflight_ports, seed=self._cycle_seq,
+                    chunk=self.solver.chunk, device_state=h.device_state,
+                    device=self.device)
+        try:
+            h.cvx = self.supervisor.run("cvx", cvx_fn, commit_success=False)
+        except AbandonedDispatch:
+            raise  # zombie thread: stop, don't continue a stale cycle
+        except cvx_mod.CvxUnsupported as e:
+            self._m_cvx.inc(outcome="skipped")
+            self._last_cvx_stats = {"skip": str(e)}
+        except Exception:
+            self._m_cvx.inc(outcome="failed")
+            self._last_cvx_stats = {"skip": "error"}
+            logger.exception("cvx solve dispatch failed; the cvx arm sits "
+                             "out this cycle")
+
+    def _arm_plan(self, path: str, result, n: int, counter, stats_attr: str,
+                  stats: dict):
+        """Read one arm's plan back under its supervised path: the plan's
+        first n rows, or None when the read fails or the plan fails its
+        structural capacity check (counted; the arm sits out the cycle)."""
+        try:
+            assigned, feasible = self.supervisor.run(
+                path, lambda: (_host_rows(result.assigned, n),
+                               bool(result.feasible)))
+        except AbandonedDispatch:
+            raise  # zombie thread: stop, don't commit a stale cycle
+        except Exception:
+            counter.inc(outcome="failed")
+            setattr(self, stats_attr, dict(stats, skip="error"))
+            logger.exception("%s plan materialization failed; the %s arm "
+                             "sits out this cycle", path, path)
+            return None
+        if not feasible:
+            # structurally impossible (the rounding and repair share the
+            # greedy solve's fit arithmetic): never commit such a plan
+            counter.inc(outcome="infeasible")
+            setattr(self, stats_attr, dict(stats, skip="infeasible"))
+            logger.error("%s plan over-committed capacity; the %s arm sits "
+                         "out this cycle", path, path)
+            return None
+        return assigned
+
+    def _plan_duel(self, h: "_SolveHandle", greedy_assigned):
+        """Materialize the challenger plan and run the N-way comparison;
+        returns the committed assignment. A challenger commits only when
+        strictly better than the incumbent (pack_solve.choose_plan_n), so
+        greedy stays the floor."""
+        n = h.batch.num_pods
+        cands = [("greedy", np.asarray(greedy_assigned)[:n])]
+        pack_ms = cvx_ms = None
+        if h.pack is not None:
+            plan = self._arm_plan("pack", h.pack, n, self._m_pack,
+                                  "_last_pack_stats", {"policy": "greedy"})
+            if plan is not None:
+                pack_ms = (time.perf_counter() - h.pack_t0) * 1000
+                cands.append(("optimal", plan))
+        if h.cvx is not None:
+            plan = self._arm_plan("cvx", h.cvx, n, self._m_cvx,
+                                  "_last_cvx_stats", {})
+            if plan is not None:
+                cvx_ms = (time.perf_counter() - h.cvx_t0) * 1000
+                self._h_cvx_ms.observe(cvx_ms)
+                cands.append(("cvx", plan))
+        if len(cands) == 1:
+            return greedy_assigned
+        # the committed objective is the solvers' (capacity-normalized
+        # units), guarded class by class from the highest priority down
+        winner, utils = pack_mod.choose_plan_n(
+            cands, h.batch.req.astype(np.int32), h.batch.valid,
+            cap_i=np.floor(self.encoder.nodes.capacity_arr).astype(np.int64),
+            priorities=np.asarray(
+                [(a.priority or 0) for a in h.admitted], np.int64))
+        by_name = dict(cands)
+        g_units = max(utils["greedy"]["units_norm"], 1e-9)
+        for name, _ in cands:
+            self._m_policy_duels.inc(
+                policy=name, outcome="won" if name == winner else "lost")
+        self._m_duel_wins.inc(arm=winner)
+        if "optimal" in by_name:
+            util_ratio = utils["optimal"]["units_norm"] / g_units
+            self._m_pack.inc(
+                outcome="won" if winner == "optimal" else "fell_back")
+            self._g_pack_util.set(util_ratio)
+            self._g_pack_ms.set(pack_ms)
+            self._last_pack_stats = {
+                "policy": winner,
+                "pack_util": round(util_ratio, 4),
+                "pack_plan_ms": round(pack_ms, 2),
+                "pack_placed": utils["optimal"]["placed"],
+                "greedy_placed": utils["greedy"]["placed"],
+                "partitioner": h.pack.partitioner,
+            }
+        else:
+            self._last_pack_stats = {**self._last_pack_stats,
+                                     "policy": winner}
+        if "cvx" in by_name:
+            c_ratio = utils["cvx"]["units_norm"] / g_units
+            self._m_cvx.inc(outcome="won" if winner == "cvx" else "fell_back")
+            self._g_cvx_util.set(c_ratio)
+            self._g_cvx_ms.set(cvx_ms)
+            self._last_cvx_stats = {
+                "cvx_util": round(c_ratio, 4),
+                "cvx_solve_ms": round(cvx_ms, 2),
+                "cvx_iters": h.cvx.iters,
+                "cvx_placed": utils["cvx"]["placed"],
+                "learned_dual": False,
+            }
+        return by_name[winner]
 
     def _solve_materialize(self, h: "_SolveHandle"):
         """Finish one supervised solve: read the result back to the host
@@ -1440,6 +1767,10 @@ class CoreScheduler(SchedulerAPI):
         assigned, h.tier = self.supervisor.execute(
             "assign", [(h.tier, fn)])
         self._m_solve_tier.inc(tier=h.tier)
+        if h.pack is not None or h.cvx is not None:
+            # solver.policy=optimal: the duel against the greedy plan
+            # decides which assignment commits
+            assigned = self._plan_duel(h, assigned)
         return assigned
 
     def _ask_pending(self, ask) -> bool:
@@ -1964,7 +2295,8 @@ class CoreScheduler(SchedulerAPI):
             entry.update(_gate_extras(self._last_gate_stats))
             entry.update(_topo_extras(self._last_topo_stats))
             entry.update(_mirror_extras(self._last_solve_stats))
-            entry["solver_policy"] = "greedy"
+            entry.update(_pack_extras(self._last_pack_stats))
+            entry.update(_cvx_extras(self._last_cvx_stats))
             entry["solve_tier"] = handle.tier
             if fb_rounds:
                 entry["fallback_rounds"] = fb_rounds
@@ -1977,7 +2309,9 @@ class CoreScheduler(SchedulerAPI):
             tr.add("encode", cid, t_gate, t_encode,
                    cached=int(self.encoder.last_encode_cached),
                    reencoded=self.encoder.last_encode_rows_reencoded)
-            tr.add("solve", cid, t_encode, t_solve, policy="greedy",
+            tr.add("solve", cid, t_encode, t_solve,
+                   policy=self._last_pack_stats.get("policy", "greedy"),
+                   **_cvx_extras(self._last_cvx_stats),
                    **self._last_solve_stats)
             tr.add("commit", cid, t_solve, t_commit, allocs=len(new_allocs))
             # journey hop marks from the SAME stage stamps as the tracer
@@ -2228,11 +2562,11 @@ class CoreScheduler(SchedulerAPI):
             return None, 0
         t_mat1 = time.time()
         self.tracer.add("solve", cyc.cycle_id, cyc.t_dispatched, t_mat0,
-                        policy="greedy")
+                        policy=self._last_pack_stats.get("policy", "greedy"))
         self.tracer.add("materialize", cyc.cycle_id, t_mat0, t_mat1)
         self.journey.mark(
             [a.allocation_key for a in cyc.admitted], "solved", t_mat1,
-            arm="greedy",
+            arm=self._last_pack_stats.get("policy", "greedy"),
             solve_ms=round((t_mat1 - cyc.t_dispatched) * 1000, 2),
             aot="warm")
         with self._lock:
@@ -2286,7 +2620,8 @@ class CoreScheduler(SchedulerAPI):
             entry.update(_gate_extras(cyc.gate_stats))
             entry.update(_topo_extras(self._last_topo_stats))
             entry.update(_mirror_extras(self._last_solve_stats))
-            entry["solver_policy"] = "greedy"
+            entry.update(_pack_extras(self._last_pack_stats))
+            entry.update(_cvx_extras(self._last_cvx_stats))
             entry["solve_tier"] = cyc.result.tier
             if fb_rounds:
                 entry["fallback_rounds"] = fb_rounds
@@ -2381,7 +2716,7 @@ class CoreScheduler(SchedulerAPI):
             # main one: a drain solve that fails past its retries fails the
             # cycle
             h = self._solve_dispatch(remaining, batch, policy, overlay,
-                                     node_mask, inflight_ports)
+                                     node_mask, inflight_ports, duel=False)
             assigned = self._solve_materialize(h)
             progress = False
             next_remaining: List = []
@@ -3400,10 +3735,7 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
     if aot_namespace:
         not_ported("an AOT executable namespace (aot_namespace)", 15,
                    "warm-start layer")
-    if so.policy == "optimal":
-        not_ported("the pack and cvx duel arms (solver.policy=optimal)", 11,
-                   "pack and cvx duel arms")
-    if so.policy != "greedy":
+    if so.policy not in ("greedy", "optimal"):
         not_ported(f"solver.policy={so.policy}", 12, "learned policy")
     if so.policy_checkpoint:
         not_ported("a learned-policy checkpoint (solver.policyCheckpoint)",
@@ -3428,6 +3760,30 @@ def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:
     """The first n rows of a solve's assignment as a host array: a CUDA
     tensor is copied off the card (numpy cannot read one)."""
     return assigned[:n].cpu().numpy()
+
+
+def _pack_extras(stats: dict) -> dict:
+    """Pack-duel stats (solver.policy=optimal) for the cycle entry: the
+    committed policy plus the duel's numbers when a comparison ran."""
+    out = {"solver_policy": stats.get("policy", "greedy")}
+    for k in ("pack_util", "pack_plan_ms", "pack_placed", "greedy_placed",
+              "partitioner", "skip"):
+        if k in stats:
+            out["pack_skip" if k == "skip" else k] = stats[k]
+    return out
+
+
+def _cvx_extras(stats: dict) -> dict:
+    """Cvx-arm stats (solver.pack=cvx) for the cycle entry: util ratio,
+    solve ms and iteration budget when the duel ran, or the skip reason."""
+    out = {}
+    for k in ("cvx_util", "cvx_solve_ms", "cvx_iters", "cvx_placed",
+              "learned_dual"):
+        if k in stats:
+            out[k] = stats[k]
+    if "skip" in stats:
+        out["cvx_skip"] = stats["skip"]
+    return out
 
 
 def _topo_extras(stats: dict) -> dict:

@@ -26,6 +26,8 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from yunikorn_tpu_torch.robustness.supervisor import DUEL_PATHS
+
 
 class HealthMonitor:
     def __init__(self):
@@ -76,15 +78,21 @@ class HealthMonitor:
 def solver_source(supervisor) -> Callable[[], dict]:
     """Supervised-path health from circuit states. Degraded paths stay
     healthy=True (they are serving) with the degradation spelled out; a
-    path whose ENTIRE ladder is open is a liveness failure: no path of the
-    port has a fallback outside the supervisor."""
+    path whose ENTIRE ladder is open is a liveness failure, except a duel
+    arm's (DUEL_PATHS): an arm whose circuit is open sits the cycle out
+    and the greedy plan stands, which is reported as a degradation to
+    "greedy". No other path of the port has a fallback outside the
+    supervisor."""
     def probe() -> dict:
         snap = supervisor.snapshot()
         paths = {p: s for p, s in snap.items() if isinstance(s, dict)}
         degraded = {p: s["tier"] for p, s in paths.items()
                     if s["ladder"][0] != s["tier"]}
-        dead = [p for p, s in paths.items()
-                if all(c["state"] == "open" for c in s["circuits"].values())]
+        all_open = [p for p, s in paths.items()
+                    if all(c["state"] == "open"
+                           for c in s["circuits"].values())]
+        dead = [p for p in all_open if p not in DUEL_PATHS]
+        degraded.update({p: "greedy" for p in all_open if p in DUEL_PATHS})
         out = {
             "healthy": not dead,
             "paths": snap,

@@ -55,6 +55,9 @@ logger = log("robustness.supervisor")
 
 # the assignment path's ladder: the core's device and nothing below it
 ASSIGN_LADDER = ("device",)
+# the duel arms' paths (solver.policy=optimal): one device tier each; an
+# arm that fails sits the cycle out and the greedy plan stands
+DUEL_PATHS = ("pack", "cvx")
 
 TRANSIENT = "transient"
 PERSISTENT = "persistent"
