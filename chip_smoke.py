@@ -3,7 +3,8 @@ it: the batched assignment solve and its kernel, the core scheduling cycle
 around them, both again on a batch with pod locality and on a labelled
 fleet with topology steering, the device preemption planner, the device
 admission gate with the device-resident node, victim and request state,
-the pack and cvx duel arms of solver.policy=optimal, and the shim, mock
+the pack and cvx duel arms of solver.policy=optimal, the learned policy's
+serving path (solver.policy=learned and all), and the shim, mock
 scheduler and scheduler binary that bring a cluster's pods to the core.
 
     python3 chip_smoke.py
@@ -131,6 +132,27 @@ phase fails, and when no CUDA device is present):
           greedy run; and a device profile of a full-width pack solve and
           a cut cvx solve, with the Gumbel draw of one rounding round and
           the row projection of one primal step timed alone
+  learned the learned policy (solver.policy=learned and all) with the
+          committed checkpoint tests/data/policy_fragmented_v1 (the JAX
+          package's trainer's output, hash LEARNED_HASH): learned_propose
+          against its plain version on the card at full width (N 65,536,
+          M 16,384, E 16, R 8; also E 8 and 32, no row active, R 12): nf
+          equal, lmean within 1e-6, picks and proposals equal off near-ties
+          (counted), and best_nodes' learned term bit-equal (with the
+          bonus and a row mask); the kernel's CUDA-event ms, the plain
+          version's and the bound; scripts/policy_bench.py's evaluation at
+          512 x 4,096: greedy exactly the JAX package's (323 placed,
+          258.053 units), learned within 0.5% of its 512 / 401.439 and the
+          duel won by learned, the untrained checkpoint's plan bit-identical
+          to greedy's, warm ms of both; the core with solver.policy=learned
+          at full width (the pressure mix, 10,000 x 50,000) with every
+          kernel's launches counted from 0 around the measured cycle, its
+          stage split, learned_ms, winner and learned_util, no node over
+          its allocatable, and then the untrained checkpoint's learned plan
+          equal to the greedy plan; solver.policy=all at the pressure cut on
+          the card and on the CPU (the same winner, every arm's units within
+          0.5%, the cvx arm's learned duals); and a device profile of one
+          full-width learned solve
   shim    the port's shim and MockScheduler on `cuda`, the path a user's
           pods take (informers -> application and task state machines ->
           dispatcher -> core -> allocation callback -> bind pool -> binding
@@ -157,12 +179,15 @@ phase fails, and when no CUDA device is present):
   kernels one line per kernel: launches (the wrapper's count of calls in
           the main path's run; launches_locality, launches_topology,
           launches_duel (launches_duel_repair of them in the pack arm's
-          repair) and launches_shim: in the locality and topology paths'
-          full-width runs, the optimal core's full-width cycle and the
-          shim's pressure run on the card), error against
+          repair), launches_learned (launches_learned_arm of them in the
+          learned solve) and launches_shim: in the locality and topology
+          paths' full-width runs, the optimal and the learned core's
+          full-width cycles and the shim's pressure run on the card; for
+          learned_propose the learned core's cycle), error against
           the plain version, kernel / plain /
-          bound milliseconds (at the first odd round's inputs, as the main
-          path calls it)
+          bound milliseconds (best_nodes at the first odd round's inputs,
+          as the main path calls it; learned_propose at full-width random
+          inputs)
 
 The last two lines are the card's name and power limit, and the result.
 """
@@ -296,11 +321,46 @@ EXPECTED_SHIM_CUT = (10_000, [9_455, 534, 11, 0])
 # CMD_PROFILE_S seconds of the stream
 CMD_NODES, CMD_PODS = 1_000, 5_000
 CMD_PROFILE_S = 3.0
+# the learned phase: the committed checkpoint (the JAX package's trainer,
+# scripts/policy_bench.py --train at its defaults) and its content hash;
+# policy_bench's eval shape (pods, nodes, fleet seed) and the learned
+# solve's seed there; the JAX package's plans at it (placed, units to 3
+# decimals, as policy_bench reports them) and the duel's winner. The
+# learned arm's units must lie within LEARNED_UNITS_RTOL of its; greedy's
+# are exact
+LEARNED_CKPT = os.path.join(ROOT, "tests", "data", "policy_fragmented_v1")
+LEARNED_HASH = "083e3b745ed6202c"
+LEARNED_EVAL = (512, 4_096, 99)
+LEARNED_SEED = 1
+EXPECTED_LEARNED = ("learned", {"greedy": (323, 258.053),
+                                "learned": (512, 401.439)})
+LEARNED_UNITS_RTOL = 0.005
+# kernel against plain: picks whose top two scores lie within
+# LEARNED_NEAR_TIE may differ (the card's logf against torch's log), and
+# the gate on rows within it of the margin; lmean within LEARNED_LMEAN_TOL
+# times max(1, |lmean|) (the two sum the feasible scores in other orders:
+# a float32 sum in another order moves by a few ulp, and one ulp is 1.2e-7
+# of the value)
+LEARNED_NEAR_TIE = 1e-5
+LEARNED_LMEAN_TOL = 1e-6
+# the learned proposal pass's work per fitting pair on the card: 32-bit
+# integer operations (threefry2x32's 20 rounds of add, rotate and xor, its
+# 5 key injections, the counter and the uniform's shift and or), logf
+# calls (the special-function unit), and float32 operations besides the
+# dot product's 2E - 1 (the noise's scale and add, the uniform's
+# subtract, add and max, the compare)
+LEARNED_INT_OPS, LEARNED_SFU_OPS, LEARNED_FP_OPS = 74, 2, 6
+SFU_PER_CLK_SM = 16
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
     "source": "yunikorn_tpu_torch/csrc/best_nodes.cu",
     "replaces": "yunikorn_tpu/ops/pallas_kernels.py:53",
+}, {
+    "name": "learned_propose",
+    "route": "cuda",
+    "source": "yunikorn_tpu_torch/csrc/learned_propose.cu",
+    "replaces": "yunikorn_tpu/ops/assign.py:821",
 }]
 
 
@@ -349,7 +409,7 @@ def pair_counts(req, group_id, group_feas, free, rows=None,
 
 def best_nodes_bound_ms(req, group_id, group_feas, free, has_soft: bool,
                         clock_hz: float, rows=None,
-                        bonus: bool = False) -> dict:
+                        bonus: bool = False, emb: int = 0) -> dict:
     """Least time for one best-node call: inputs read once and outputs
     written once over HBM bandwidth, against the operations these inputs
     need at the compare/logic rate. Each admitted pair (a requested row and
@@ -359,19 +419,23 @@ def best_nodes_bound_ms(req, group_id, group_feas, free, has_soft: bool,
     score add is one f32 add per (group, node) at the f32 rate. With the
     planned-domain bonus (topology steering) each fitting pair costs one
     more compare (the domain match), each (group, node) one more add (the
-    rounded + 8.0), and node_dom [M] and pref [N] are read. Also returns the
-    first slice's formula (every pod x every node, 2R + 1 + soft lane
-    operations over the 67 TFLOP/s float32 peak) as `old_ms`."""
+    rounded + 8.0), and node_dom [M] and pref [N] are read. With the
+    learned term (embeddings of width emb) each fitting pair costs emb
+    products and emb adds at the f32 rate, and pod_emb [N, emb] and
+    node_emb [M, emb] are read. Also returns the first slice's formula
+    (every pod x every node, 2R + 1 + soft lane operations over the 67
+    TFLOP/s float32 peak) as `old_ms`."""
     N, R = req.shape
     G, M = group_feas.shape
     nbytes = (N * R * 4 + N * 4 + G * M + (G * M * 4 if has_soft else 0)
               + M * R * 4 + M * 4 + N * 4 + N
-              + ((M + N) * 4 if bonus else 0))
+              + ((M + N) * 4 if bonus else 0) + (M + N) * emb * 4)
     n_rows, admitted, fitting = pair_counts(req, group_id, group_feas, free,
                                             rows)
     cmp_s = ((admitted * R + fitting * (2 if bonus else 1))
              / (CMP_PER_CLK_SM * SMS * clock_hz))
-    adds = (G * M if has_soft else 0) + (G * M if bonus else 0)
+    adds = ((G * M if has_soft else 0) + (G * M if bonus else 0)
+            + fitting * 2 * emb)
     add_s = adds / (FADD_PER_CLK_SM * SMS * clock_hz)
     t_ops = (cmp_s + add_s) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -2284,6 +2348,480 @@ def phase_duel(dev, stats):
     return out
 
 
+def learned_inputs(rng, N, M, G, R, E, dev, active_share=0.9):
+    """learned_propose's inputs shaped like the solve's, with random
+    embeddings of width E (scale 0.3, so that scores spread over about one
+    unit), a row mask and a key: a dict of the kernel's keyword
+    arguments."""
+    from yunikorn_tpu_torch.utils import prng
+
+    base = random_kernel_inputs(rng, N, M, G, R, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return dict(
+        pod_emb=t((rng.standard_normal((N, E)) * 0.3).astype(np.float32)),
+        node_emb=t((rng.standard_normal((M, E)) * 0.3).astype(np.float32)),
+        group_id=base["group_id"], group_feas=base["group_feas"],
+        free=base["free"], req=base["req"],
+        active=t(rng.random(N) < active_share), tau=0.25,
+        key=prng.prng_key(int(rng.integers(0, 2**31)), dev),
+        rnd=int(rng.integers(0, 16)), chunk=512)
+
+
+def check_proposals(got, ref, inp):
+    """Hold the kernel's (prop, pick, nf, lmean) against the plain
+    version's on the same inputs: nf equal, lmean within LEARNED_LMEAN_TOL
+    x max(1, |lmean|), and pick and prop equal except on near-ties,
+    counted: a pick may differ
+    only where the plain version's top two scores u lie within
+    LEARNED_NEAR_TIE, the gate only where ls at the pick lies within it of
+    lmean + GATE_MARGIN. Raises on anything else; returns the counts."""
+    from yunikorn_tpu_torch.ops.learned import chunk_scores
+    from yunikorn_tpu_torch.policy.net import GATE_MARGIN
+    from yunikorn_tpu_torch.utils import prng
+
+    prop, pick, nf, lmean = got
+    rprop, rpick, rnf, rlmean = ref
+    if not torch.equal(nf, rnf):
+        raise AssertionError(f"nf differs on {int((nf != rnf).sum())} rows")
+    diff = (lmean - rlmean).abs()
+    scale = rlmean.abs().clamp(min=1.0)
+    lm_err = float(diff.max()) if diff.numel() else 0.0
+    lm_rel = float((diff / scale).max()) if diff.numel() else 0.0
+    if lm_rel > LEARNED_LMEAN_TOL:
+        raise AssertionError(f"lmean off the plain version's by {lm_err} "
+                             f"({lm_rel} of max(1, |lmean|))")
+    bad = ((pick != rpick) | (prop != rprop)).nonzero().squeeze(1).tolist()
+    chunk = inp["chunk"]
+    round_key = prng.fold_in(inp["key"], inp["rnd"])
+    pick_ties = gate_ties = 0
+    for c in sorted({i // chunk for i in bad}):
+        ok, ls, u = chunk_scores(inp["pod_emb"], inp["node_emb"],
+                                 inp["group_id"], inp["group_feas"],
+                                 inp["free"], inp["req"], inp["tau"],
+                                 round_key, c, chunk)
+        for i in [i for i in bad if i // chunk == c]:
+            row = u[i - c * chunk]
+            top2 = row.topk(2).values
+            if pick[i] != rpick[i]:
+                if float(top2[0] - top2[1]) > LEARNED_NEAR_TIE:
+                    raise AssertionError(f"row {i}: pick {int(pick[i])} != "
+                                         f"{int(rpick[i])} off a near-tie")
+                pick_ties += 1
+            else:
+                margin = float(ls[i - c * chunk, rpick[i]] - rlmean[i])
+                if abs(margin - GATE_MARGIN) > LEARNED_NEAR_TIE:
+                    raise AssertionError(f"row {i}: gate differs at margin "
+                                         f"{margin}")
+                gate_ties += 1
+    return {"rows": int(nf.numel()), "pick_near_ties": pick_ties,
+            "gate_near_ties": gate_ties, "lmean_max_abs_err": lm_err,
+            "lmean_max_rel_err": lm_rel,
+            "overrides": int((prop < inp["free"].shape[0]).sum())}
+
+
+def learned_propose_bound_ms(inp, clock_hz: float) -> dict:
+    """Least time for one learned_propose call: inputs read once and
+    outputs written once over HBM bandwidth, against its operations on the
+    active rows: R fit compares per pair the group row admits, and per
+    fitting pair LEARNED_INT_OPS integer operations at 64 a clock per SM,
+    LEARNED_SFU_OPS logf at SFU_PER_CLK_SM, and 2E - 1 + LEARNED_FP_OPS
+    float32 operations at 128; the pipes issue side by side, so the
+    slowest bounds."""
+    req, free = inp["req"], inp["free"]
+    N, R = req.shape
+    G, M = inp["group_feas"].shape
+    E = inp["pod_emb"].shape[1]
+    n_rows, admitted, fitting = pair_counts(req, inp["group_id"],
+                                            inp["group_feas"], free,
+                                            inp["active"])
+    sm_clk = SMS * clock_hz
+    int_s = (admitted * R + fitting * LEARNED_INT_OPS) / (CMP_PER_CLK_SM
+                                                          * sm_clk)
+    sfu_s = fitting * LEARNED_SFU_OPS / (SFU_PER_CLK_SM * sm_clk)
+    fp_s = fitting * (2 * E - 1 + LEARNED_FP_OPS) / (FADD_PER_CLK_SM * sm_clk)
+    t_ops = max(int_s, sfu_s, fp_s) * 1e3
+    nbytes = (N * R * 4 + N * 4 + G * M + M * R * 4 + N + (N + M) * E * 4
+              + 16 + N * 16)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    pipe = max((int_s, "integer"), (sfu_s, "sfu"), (fp_s, "float32"))[1]
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pipe": pipe, "rows": n_rows, "pairs": admitted,
+            "fitting_pairs": fitting}
+
+
+def learned_kernels(dev, stats, clock_hz):
+    """Both kernels of the learned path against their plain versions on the
+    card at full width (N 65,536, M 16,384, E 16, R 8, G 4): learned_propose
+    on random inputs (90% of the rows active), with a narrower embedding
+    (E 8, zero-padded to the kernel's 16), E 32, every row inactive, and
+    R 12; best_nodes' learned term bit-equal, with and without the
+    planned-domain bonus and a row mask. Then CUDA-event ms of the kernel
+    and of the plain version, and the bound."""
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference)
+    from yunikorn_tpu_torch.ops.learned import (learned_propose,
+                                                learned_propose_reference)
+
+    rng = np.random.default_rng(20261017)
+    N, M, G = 65_536, 16_384, 4
+    full = learned_inputs(rng, N, M, G, 8, 16, dev)
+    cases = [("full_width", full),
+             ("e8", learned_inputs(rng, N, M, G, 8, 8, dev)),
+             ("e32", learned_inputs(rng, 8_192, M, G, 8, 32, dev)),
+             ("none_active", dict(full, active=torch.zeros_like(
+                 full["active"]))),
+             ("r12", learned_inputs(rng, 8_192, M, G, 12, 16, dev))]
+    checks = {}
+    for label, inp in cases:
+        got = learned_propose(**inp)
+        torch.cuda.synchronize()
+        checks[label] = check_proposals(
+            got, learned_propose_reference(**inp), inp)
+    bn_cases = []
+    for label, kw in (("learned", {}), ("learned_rows", {
+            "rows": random_rows(rng, N, N * 3 // 10, dev)}), (
+            "learned_bonus", {
+                "node_dom": torch.from_numpy(rng.integers(
+                    -1, 32, M).astype(np.int32)).to(dev),
+                "pref": torch.from_numpy(rng.integers(
+                    -1, 32, N).astype(np.int32)).to(dev)})):
+        base = random_kernel_inputs(rng, N, M, G, 8, dev)
+        emb = dict(pod_emb=full["pod_emb"], node_emb=full["node_emb"])
+        got = best_nodes(**base, mode="exact", has_soft=True, **emb, **kw)
+        torch.cuda.synchronize()
+        ref = best_nodes_reference(**base, mode="exact", has_soft=True,
+                                   **emb, **kw)
+        equal = bool(torch.equal(got[0], ref[0])
+                     and torch.equal(got[1], ref[1]))
+        bn_cases.append({"case": label, "equal": equal,
+                         "feasible": int(got[1].sum())})
+        if not equal:
+            raise AssertionError(f"best_nodes' learned term differs from "
+                                 f"its plain version: {label}")
+    ms = cuda_ms(lambda: learned_propose(**full), 10)
+    plain_ms = cuda_ms(lambda: learned_propose_reference(**full), 1)
+    bound = learned_propose_bound_ms(full, clock_hz)
+    stats.setdefault("learned_propose", {})
+    return {"propose": checks, "best_nodes_learned": bn_cases, "ms": ms,
+            "plain_ms": plain_ms, "bound": bound,
+            "share_of_bound": bound["bound_ms"] / ms}
+
+
+def learned_fleet(n_pods, n_nodes, seed):
+    """scripts/policy_bench.py's build through the port: the two-flavor
+    fleet and the mixed wave of `seed`, one app: (encoder, batch,
+    priorities)."""
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.client.synthetic import (make_pack_nodes,
+                                                     make_pack_pods, pack_asks)
+    from yunikorn_tpu_torch.snapshot.encoder import SnapshotEncoder
+
+    cache = SchedulerCache()
+    for node in make_pack_nodes(n_nodes):
+        cache.update_node(node)
+    asks, prio, ranks = pack_asks(
+        make_pack_pods(n_pods, seed=seed, app_id="policy-app"),
+        app_id="policy-app")
+    enc = SnapshotEncoder(cache)
+    enc.sync_nodes(full=True)
+    return enc, enc.build_batch(asks, ranks=ranks), prio
+
+
+def learned_eval(dev):
+    """policy_bench's evaluation on the card: the eval shape with the
+    committed checkpoint (seed LEARNED_SEED) and an untrained one
+    (init_params(1), policy_bench's), warm ms of greedy and learned (median
+    of 5), the duel; greedy exactly the JAX package's, learned within
+    LEARNED_UNITS_RTOL, its winner, the untrained plan bit-identical to
+    greedy's (all four outputs)."""
+    from yunikorn_tpu_torch.ops import pack_solve
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+    from yunikorn_tpu_torch.policy import net
+
+    ck = net.load_checkpoint(LEARNED_CKPT)
+    if ck.hash != LEARNED_HASH:
+        raise AssertionError(f"checkpoint hash {ck.hash} != {LEARNED_HASH}")
+    n_pods, n_nodes, seed = LEARNED_EVAL
+    enc, batch, prio = learned_fleet(n_pods, n_nodes, seed)
+    n = batch.num_pods
+    params = net.params_from_numpy(ck.params, dev)
+    untrained = net.params_from_numpy(net.init_params(1), dev)
+    run = lambda learned=None: solve_batch(  # noqa: E731
+        batch, enc.nodes, device=dev, learned=learned, **SOLVE_KW)
+    greedy_ms, g = warm_median_ms(run)
+    learned_ms, lr = warm_median_ms(lambda: run((params, LEARNED_SEED)))
+    u = run((untrained, LEARNED_SEED))
+    same = {f: bool(torch.equal(getattr(g, f), getattr(u, f)))
+            for f in ("assigned", "accept_round", "free_after")}
+    same["rounds"] = g.rounds == u.rounds
+    if not all(same.values()):
+        raise AssertionError(f"untrained plan differs from greedy: {same}")
+    for name, res in (("greedy", g), ("learned", lr)):
+        if int(res.free_after.min()) < 0:
+            raise AssertionError(f"{name} over-committed a node")
+    winner, st = pack_solve.choose_plan_n(
+        [("greedy", g.assigned[:n].cpu().numpy()),
+         ("learned", lr.assigned[:n].cpu().numpy())],
+        batch.req.astype(np.int32), batch.valid,
+        cap_i=np.floor(enc.nodes.capacity_arr).astype(np.int64),
+        priorities=np.asarray(prio))
+    got = {k: (st[k]["placed"], st[k]["units_norm"]) for k in st}
+    want_winner, want = EXPECTED_LEARNED
+    if (got["greedy"][0], round(got["greedy"][1], 3)) != want["greedy"]:
+        raise AssertionError(f"greedy {got['greedy']} != the JAX "
+                             f"package's {want['greedy']}")
+    for i, what in ((0, "placed"), (1, "units")):
+        if abs(got["learned"][i] - want["learned"][i]) \
+                > LEARNED_UNITS_RTOL * want["learned"][i]:
+            raise AssertionError(f"learned {what} {got['learned']} off the "
+                                 f"JAX package's {want['learned']}")
+    if winner != want_winner:
+        raise AssertionError(f"duel winner {winner} != {want_winner}")
+    return {"pods": n_pods, "nodes": n_nodes, "checkpoint": ck.hash,
+            "placed_units": got, "expected": want, "winner": winner,
+            "util_ratio": got["learned"][1] / got["greedy"][1],
+            "rounds": {"greedy": g.rounds, "learned": lr.rounds},
+            "warm_ms": {"greedy": greedy_ms, "learned": learned_ms},
+            "untrained_identical": same}
+
+
+def learned_core_full(dev, stats):
+    """solver.policy=learned through the core at full width: the pressure
+    mix, 10,000 nodes x 50,000 pods, the committed checkpoint. A warm-up
+    cycle and a release, then the measured cycle with every kernel's
+    launch count set to 0 just before and read just after (best_nodes'
+    split between the greedy dispatch and the learned one); then, on the
+    same core, the untrained checkpoint: the learned plan equal to the
+    greedy plan, which stands."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+    from yunikorn_tpu_torch.ops.learned import learned_propose
+    from yunikorn_tpu_torch.policy import net
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    cache, core, cb = make_core(dev, make_pressure_nodes(MAIN_NODES), apps,
+                                SolverOptions(policy="learned",
+                                              policy_checkpoint=LEARNED_CKPT))
+    asks = asks_of(make_pressure_pods(MAIN_PODS))
+    core_cycle(core, asks)
+    release_all(core, asks)
+    split = {"greedy": 0, "learned": 0}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            before = best_nodes.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[name] += best_nodes.launches - before
+        return run
+
+    dispatch, learned_dispatch = core._dispatch_solve, core._learned_dispatch
+    core._dispatch_solve = counted("greedy", dispatch)
+    core._learned_dispatch = counted("learned", learned_dispatch)
+    try:
+        best_nodes.launches = 0
+        learned_propose.launches = 0
+        n, cycle_s = core_cycle(core, asks)
+        launches = {"best_nodes": best_nodes.launches,
+                    "learned_propose": learned_propose.launches}
+    finally:
+        core._dispatch_solve = dispatch
+        core._learned_dispatch = learned_dispatch
+    entry = dict(core.metrics["last_cycle"]["default"])
+    outcomes = core.metrics.get("policy_plans_total") or {}
+    check_tiers(core, "learned core")
+    if set(outcomes) - {"outcome=won", "outcome=fell_back"} or not outcomes:
+        raise AssertionError(f"policy outcomes {outcomes}, skip "
+                             f"{entry.get('policy_skip')}")
+    if (launches["learned_propose"] < 1 or split["greedy"] < 1
+            or split["learned"] < 1
+            or launches["best_nodes"] != split["greedy"] + split["learned"]):
+        raise AssertionError(f"launches {launches}, best_nodes {split}")
+    nodes_used = check_bindings(cache, cb.bound, asks)
+    stats.setdefault("learned_propose", {})["launches"] = \
+        launches["learned_propose"]
+    stats.setdefault("best_nodes", {})["launches_learned"] = \
+        launches["best_nodes"]
+    stats["best_nodes"]["launches_learned_arm"] = split["learned"]
+    out = {"nodes": MAIN_NODES, "pods": MAIN_PODS, "placed": n,
+           "cycle_ms": cycle_s * 1e3, "split": cycle_split(core),
+           "winner": entry.get("solver_policy"),
+           "learned_util": entry.get("learned_util"),
+           "learned_ms": entry.get("learned_ms"),
+           "learned_placed": entry.get("learned_placed"),
+           "checkpoint": entry.get("checkpoint"),
+           "policy_outcomes": outcomes, "launches": launches,
+           "best_nodes_split": split, "nodes_used": nodes_used,
+           "oversubscribed": 0}
+
+    # the untrained checkpoint on the same core: the learned plan is the
+    # greedy plan
+    release_all(core, asks)
+    prefix = os.path.join(ROOT, "build", "policy_untrained")
+    net.save_checkpoint(prefix, net.init_params(0), epoch=0)
+    if not core.set_policy_checkpoint(prefix):
+        raise AssertionError("the untrained checkpoint was rejected")
+    same = []
+    duel = core._plan_duel
+
+    def duel_spy(h, greedy_assigned):
+        k = h.batch.num_pods
+        same.append(np.array_equal(h.learned.assigned[:k].cpu().numpy(),
+                                   np.asarray(greedy_assigned)[:k]))
+        return duel(h, greedy_assigned)
+
+    core._plan_duel = duel_spy
+    try:
+        n_untrained, _ = core_cycle(core, asks)
+    finally:
+        core._plan_duel = duel
+    entry = core.metrics["last_cycle"]["default"]
+    if (same != [True] or entry.get("solver_policy") != "greedy"
+            or entry.get("learned_util") != 1.0):
+        raise AssertionError(f"untrained: plans equal {same}, entry "
+                             f"{entry.get('solver_policy')} "
+                             f"{entry.get('learned_util')}")
+    out["untrained"] = {"placed": n_untrained, "plan_equal_greedy": True,
+                        "winner": entry.get("solver_policy")}
+    return out
+
+
+def learned_all_cut(dev):
+    """solver.policy=all through the core at the pressure cut (2,000 x
+    10,000; every arm: pack, cvx with the learned duals, learned), on the
+    card and on the CPU: the same winner, each arm's placed count and
+    units within the duel bar (DUEL_UNITS_RTOL), no node over its
+    allocatable."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    out = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        cache, core, cb = make_core(where, make_pressure_nodes(CUT_NODES),
+                                    apps, SolverOptions(
+                                        policy="all",
+                                        policy_checkpoint=LEARNED_CKPT))
+        asks = asks_of(make_pressure_pods(CUT_PODS))
+        n, cycle_s = core_cycle(core, asks)
+        check_bindings(cache, cb.bound, asks)
+        entry = core.metrics["last_cycle"]["default"]
+        out[label] = {
+            "placed": n, "cycle_ms": cycle_s * 1e3,
+            "winner": entry.get("solver_policy"),
+            "pack_util": entry.get("pack_util"),
+            "cvx_util": entry.get("cvx_util"),
+            "learned_util": entry.get("learned_util"),
+            "learned_dual": entry.get("learned_dual"),
+            "placed_by_arm": {"greedy": entry.get("greedy_placed"),
+                              "optimal": entry.get("pack_placed"),
+                              "cvx": entry.get("cvx_placed"),
+                              "learned": entry.get("learned_placed")},
+            "duel_wins": core.metrics.get("duel_wins_total")}
+    card, cpu = out["card"], out["cpu"]
+    if card["winner"] != cpu["winner"]:
+        raise AssertionError(f"winner {card['winner']} on the card, "
+                             f"{cpu['winner']} on the CPU")
+    for arm in ("pack_util", "cvx_util", "learned_util"):
+        if card[arm] is None or cpu[arm] is None or (
+                abs(card[arm] - cpu[arm]) > DUEL_UNITS_RTOL * cpu[arm]):
+            raise AssertionError(f"{arm} {card[arm]} on the card, {cpu[arm]} "
+                                 "on the CPU")
+    if not card["learned_dual"]:
+        raise AssertionError("the cvx arm ran without the learned duals")
+    return out
+
+
+PROPOSE_ARGS = ("pod_emb", "node_emb", "group_id", "group_feas", "free",
+                "req", "active", "tau", "key", "rnd", "chunk")
+
+
+def learned_solve_calls(batch, enc, params, dev, stats, clock_hz):
+    """One full-width learned solve with a copy of every learned_propose
+    call's inputs; then each call again at its own inputs: the rows it
+    asked for, CUDA-event ms and the bound; the first round's call held
+    against the plain version, whose ms it also reports. The kernels line
+    takes the first round's numbers (the main path's own call)."""
+    from yunikorn_tpu_torch.ops import assign
+    from yunikorn_tpu_torch.ops import learned as lmod
+
+    captured = []
+    real = lmod.learned_propose
+
+    def spy(*args, **kwargs):
+        captured.append({k: v.clone() if isinstance(v, torch.Tensor) else v
+                         for k, v in zip(PROPOSE_ARGS, args)})
+        return real(*args, **kwargs)
+
+    assign.learned_propose = spy
+    try:
+        res = assign.solve_batch(batch, enc.nodes, device=dev,
+                                 learned=(params, LEARNED_SEED), **SOLVE_KW)
+    finally:
+        assign.learned_propose = real
+    calls = []
+    for inp in captured:
+        b = learned_propose_bound_ms(inp, clock_hz)
+        calls.append({"round": inp["rnd"], "rows": b["rows"],
+                      "fitting_pairs": b["fitting_pairs"],
+                      "ms": cuda_ms(lambda: real(**inp), 5),
+                      "bound_ms": b["bound_ms"], "pipe": b["pipe"]})
+    first = captured[0]
+    check = check_proposals(real(**first),
+                            lmod.learned_propose_reference(**first), first)
+    plain_ms = cuda_ms(lambda: lmod.learned_propose_reference(**first), 1)
+    stats["learned_propose"].update(
+        max_abs_err=check["lmean_max_abs_err"], ms=calls[0]["ms"],
+        plain_ms=plain_ms, bound_ms=calls[0]["bound_ms"],
+        bound_by=learned_propose_bound_ms(first, clock_hz)["bound_by"],
+        library_ms=None)
+    return {"rounds": res.rounds, "calls": calls, "first_round_check": check,
+            "first_round_plain_ms": plain_ms,
+            "kernel_ms_per_solve": sum(c["ms"] for c in calls),
+            "bound_ms_per_solve": sum(c["bound_ms"] for c in calls)}
+
+
+def phase_learned(dev, stats, clock_hz):
+    """The learned policy's serving path (solver.policy=learned and all):
+    both kernels of the path against their plain versions at full width,
+    policy_bench's evaluation with the committed checkpoint, the core at
+    full width with its launch counts, solver.policy=all at the cut on the
+    card and the CPU, and one full-width learned solve: learned_propose's
+    calls at their own inputs, warm ms against greedy's and a device
+    profile."""
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+    from yunikorn_tpu_torch.policy import net
+
+    out = {"kernels": learned_kernels(dev, stats, clock_hz),
+           "eval": learned_eval(dev),
+           "core_full": learned_core_full(dev, stats),
+           "all_cut": learned_all_cut(dev)}
+    enc, batch, _, _ = build_workload(MAIN_NODES, MAIN_PODS)
+    params = net.params_from_numpy(net.load_checkpoint(LEARNED_CKPT).params,
+                                   dev)
+    out["propose_calls"] = learned_solve_calls(batch, enc, params, dev,
+                                               stats, clock_hz)
+    solve = lambda learned=None: solve_batch(  # noqa: E731
+        batch, enc.nodes, device=dev, learned=learned, **SOLVE_KW)
+    g_ms, g = warm_median_ms(solve, runs=3)
+    l_ms, lr = warm_median_ms(lambda: solve((params, LEARNED_SEED)), runs=3)
+    out["solve_full"] = {
+        "warm_ms": {"greedy": g_ms, "learned": l_ms},
+        "rounds": {"greedy": g.rounds, "learned": lr.rounds},
+        "placed": {"greedy": int((g.assigned >= 0).sum()),
+                   "learned": int((lr.assigned >= 0).sum())},
+        "profile": profile_solve(
+            lambda: solve((params, LEARNED_SEED)), top=12)}
+    return out
+
+
 class ThreadSampler:
     """Where the host's CPU time goes over a run: every `period` seconds
     each thread's CPU time (user + system, Linux /proc/self/task, in clock
@@ -2752,6 +3290,8 @@ def main() -> int:
               ("preempt", lambda: phase_preempt(dev)),
               ("gate", lambda: phase_gate(dev)),
               ("duel", lambda: phase_duel(dev, stats)),
+              ("learned", lambda: phase_learned(dev, stats,
+                                                max_sm_clock_hz())),
               ("shim", lambda: phase_shim(dev, stats)),
               ("cmd", lambda: phase_cmd())]
     t_all = time.perf_counter()

@@ -164,10 +164,3 @@ def test_segment_prefix_accept_equal(seed):
         torch.from_numpy(free), M)
     np.testing.assert_array_equal(want, got.numpy())
     assert want.any() and not want.all()
-
-
-def test_unported_inputs_raise():
-    enc_t, batch_t, _ = build_mixed("yunikorn_tpu_torch", n_nodes=4, n_pods=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tassign.solve_batch(batch_t, enc_t.nodes, learned=({}, 0),
-                            device="cpu")

@@ -663,10 +663,7 @@ def test_pipelined_cycles_publish_their_overlap():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, item", [
-    ({"shard": True}, 14), ({"policy": "all", "pack": "cvx"}, 12),
-    ({"policy": "learned"}, 12),
-    ({"policy": "all"}, 12), ({"policy_checkpoint": "/ckpt/p"}, 12),
-    ({"aot_namespace": "s0"}, 15),
+    ({"shard": True}, 14), ({"aot_namespace": "s0"}, 15),
 ])
 def test_unported_option_raises_naming_its_item(option, item):
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache

@@ -20,8 +20,8 @@ numpy-seeded inputs.
   normalized units within 0.5% on every trace but seed 0, whose
   relaxation drifts as the pack arm's does (tests/test_torch_pack_solve).
 - Scope: host ports and over-budget shapes raise CvxUnsupported, the
-  learned warm start raises naming ROADMAP item 12, and the entry point
-  runs on the card unless asked for the CPU.
+  learned warm start runs (an untrained checkpoint's is the cold start),
+  and the entry point runs on the card unless asked for the CPU.
 """
 import random
 
@@ -37,6 +37,7 @@ from yunikorn_tpu.ops import cvx_solve as jcvx
 from yunikorn_tpu.ops import pack_solve as jpack
 from yunikorn_tpu.ops.assign import prepare_solve_args as j_prepare
 from yunikorn_tpu_torch.ops import cvx_solve as tcvx
+from yunikorn_tpu_torch.policy import net as tnet
 
 SEEDS = range(8)
 DRIFT_SEED = 0
@@ -252,9 +253,11 @@ def test_scope_and_device_rules(monkeypatch):
     pod = objects.make_pod("p", cpu_milli=100, memory=2**20)
     batch = enc.build_batch([si.AllocationAsk(
         pod.uid, "app", resource.get_pod_resource(pod), pod=pod)])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12:"):
-        tcvx.cvx_solve_batch(batch, enc.nodes, learned={"w": 0},
-                             device="cpu")
+    learned = tcvx.cvx_solve_batch(batch, enc.nodes, device="cpu",
+                                   learned=tnet.init_params(0))
+    plain = tcvx.cvx_solve_batch(batch, enc.nodes, device="cpu")
+    assert learned.learned_dual and not plain.learned_dual
+    assert torch.equal(learned.assigned, plain.assigned)
     monkeypatch.setattr(tcvx, "_CVX_CELL_BUDGET", 1)
     with pytest.raises(tcvx.CvxUnsupported, match="cell budget"):
         tcvx.cvx_solve_batch(batch, enc.nodes, device="cpu")

@@ -14,7 +14,8 @@
   pods (--pods) are allocated, SIGTERM exits 0 and writes
   --trace-out.
 - Each flag whose feature is not ported raises NotImplementedError naming
-  its ROADMAP item before anything is built.
+  its ROADMAP item before anything is built; --policy learned|all and
+  --policy-checkpoint reach the core's SolverOptions.
 """
 import importlib
 import json
@@ -35,10 +36,9 @@ from test_torch_shim import (PORT, REF, Harness, h_two_apps_two_queues,
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# metric families of features the port does not have yet: the learned
-# policy (ROADMAP item 12; the duel's policy_duels_total is ported) and the
-# compile cache of the warm-start layer (item 15)
-UNPORTED_FAMILIES = ("yunikorn_policy_", "yunikorn_solve_compile_")
+# metric families of features the port does not have yet: the compile
+# cache of the warm-start layer (ROADMAP item 15)
+UNPORTED_FAMILIES = ("yunikorn_solve_compile_",)
 
 VALID_CONF = """
 partitions:
@@ -254,8 +254,6 @@ def test_cmd_scheduler_policy_optimal_binds_pods(tmp_path):
     ([], {"YK_AOT_STORE": "aot"}, 15),
     (["--prewarm", "1024x4096"], {}, 15),
     (["--kubeconfig", "kubeconfig"], {}, 16),
-    (["--policy", "all"], {}, 12),
-    (["--policy", "learned"], {}, 12),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_unported_flags_raise(argv, env, item, monkeypatch):
     from yunikorn_tpu_torch.cmd import scheduler as cmd
@@ -283,3 +281,38 @@ def test_mock_scheduler_shards_above_one_raise():
                                  device="cpu")
     finally:
         reset_for_tests()
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["--policy", "learned", "--policy-checkpoint", "CKPT"],
+     ("learned", "CKPT")),
+    (["--policy", "all"], ("all", "")),
+])
+def test_binary_flags_reach_the_solver_options(argv, want, monkeypatch):
+    """--policy learned|all and --policy-checkpoint become the core's
+    SolverOptions (the core is stopped at its construction)."""
+    from yunikorn_tpu_torch.cmd import scheduler as cmd
+    from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
+    from yunikorn_tpu_torch.core import scheduler as tsched
+
+    class Built(Exception):
+        pass
+
+    seen = []
+
+    def core(cache, solver_options=None, **kw):
+        seen.append((solver_options, kw.get("device")))
+        raise Built
+
+    monkeypatch.setattr(tsched, "CoreScheduler", core)
+    ckpt = str(ROOT / "tests" / "data" / "policy_fragmented_v1")
+    argv = [ckpt if a == "CKPT" else a for a in argv]
+    try:
+        with pytest.raises(Built):
+            cmd.main(["--rest-port", "0", *argv], device="cpu")
+    finally:
+        reset_for_tests()
+    so, device = seen[0]
+    assert (so.policy, so.policy_checkpoint) == tuple(
+        ckpt if w == "CKPT" else w for w in want)
+    assert device == "cpu"

@@ -7,7 +7,8 @@ kwok-style perf mode).
 
 Usage:
     python -m yunikorn_tpu_torch.cmd.scheduler [--nodes N] [--rest-port P]
-        [--pods N] [--policy greedy|optimal]
+        [--pods N] [--policy greedy|optimal|learned|all]
+        [--policy-checkpoint PREFIX]
 
 The JAX package's cmd/scheduler.py, ported. The core runs on the card:
 main(argv, device=None) passes `device` to it, so the command line always
@@ -21,8 +22,9 @@ $YK_AOT_STORE or conf solver.aotStore) and --prewarm (item 15, the
 warm-start layer), --kubeconfig (item 16, the real-cluster client).
 --policy optimal runs the duel of the pack arm (or, with conf
 solver.pack=cvx, the cvx arm) against the greedy plan on the core's
-device; --policy learned or all and --policy-checkpoint raise in the core
-(item 12, the learned policy). One flag
+device; --policy learned the learned arm's (the two-tower scorer of the
+checkpoint --policy-checkpoint names, or conf solver.policyCheckpoint),
+and --policy all every arm's. One flag
 is the port's own: --pods streams synthetic sleep pods into the fake
 cluster after startup, so the kwok-style mode has work to schedule.
 """
@@ -103,15 +105,19 @@ def main(argv=None, device=None) -> int:
                              "item 13). Default: conf solver.shards (auto=1)")
     parser.add_argument("--policy", type=str, default="",
                         choices=("", "greedy", "optimal", "learned", "all"),
-                        help="solver.policy override: greedy, or optimal "
+                        help="solver.policy override: greedy; optimal "
                              "(the pack or cvx arm dueling the greedy plan; "
-                             "conf solver.pack picks the arm); learned and "
-                             "all are not ported yet (ROADMAP item 12). "
-                             "Unknown values reject here, matching the "
+                             "conf solver.pack picks the arm); learned (the "
+                             "two-tower scorer's plan dueling it); all (every "
+                             "arm). Unknown values reject here, matching the "
                              "configmap validation")
     parser.add_argument("--policy-checkpoint", type=str, default="",
-                        help="learned-policy checkpoint prefix: not ported "
-                             "yet (ROADMAP item 12)")
+                        help="learned-policy checkpoint prefix (the "
+                             "<prefix>.npz + <prefix>.json pair). Default: "
+                             "conf solver.policyCheckpoint. A checkpoint "
+                             "that fails validation is rejected "
+                             "(policy_checkpoint_rejected_total) and the "
+                             "learned arm skips")
     parser.add_argument("--shard-epoch-seconds", type=float, default=0.0,
                         help="re-seed the shard partition every N seconds: "
                              "not ported yet (ROADMAP item 13)")

@@ -9,10 +9,9 @@ keys (:210-265). The solver-specific knobs (`solver.*`) are new: they size the
 device-array buckets and the assignment loop.
 
 The JAX package's conf/schedulerconf.py, copied with its imports rewritten.
-Keys whose feature the port lacks (solver.policy other than greedy,
-solver.shards above 1, solver.aotStore) still parse here; the core and the
-scheduler binary raise NotImplementedError naming their ROADMAP item when
-one asks for them.
+Keys whose feature the port lacks (solver.shards above 1,
+solver.aotStore) still parse here; the core and the scheduler binary raise
+NotImplementedError naming their ROADMAP item when one asks for them.
 """
 from __future__ import annotations
 

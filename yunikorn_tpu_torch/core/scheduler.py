@@ -25,8 +25,7 @@ The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
   - solver.shard=True (multi-GPU node-dim sharding, item 14) and an AOT
     namespace (the warm-start layer, item 15)
-  - solver.policy learned or all, and a policy checkpoint (the learned
-    policy, item 12)
+  - the learned policy's duel recorder (policy_recorder, item 12b)
   - any fallback below the device tier: a gate scan, row-store sync,
     mirror refresh or solve that fails after its retries fails the cycle;
     nothing re-runs the card's work on the CPU. A device preemption
@@ -60,6 +59,17 @@ greedy plan; a challenger that is out of scope, fails or returns an
 infeasible plan leaves the greedy plan standing for the cycle
 (pack_plans_total / cvx_plans_total by outcome). Nothing re-runs an arm
 on the CPU.
+
+solver.policy=learned runs the JAX package's learned arm: with a validated
+checkpoint (solver.policyCheckpoint, set_policy_checkpoint) the core
+dispatches a second solve on the core's device with the two-tower scorer
+inside it (ops/learned: gated learned proposals and the learned term in the
+odd rounds' best node) as the supervised path "policy", and its plan enters
+the same duel. solver.policy=all fields every arm: pack, cvx and learned
+against greedy. Whenever a checkpoint is active the cvx arm's duals start
+from the scorer's prices. A missing checkpoint, a locality batch or an open
+circuit skips the learned arm (policy_plans_total{outcome="skipped"}); a
+checkpoint that fails validation is rejected and the previous one kept.
 """
 from __future__ import annotations
 
@@ -129,6 +139,7 @@ from yunikorn_tpu_torch.obs.trace import CycleTracer
 from yunikorn_tpu_torch.ops import cvx_solve as cvx_mod
 from yunikorn_tpu_torch.ops import pack_solve as pack_mod
 from yunikorn_tpu_torch.ops.assign import load_kernels, not_ported, solve_batch
+from yunikorn_tpu_torch.policy import net as policy_net
 from yunikorn_tpu_torch.robustness.health import HealthMonitor, solver_source
 from yunikorn_tpu_torch.robustness.supervisor import (
     ASSIGN_LADDER,
@@ -208,16 +219,19 @@ class SolverOptions:
     # counts gate_mismatch_total and the legacy result wins. Doubles the
     # gate's host cost; test/debug knob.
     gate_verify: bool = False
-    # assignment policy (solver.policy): "greedy" (the rank-ordered solve)
-    # or "optimal" (greedy dueled by a pack or cvx challenger); "learned"
-    # and "all" (ROADMAP item 12) raise.
+    # assignment policy (solver.policy): "greedy" (the rank-ordered solve),
+    # "optimal" (greedy dueled by a pack or cvx challenger), "learned"
+    # (greedy dueled by the two-tower scorer's solve, ops/learned) or "all"
+    # (every challenger: pack, cvx and learned)
     policy: str = "greedy"
     # challenger of an "optimal" cycle (solver.pack): auto / pop = the
     # partitioned LP arm (ops/pack_solve), cvx = the full-fleet convex arm
     # (ops/cvx_solve)
     pack: str = "auto"
-    # learned-policy checkpoint prefix (solver.policyCheckpoint): item 12 —
-    # set raises
+    # learned-policy checkpoint prefix (solver.policyCheckpoint): the
+    # .npz + manifest pair policy/net.save_checkpoint writes. One that fails
+    # validation is rejected and the previous policy (or none) kept; the
+    # learned arm then skips with reason "no-checkpoint"
     policy_checkpoint: str = ""
     # topology-aware placement (solver.topology): ICI-domain contention
     # penalty and per-gang preferred-domain steering in the solve, and
@@ -315,6 +329,10 @@ class _SolveHandle:
     # solver.pack=cvx: the cvx arm's plan (None = skipped or failed)
     cvx: Optional[object] = None
     cvx_t0: float = 0.0               # cvx dispatch start (solve ms)
+    # solver.policy=learned: the learned arm's plan (None = skipped or
+    # failed)
+    learned: Optional[object] = None
+    learned_t0: float = 0.0           # learned dispatch start (plan ms)
     # the persistent device mirror the greedy dispatch used: the arms reuse
     # it read-only
     device_state: Optional[dict] = None
@@ -582,6 +600,38 @@ class CoreScheduler(SchedulerAPI):
             "cvx_last_util",
             "most recent cycle's packed-units ratio cvx/greedy "
             "(> 1 = the cvx plan packed more of the cluster)")
+        # ---- the learned arm (solver.policy=learned) ----
+        self._m_policy = m.counter(
+            "policy_plans_total",
+            "learned-policy (two-tower scorer, solver.policy=learned) "
+            "cycles by outcome (won = learned plan committed, fell_back = "
+            "the incumbent packed at least as well, skipped = no valid "
+            "checkpoint / batch outside the model / circuit open, failed = "
+            "dispatch or materialize error)",
+            labelnames=("outcome",))
+        self._h_policy_ms = m.histogram(
+            "policy_inference_ms",
+            "dispatch-to-decision latency of the learned plan (ms): the "
+            "features, the two towers and the learned solve",
+            buckets=MS_BUCKETS)
+        self._g_policy_ms = m.gauge(
+            "policy_last_inference_ms",
+            "most recent cycle's learned-plan latency (ms)")
+        self._g_policy_util = m.gauge(
+            "policy_last_util",
+            "most recent cycle's packed-units ratio learned/greedy "
+            "(> 1 = the learned plan packed more of the cluster)")
+        self._g_policy_epoch = m.gauge(
+            "policy_checkpoint_epoch",
+            "training epoch of the ACTIVE learned-policy checkpoint, "
+            "labelled by its content hash (a swap moves the epoch to the "
+            "new hash series and zeroes the old one)",
+            labelnames=("hash",))
+        self._m_policy_rejected = m.counter(
+            "policy_checkpoint_rejected_total",
+            "learned-policy checkpoints REJECTED at load (corrupt payload, "
+            "format/feature-schema/shape mismatch) — the previous policy "
+            "was retained each time")
         self._m_duel_wins = m.counter(
             "duel_wins_total",
             "choose_plan_n cycles by WINNING arm (one increment per duel "
@@ -596,6 +646,16 @@ class CoreScheduler(SchedulerAPI):
         # policy or skip reason, util ratio, plan ms); ride the cycle entry
         self._last_pack_stats: dict = {}
         self._last_cvx_stats: dict = {}
+        # stats of the most recent learned-arm dispatch and duel (skip
+        # reason, util ratio, plan ms); ride the cycle entry
+        self._last_policy_stats: dict = {}
+        # the ACTIVE validated checkpoint (policy/net.PolicyCheckpoint) or
+        # None, and its params on the core's device; swapped together by
+        # set_policy_checkpoint (a rejected load touches neither)
+        self._policy_ckpt = None
+        self._policy_params = None
+        if self.solver.policy_checkpoint:
+            self.set_policy_checkpoint(self.solver.policy_checkpoint)
         # the device mirror of the last greedy dispatch (the arms reuse it)
         self._last_solve_device_state = None
         # stats of the most recent gate pass (path, passes, sub-stage ms);
@@ -1409,6 +1469,7 @@ class CoreScheduler(SchedulerAPI):
         fr.add_source("duel", lambda: {
             "last_solve": dict(self._last_solve_stats),
             "last_pack": dict(self._last_pack_stats),
+            "last_policy": dict(self._last_policy_stats),
             "last_cvx": dict(self._last_cvx_stats),
         })
         fr.add_source("slo", lambda: {"verdicts": self.slo.verdicts(),
@@ -1514,6 +1575,7 @@ class CoreScheduler(SchedulerAPI):
             # drain solves ride the cycle's main duel stats
             self._last_pack_stats = {}
             self._last_cvx_stats = {}
+            self._last_policy_stats = {}
         self._last_solve_device_state = None
         h.result, h.tier = self.supervisor.execute(
             "assign", [(ASSIGN_LADDER[0], lambda: self._dispatch_solve(
@@ -1524,6 +1586,7 @@ class CoreScheduler(SchedulerAPI):
         if duel:
             self._pack_dispatch(h)
             self._cvx_dispatch(h)
+            self._learned_dispatch(h)
         return h
 
     # ------------------------------------------------- the duel arms
@@ -1539,16 +1602,104 @@ class CoreScheduler(SchedulerAPI):
     # whose free_after check fails is refused outright.
 
     def _pack_on(self) -> bool:
-        return (self.solver.policy == "optimal"
-                and self.solver.pack != "cvx")
+        # "optimal" fields one pack flavor (solver.pack chooses), "all"
+        # both
+        p = self.solver.policy
+        return p == "all" or (p == "optimal" and self.solver.pack != "cvx")
 
     def _cvx_on(self) -> bool:
-        return (self.solver.policy == "optimal"
-                and self.solver.pack == "cvx")
+        p = self.solver.policy
+        return p == "all" or (p == "optimal" and self.solver.pack == "cvx")
+
+    def _learned_on(self) -> bool:
+        return self.solver.policy in ("learned", "all")
 
     def _policy_mode(self) -> str:
         """The configured policy label for supervised-dispatch series."""
-        return "optimal" if self.solver.policy == "optimal" else "greedy"
+        p = self.solver.policy
+        return p if p in ("optimal", "learned", "all") else "greedy"
+
+    # ------------------------------------------------- the learned arm
+    # solver.policy=learned: the two-tower scorer runs inside a second
+    # solve of the greedy machinery (ops/learned: gated proposal overrides
+    # and the learned term of the odd rounds' best node), dispatched on the
+    # core's device as its own supervised path "policy" next to the greedy
+    # solve. A dispatch that fails, blows its deadline or finds its circuit
+    # open leaves greedy authoritative, and the learned plan commits only
+    # when the duel proves it strictly better: a bad checkpoint is a
+    # measured no-op (policy_duels_total{policy="learned",outcome="lost"}).
+
+    def set_policy_checkpoint(self, prefix: str) -> bool:
+        """Load and validate a learned-policy checkpoint; on any mismatch
+        reject it (policy_checkpoint_rejected_total) and keep the previous
+        policy. Returns True when the checkpoint is now active."""
+        try:
+            ck = policy_net.load_checkpoint(prefix)
+            params = policy_net.params_from_numpy(ck.params, self.device)
+        except Exception as e:
+            self._m_policy_rejected.inc()
+            prev = self._policy_ckpt
+            logger.error(
+                "policy checkpoint %s REJECTED (%s: %s); keeping previous "
+                "policy (%s)", prefix, type(e).__name__, e,
+                prev.hash if prev is not None else "none")
+            return False
+        prev = self._policy_ckpt
+        self._policy_ckpt, self._policy_params = ck, params
+        if prev is not None and prev.hash != ck.hash:
+            self._g_policy_epoch.set(0.0, hash=prev.hash)
+        self._g_policy_epoch.set(float(ck.epoch), hash=ck.hash)
+        logger.info("policy checkpoint %s active (hash %s, epoch %d)",
+                    prefix, ck.hash, ck.epoch)
+        return True
+
+    def _learned_eligible(self, h: "_SolveHandle") -> Optional[str]:
+        """None when the learned arm can run this cycle; else the skip
+        reason (deterministic gates, before the supervised dispatch)."""
+        if self._policy_ckpt is None:
+            return "no-checkpoint"
+        if h.batch.locality is not None:
+            # locality rules re-rank per round on the domain counts; the
+            # learned override would fight the accept caps: these cycles
+            # keep the greedy plan
+            return "locality"
+        return None
+
+    def _learned_dispatch(self, h: "_SolveHandle") -> None:
+        """Dispatch the learned-scorer solve of an eligible cycle; failures
+        leave h.learned None (greedy stays authoritative)."""
+        if not self._learned_on():
+            return
+        reason = self._learned_eligible(h)
+        if reason is None and not self.supervisor.allow("policy"):
+            reason = "circuit"
+        if reason is not None:
+            self._m_policy.inc(outcome="skipped")
+            self._last_policy_stats = {"skip": reason}
+            return
+        so = self.solver
+        learned = (self._policy_params, self._cycle_seq)
+        h.learned_t0 = time.perf_counter()
+
+        def learned_fn():
+            with self._device_scope():
+                return solve_batch(
+                    h.batch, self.encoder.nodes, policy=h.policy,
+                    max_rounds=so.max_rounds, chunk=so.chunk,
+                    free_delta=h.overlay, node_mask=h.node_mask,
+                    ports_delta=h.inflight_ports, max_batch=so.max_batch,
+                    device_state=h.device_state, learned=learned,
+                    device=self.device)
+        try:
+            h.learned = self.supervisor.run("policy", learned_fn,
+                                            commit_success=False)
+        except AbandonedDispatch:
+            raise  # zombie thread: stop, don't continue a stale cycle
+        except Exception:
+            self._m_policy.inc(outcome="failed")
+            self._last_policy_stats = {"skip": "error"}
+            logger.exception("learned-policy dispatch failed; greedy plan "
+                             "stands this cycle")
 
     def _arm_scope(self, batch, node_capacity_ok) -> Optional[str]:
         """The skip reason of a batch outside both arms' model (None when
@@ -1631,6 +1782,9 @@ class CoreScheduler(SchedulerAPI):
             self._last_cvx_stats = {"skip": "circuit"}
             return
         h.cvx_t0 = time.perf_counter()
+        # the learned warm start of the duals whenever a checkpoint is
+        # active
+        learned = self._policy_params
 
         def cvx_fn():
             with self._device_scope():
@@ -1639,7 +1793,7 @@ class CoreScheduler(SchedulerAPI):
                     free_delta=h.overlay, node_mask=h.node_mask,
                     ports_delta=h.inflight_ports, seed=self._cycle_seq,
                     chunk=self.solver.chunk, device_state=h.device_state,
-                    device=self.device)
+                    learned=learned, device=self.device)
         try:
             h.cvx = self.supervisor.run("cvx", cvx_fn, commit_success=False)
         except AbandonedDispatch:
@@ -1681,13 +1835,13 @@ class CoreScheduler(SchedulerAPI):
         return assigned
 
     def _plan_duel(self, h: "_SolveHandle", greedy_assigned):
-        """Materialize the challenger plan and run the N-way comparison;
+        """Materialize the challenger plans and run the N-way comparison;
         returns the committed assignment. A challenger commits only when
         strictly better than the incumbent (pack_solve.choose_plan_n), so
         greedy stays the floor."""
         n = h.batch.num_pods
         cands = [("greedy", np.asarray(greedy_assigned)[:n])]
-        pack_ms = cvx_ms = None
+        pack_ms = cvx_ms = learned_ms = None
         if h.pack is not None:
             plan = self._arm_plan("pack", h.pack, n, self._m_pack,
                                   "_last_pack_stats", {"policy": "greedy"})
@@ -1701,6 +1855,25 @@ class CoreScheduler(SchedulerAPI):
                 cvx_ms = (time.perf_counter() - h.cvx_t0) * 1000
                 self._h_cvx_ms.observe(cvx_ms)
                 cands.append(("cvx", plan))
+        if h.learned is not None:
+            try:
+                plan = self.supervisor.run(
+                    "policy", lambda: _host_rows(h.learned.assigned, n))
+            except AbandonedDispatch:
+                raise  # zombie thread: stop, don't commit a stale cycle
+            except Exception:
+                self._m_policy.inc(outcome="failed")
+                self._last_policy_stats = {"skip": "error"}
+                logger.exception("learned plan materialization failed; the "
+                                 "learned arm sits out this cycle")
+            else:
+                learned_ms = (time.perf_counter() - h.learned_t0) * 1000
+                self._h_policy_ms.observe(learned_ms)
+                self._g_policy_ms.set(learned_ms)
+                # the learned plan comes from the greedy accept machinery
+                # (same fit masks and prefix arithmetic): free_after >= 0
+                # holds by construction
+                cands.append(("learned", plan))
         if len(cands) == 1:
             return greedy_assigned
         # the committed objective is the solvers' (capacity-normalized
@@ -1743,7 +1916,19 @@ class CoreScheduler(SchedulerAPI):
                 "cvx_solve_ms": round(cvx_ms, 2),
                 "cvx_iters": h.cvx.iters,
                 "cvx_placed": utils["cvx"]["placed"],
-                "learned_dual": False,
+                "learned_dual": h.cvx.learned_dual,
+            }
+        if "learned" in by_name:
+            l_ratio = utils["learned"]["units_norm"] / g_units
+            self._m_policy.inc(
+                outcome="won" if winner == "learned" else "fell_back")
+            self._g_policy_util.set(l_ratio)
+            self._last_policy_stats = {
+                "learned_util": round(l_ratio, 4),
+                "learned_ms": round(learned_ms, 2),
+                "learned_placed": utils["learned"]["placed"],
+                "checkpoint": (self._policy_ckpt.hash
+                               if self._policy_ckpt else ""),
             }
         return by_name[winner]
 
@@ -1767,9 +1952,9 @@ class CoreScheduler(SchedulerAPI):
         assigned, h.tier = self.supervisor.execute(
             "assign", [(h.tier, fn)])
         self._m_solve_tier.inc(tier=h.tier)
-        if h.pack is not None or h.cvx is not None:
-            # solver.policy=optimal: the duel against the greedy plan
-            # decides which assignment commits
+        if h.pack is not None or h.cvx is not None or h.learned is not None:
+            # the duel against the greedy plan decides which assignment
+            # commits
             assigned = self._plan_duel(h, assigned)
         return assigned
 
@@ -2297,6 +2482,7 @@ class CoreScheduler(SchedulerAPI):
             entry.update(_mirror_extras(self._last_solve_stats))
             entry.update(_pack_extras(self._last_pack_stats))
             entry.update(_cvx_extras(self._last_cvx_stats))
+            entry.update(_policy_extras(self._last_policy_stats))
             entry["solve_tier"] = handle.tier
             if fb_rounds:
                 entry["fallback_rounds"] = fb_rounds
@@ -2622,6 +2808,7 @@ class CoreScheduler(SchedulerAPI):
             entry.update(_mirror_extras(self._last_solve_stats))
             entry.update(_pack_extras(self._last_pack_stats))
             entry.update(_cvx_extras(self._last_cvx_stats))
+            entry.update(_policy_extras(self._last_policy_stats))
             entry["solve_tier"] = cyc.result.tier
             if fb_rounds:
                 entry["fallback_rounds"] = fb_rounds
@@ -3735,11 +3922,6 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
     if aot_namespace:
         not_ported("an AOT executable namespace (aot_namespace)", 15,
                    "warm-start layer")
-    if so.policy not in ("greedy", "optimal"):
-        not_ported(f"solver.policy={so.policy}", 12, "learned policy")
-    if so.policy_checkpoint:
-        not_ported("a learned-policy checkpoint (solver.policyCheckpoint)",
-                   12, "learned policy")
 
 
 def resolve_shards(value) -> int:
@@ -3770,6 +3952,18 @@ def _pack_extras(stats: dict) -> dict:
               "partitioner", "skip"):
         if k in stats:
             out["pack_skip" if k == "skip" else k] = stats[k]
+    return out
+
+
+def _policy_extras(stats: dict) -> dict:
+    """Learned-arm stats (solver.policy=learned) for the cycle entry: util
+    ratio, plan ms, placed count and checkpoint hash when the duel ran, or
+    the skip reason when the arm sat out."""
+    out = {k: stats[k] for k in ("learned_util", "learned_ms",
+                                 "learned_placed", "checkpoint")
+           if k in stats}
+    if "skip" in stats:
+        out["policy_skip"] = stats["skip"]
     return out
 
 

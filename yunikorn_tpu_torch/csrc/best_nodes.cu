@@ -23,6 +23,17 @@
 // slice's node_dom beside its free rows and, for each fitting pair, reads
 // the bonus key when the domains match. The bonus runs in the exact mode.
 //
+// The learned term (solver.policy=learned; the reference's learned argmax in
+// `_learned_chunk_pass`, ops/assign.py of the JAX package): given pod_emb
+// [N, E] and node_emb [M, E] (E zero-padded to 16 or 32),
+//   score(i, j) = fl(s(i, j) + ls(i, j)),  ls = sum_e pod_emb[i, e] *
+//                 node_emb[j, e], e in order, each product and sum rounded,
+// s the score above (with the bonus when it applies). The exact key keeps
+// s's order-preserving bits, so main decodes s from the key it reads for a
+// fitting pair, adds ls (the pod's embedding in registers, the slice's node
+// embeddings staged in shared memory beside its free rows) and re-encodes.
+// Exact mode with the soft matrix only, as the reference's learned argmax.
+//
 // Two modes, chosen at compile time, both a max over one key per
 // (group, node):
 //   exact      bit-equal to the plain argmax (the default solve path): a
@@ -45,7 +56,8 @@
 // sits in L2.
 // There are no products, so wgmma and the tensor cores have no role. The
 // bonus adds one compare per fitting pair (the domain match) and a second
-// key table of the same size as the first.
+// key table of the same size as the first. The learned term adds E products
+// and E adds per fitting pair (a 16-term dot product: no tile for wgmma).
 // What the design does about it, in three launches:
 //   prep    once per call, over (group, node): folds base, soft and the group
 //           mask into the key (the score add is done G*M times, not N*M) and
@@ -119,6 +131,22 @@ __device__ __forceinline__ uint32_t ordered_bits(float s) {
   s = s + 0.0f;  // -0.0 -> +0.0
   const uint32_t u = __float_as_uint(s);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The score whose ordered bits are u (ordered_bits' inverse; -0.0 comes
+// back as +0.0, which the argmax treats alike).
+__device__ __forceinline__ float from_ordered_bits(uint32_t u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
+}
+
+// The learned term of one pair, e in order: products and sums each rounded
+// (no fused multiply-add), as ops/best_nodes.learned_dot computes it.
+template <int kE>
+__device__ __forceinline__ float dot_rn(const float* pe, const float* ne) {
+  float acc = __fmul_rn(pe[0], ne[0]);
+#pragma unroll
+  for (int e = 1; e < kE; ++e) acc = __fadd_rn(acc, __fmul_rn(pe[e], ne[e]));
+  return acc;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -216,7 +244,8 @@ prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
   if ((t & 31) == 0) words[t >> 5] = bits;
 }
 
-template <int kMaxR, bool kQuantized, bool kBonus>
+// kE: the (padded) embedding width of the learned term, 0 = none.
+template <int kMaxR, bool kQuantized, bool kBonus, int kE>
 __global__ void __launch_bounds__(kThreads)
 best_nodes_kernel(const int32_t* __restrict__ req,
                   const int32_t* __restrict__ group_id,
@@ -225,6 +254,8 @@ best_nodes_kernel(const int32_t* __restrict__ req,
                   const typename Key<kQuantized>::T* __restrict__ bonus_keys,
                   const int32_t* __restrict__ node_dom,
                   const int32_t* __restrict__ pref,
+                  const float* __restrict__ pod_emb,
+                  const float* __restrict__ node_emb,
                   const uint32_t* __restrict__ words,
                   const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ row_count, int n_rows,
@@ -234,7 +265,8 @@ best_nodes_kernel(const int32_t* __restrict__ req,
   using T = typename K::T;
   constexpr int kPods = pods_per_thread<kMaxR>();
   constexpr int kRowsPerTile = kThreads * kPods;
-  // [kSlice, res4] free rows, then (bonus) the slice's [kSlice] domains
+  // [kSlice, res4] free rows, then (learned) the slice's [kSlice, kE] node
+  // embeddings, then (bonus) its [kSlice] domains
   extern __shared__ __align__(16) int32_t s_free[];
 
   const int count = row_count ? min(*row_count, n_rows) : n_rows;
@@ -245,7 +277,14 @@ best_nodes_kernel(const int32_t* __restrict__ req,
   const int padded = n_words * 32;
   const bool vec =
       (n_res & 3) == 0 && (reinterpret_cast<uintptr_t>(free_) & 15) == 0;
-  int32_t* s_dom = s_free + kSlice * res4;
+  float* s_emb = reinterpret_cast<float*>(s_free + kSlice * res4);
+  int32_t* s_dom = s_free + kSlice * (res4 + kE);
+  if constexpr (kE > 0) {
+    // plain stores: the first tile's __syncthreads below orders them
+    for (int i = threadIdx.x; i < kSlice * kE; i += kThreads) {
+      s_emb[i] = i / kE < sn ? node_emb[(size_t)s0 * kE + i] : 0.0f;
+    }
+  }
   if constexpr (kBonus) {
     // plain stores: the first tile's __syncthreads below orders them
     for (int j = threadIdx.x; j < kSlice; j += kThreads) {
@@ -283,6 +322,7 @@ best_nodes_kernel(const int32_t* __restrict__ req,
   for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
     int row[kPods], w_off[kPods], k_off[kPods], pf[kPods];
     int32_t rq[kPods][kMaxR];
+    float pe[kPods][kE > 0 ? kE : 1];
     T best[kPods];
 #pragma unroll
     for (int p = 0; p < kPods; ++p) {
@@ -297,6 +337,12 @@ best_nodes_kernel(const int32_t* __restrict__ req,
       for (int r = 0; r < kMaxR; ++r) {
         rq[p][r] = (row[p] >= 0 && r < n_res)
                        ? req[(size_t)row[p] * n_res + r] : 0;
+      }
+      if constexpr (kE > 0) {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          pe[p][e] = row[p] >= 0 ? pod_emb[(size_t)row[p] * kE + e] : 0.0f;
+        }
       }
       best[p] = K::kNone;
     }
@@ -342,7 +388,15 @@ best_nodes_kernel(const int32_t* __restrict__ req,
             if constexpr (kBonus) {
               if (pf[p] >= 0 && s_dom[j] == pf[p]) table = bonus_keys;
             }
-            const T k = __ldg(table + k_off[p] + j);
+            T k = __ldg(table + k_off[p] + j);
+            if constexpr (kE > 0) {
+              // s from the key's high word, plus ls, re-encoded; the low
+              // word (the node) stays
+              const float s = from_ordered_bits((uint32_t)(k >> 32));
+              const float ls = dot_rn<kE>(pe[p], s_emb + j * kE);
+              k = ((T)ordered_bits(__fadd_rn(s, ls)) << 32) |
+                  (k & 0xffffffffull);
+            }
             if (k > best[p]) best[p] = k;
           }
         }
@@ -381,13 +435,13 @@ __global__ void finish_kernel(const typename Key<kQuantized>::T* row_best,
 
 struct Args {
   const void *req, *group_id, *feas, *soft, *free_, *base, *mask, *node_dom,
-      *pref;
+      *pref, *pod_emb, *node_emb;
   int n_rows, n_nodes, n_groups, n_res, index_span;
   void *keys, *bonus_keys, *words, *row_best, *row_list, *row_count, *best,
       *feasible;
 };
 
-template <int kMaxR, bool kSoft, bool kQuantized, bool kBonus>
+template <int kMaxR, bool kSoft, bool kQuantized, bool kBonus, int kE = 0>
 cudaError_t run(const Args& a, cudaStream_t stream) {
   using T = typename Key<kQuantized>::T;
   constexpr int kRowsPerTile = kThreads * pods_per_thread<kMaxR>();
@@ -418,9 +472,9 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
     tiles = tiles > kGridRowTiles ? kGridRowTiles : tiles;
     const dim3 grid((a.n_nodes + kSlice - 1) / kSlice, tiles);
     const size_t smem =
-        (size_t)kSlice * (res4 + (kBonus ? 1 : 0)) * sizeof(int32_t);
+        (size_t)kSlice * (res4 + kE + (kBonus ? 1 : 0)) * sizeof(int32_t);
     const bool masked = a.mask != nullptr;
-    best_nodes_kernel<kMaxR, kQuantized, kBonus>
+    best_nodes_kernel<kMaxR, kQuantized, kBonus, kE>
         <<<grid, kThreads, smem, stream>>>(
         static_cast<const int32_t*>(a.req),
         static_cast<const int32_t*>(a.group_id),
@@ -428,6 +482,8 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
         static_cast<const T*>(a.bonus_keys),
         static_cast<const int32_t*>(a.node_dom),
         static_cast<const int32_t*>(a.pref),
+        static_cast<const float*>(a.pod_emb),
+        static_cast<const float*>(a.node_emb),
         static_cast<const uint32_t*>(a.words),
         masked ? static_cast<const int32_t*>(a.row_list) : nullptr,
         masked ? static_cast<const int32_t*>(a.row_count) : nullptr,
@@ -442,8 +498,17 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
 }
 
 template <int kMaxR>
-cudaError_t dispatch(int has_soft, int quantized, const Args& a,
+cudaError_t dispatch(int has_soft, int quantized, int emb, const Args& a,
                      cudaStream_t s) {
+  if (emb > 0) {  // the learned term: exact mode with the soft matrix only
+    const bool bonus = a.pref != nullptr;
+    if (emb == 16) {
+      return bonus ? run<kMaxR, true, false, true, 16>(a, s)
+                   : run<kMaxR, true, false, false, 16>(a, s);
+    }
+    return bonus ? run<kMaxR, true, false, true, 32>(a, s)
+                 : run<kMaxR, true, false, false, 32>(a, s);
+  }
   if (a.pref != nullptr) {  // the bonus: exact mode only
     return has_soft ? run<kMaxR, true, false, true>(a, s)
                     : run<kMaxR, false, false, true>(a, s);
@@ -470,6 +535,9 @@ int yk_best_nodes_slice_nodes() { return kSlice; }
 // mask: [n_rows] bool of the rows to compute (nullptr = every row).
 // node_dom [n_nodes] and pref [n_rows] int32: the planned-domain bonus
 // (both or neither; exact mode only), with bonus_keys its key table.
+// pod_emb [n_rows, emb] and node_emb [n_nodes, emb] float32 (emb 16 or 32,
+// zero-padded; 0 = no learned term, both nullptr): the learned term (exact
+// mode with the soft matrix only).
 // keys and bonus_keys [G, 32 * ceil(M / 32)]
 // and row_best [n_rows] are int64 (exact) or int32 (quantized) scratch,
 // words [G, ceil(M / 32)] uint32, row_list [n_rows] and row_count [1] int32.
@@ -477,6 +545,7 @@ int yk_best_nodes_slice_nodes() { return kSlice; }
 int yk_best_nodes(const void* req, const void* group_id, const void* feas,
                   const void* soft, const void* free_, const void* base,
                   const void* mask, const void* node_dom, const void* pref,
+                  const void* pod_emb, const void* node_emb, int emb,
                   int n_rows, int n_nodes, int n_groups, int n_res,
                   int has_soft, int quantized, int index_span, void* keys,
                   void* bonus_keys, void* words, void* row_best,
@@ -484,17 +553,20 @@ int yk_best_nodes(const void* req, const void* group_id, const void* feas,
                   void* feasible, void* stream) {
   if (n_rows <= 0) return 0;
   if ((pref == nullptr) != (node_dom == nullptr) ||
-      (pref != nullptr && (quantized || bonus_keys == nullptr))) {
+      (pref != nullptr && (quantized || bonus_keys == nullptr)) ||
+      (emb != 0 && (emb != 16 && emb != 32)) ||
+      (emb != 0 && (quantized || !has_soft || pod_emb == nullptr ||
+                    node_emb == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{req,      group_id,   feas,       soft,     free_,
-               base,     mask,       node_dom,   pref,     n_rows,
-               n_nodes,  n_groups,   n_res,      index_span, keys,
-               bonus_keys, words,    row_best,   row_list, row_count,
-               best,     feasible};
+               base,     mask,       node_dom,   pref,     pod_emb,
+               node_emb, n_rows,     n_nodes,    n_groups, n_res,
+               index_span, keys,     bonus_keys, words,    row_best,
+               row_list, row_count,  best,       feasible};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_res <= 8) return (int)dispatch<8>(has_soft, quantized, a, s);
-  return (int)dispatch<64>(has_soft, quantized, a, s);
+  if (n_res <= 8) return (int)dispatch<8>(has_soft, quantized, emb, a, s);
+  return (int)dispatch<64>(has_soft, quantized, emb, a, s);
 }
 
 const char* yk_cuda_error_string(int code) {

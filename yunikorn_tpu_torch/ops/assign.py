@@ -43,9 +43,15 @@ its LocPlan once before the loop; everything else stays on the device.
 The node-side inputs come from the host arrays or, with `device_state`,
 from the encoder's persistent device mirror (snapshot/encoder.
 DeviceNodeState), and the pod requests from the row store's gather
-(`batch.req_device`) when the batch is solved in one piece. The learned
-policy (`learned`) is not ported yet and raises NotImplementedError naming
-its ROADMAP item (12).
+(`batch.req_device`) when the batch is solved in one piece.
+
+The learned policy (`learned` = (params, seed), solver.policy=learned; see
+ops/learned) embeds each pod slice's asks once and the nodes' current free
+capacity every round: the gated learned proposals (the learned_propose
+kernel) override the water fill before the topology gang proposals, which
+still win, and the odd rounds' best node carries the learned term (the
+best-node kernel's exact mode, as the reference's learned argmax is its
+plain one). With learned=None every output is the greedy solve's.
 """
 from __future__ import annotations
 
@@ -57,7 +63,11 @@ import torch
 
 from yunikorn_tpu_torch.models.policies import alignment_scores, node_base_scores
 from yunikorn_tpu_torch.ops.best_nodes import (LIBRARY, NEG_INF, TOPO_GANG_W,
-                                               best_nodes, pref_bonus)
+                                               best_nodes, learned_dot,
+                                               pref_bonus)
+from yunikorn_tpu_torch.ops.learned import LIBRARY as LEARNED_LIBRARY
+from yunikorn_tpu_torch.ops.learned import (learned_prep, learned_propose,
+                                            node_embedding)
 from yunikorn_tpu_torch.ops.predicates import (
     group_feasibility,
     group_preferred_bonus,
@@ -92,7 +102,7 @@ _ARG_RANK = SOLVE_ARG_NAMES.index("rank")
 _ARG_LOC = SOLVE_ARG_NAMES.index("loc")
 _ARG_TOPO = SOLVE_ARG_NAMES.index("topo")
 # the CUDA kernel libraries the solve launches (csrc/<name>.cu)
-KERNELS = (LIBRARY,)
+KERNELS = (LIBRARY, LEARNED_LIBRARY)
 
 
 @dataclasses.dataclass
@@ -120,11 +130,6 @@ def load_kernels() -> None:
     build_all(KERNELS)
     for name in KERNELS:
         load_library(name)
-
-
-def _check_scope(learned=None):
-    if learned is not None:
-        not_ported("the learned policy (learned)", 12, "learned policy")
 
 
 def _tensor(x, device):
@@ -505,13 +510,16 @@ def _loc_allowance(loc, active, spread_l, anti_l, softspread_l, N):
 
 def _best_nodes_chunked(req, group_id, group_feas, group_soft, free, capacity,
                         base_scores, chunk: int, policy: str,
-                        score_cols: int = 0, node_dom=None, pref_pod=None):
+                        score_cols: int = 0, node_dom=None, pref_pod=None,
+                        learned_emb=None):
     """Plain argmax best node for every pod, chunked over pods (no [N, M]
     tensor): fit margin, group mask, base + soft score, plus the alignment
     term under the align policy and, given node_dom [M] and pref_pod [N]
     (topology steering), TOPO_GANG_W on the nodes of each pod's planned
-    domain. Runs as torch ops on either device; the kernel path
-    (ops/best_nodes.py) takes every other policy."""
+    domain, and given learned_emb = (pod_emb [N, E], node_emb [M, E]) the
+    learned term (ops/best_nodes.learned_dot). Runs as torch ops on either
+    device; the kernel path (ops/best_nodes.py) takes every other
+    policy."""
     N, R = req.shape
     M = free.shape[0]
     best_parts, feas_parts = [], []
@@ -531,6 +539,9 @@ def _best_nodes_chunked(req, group_id, group_feas, group_soft, free, capacity,
         if node_dom is not None and pref_pod is not None:
             scores = scores + pref_bonus(node_dom,
                                           pref_pod[start:start + chunk])
+        if learned_emb is not None:
+            scores = scores + learned_dot(
+                learned_emb[0][start:start + chunk], learned_emb[1])
         scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
         best_parts.append(torch.argmax(scores, dim=1).to(torch.int32))
         feas_parts.append(ok.any(dim=1))
@@ -773,7 +784,7 @@ def _hoist_group_state(g_term_req, g_term_forb, g_term_valid, g_anyof,
 def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                   cnt0, capacity, loc, loc_hoist, *, max_rounds, chunk,
                   policy, use_pallas, has_loc_soft, pallas_soft, score_cols,
-                  loc_plan=None, topo_rt=None):
+                  loc_plan=None, topo_rt=None, learned_rt=None):
     """The round loop for one pod slice against hoisted group state. free0
     [M, R] and the locality counts cnt0 [L, D] carry across chained slices;
     loc is None, or this slice's loc tuple with loc_hoist from
@@ -782,7 +793,11 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
     term already folded into group_soft: the gang proposals override the
     water fill where they name a feasible node, and the odd rounds' best
     node carries the planned-domain bonus (the kernel's exact mode, as the
-    reference's steered argmax is its plain one). Returns (assigned [N]
+    reference's steered argmax is its plain one). learned_rt is None, or
+    this slice's ops/learned.LearnedRT: each round embeds the current free
+    capacity, the gated learned proposals override the water fill (the
+    gang proposals still win over them), and the odd rounds' best node
+    carries the learned term in the exact mode. Returns (assigned [N]
     int32, accept_round [N] int32, free [M, R] int32, rounds, cnt [L, D]
     int32)."""
     N, R = req.shape
@@ -825,6 +840,17 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
         proposals = _water_fill_proposals(req, group_id, rank_order, active,
                                           feas_round, cur_free, base_scores,
                                           soft_round, g_rr_dom, g_capped)
+        learned_emb = None
+        if learned_rt is not None:
+            node_emb = node_embedding(learned_rt, cur_free, capacity,
+                                      score_cols)
+            learned_emb = (learned_rt.pod_emb, node_emb)
+            # confident learned proposals override the water fill
+            lprop = learned_propose(
+                learned_rt.pod_emb, node_emb, group_id, feas_round, cur_free,
+                req, active, learned_rt.params["tau"], learned_rt.key, rnd,
+                chunk)[0]
+            proposals = torch.where(lprop < M, lprop.long(), proposals)
         if topo_rt is not None:
             # the segmented per-domain gang fill wins wherever it names a
             # node of the pod's feasible row (fit is re-checked below)
@@ -848,15 +874,20 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
             if policy == "align":
                 best, feasible = _best_nodes_chunked(
                     req, group_id, feas_round, soft_round, cur_free, capacity,
-                    base_scores, chunk, policy, score_cols, **steer)
-            elif topo_rt is not None:
-                # the steered argmax is the reference's plain one whatever
-                # use_pallas says: the exact mode with the bonus
+                    base_scores, chunk, policy, score_cols,
+                    learned_emb=learned_emb, **steer)
+            elif topo_rt is not None or learned_emb is not None:
+                # the steered and the learned argmax are the reference's
+                # plain one whatever use_pallas says: the exact mode with
+                # the bonus and the learned term
+                emb = ({} if learned_emb is None else
+                       dict(pod_emb=learned_emb[0], node_emb=learned_emb[1]))
                 best, feasible = best_nodes(
                     req, group_id, feas_round, soft_round, cur_free,
                     base_scores, mode="exact", has_soft=True, chunk=chunk,
-                    rows=active & ~prop_fits, node_dom=topo_rt[0],
-                    pref=topo_rt[1])
+                    rows=active & ~prop_fits,
+                    node_dom=None if topo_rt is None else topo_rt[0],
+                    pref=None if topo_rt is None else topo_rt[1], **emb)
             else:
                 # the exact mode always scores with the soft matrix, as the
                 # reference's argmax does; the soft-free kernel variant is
@@ -964,8 +995,9 @@ def solve(
     capacity-1 host-port columns beyond them). use_pallas selects the
     best-node kernel's quantized mode, bit-equal to the reference's Pallas
     kernel; the default exact mode is bit-equal to its XLA argmax.
-    has_loc_soft=False skips the soft locality scores (all slot weights 0)."""
-    _check_scope(learned)
+    has_loc_soft=False skips the soft locality scores (all slot weights 0).
+    learned is None, or (params, seed) of the learned policy (see
+    ops/learned; params in host or device form)."""
     device = resolve_device(device)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
      loc_hoist, loc_plan, cnt0, topo_rt) = _prepare(
@@ -979,12 +1011,14 @@ def solve(
     if N % chunk:
         raise ValueError(f"batch size {N} must be a multiple of the chunk "
                          f"size {chunk}")
+    learned_rt = (None if learned is None else
+                  learned_prep(learned, req, capacity, score_cols))
     return _solve_rounds(
         req, group_id, rank, valid, group_feas, group_soft, free, cnt0,
         capacity, loc, loc_hoist, max_rounds=max_rounds, chunk=chunk,
         policy=policy, use_pallas=use_pallas, has_loc_soft=has_loc_soft,
         pallas_soft=pallas_has_soft or has_loc_soft, score_cols=score_cols,
-        loc_plan=loc_plan, topo_rt=topo_rt)
+        loc_plan=loc_plan, topo_rt=topo_rt, learned_rt=learned_rt)
 
 
 def solve_chunked(
@@ -1009,11 +1043,11 @@ def solve_chunked(
     carrying free capacity and the locality counts from slice to slice; the
     [G, M] group state, the topology fold and the locality hoist are
     computed once for the whole batch, and each slice takes its rows of
-    contrib and pref_pod. Returns what `solve` returns.
+    contrib and pref_pod. With learned, each slice embeds its own asks and
+    folds its index into the exploration key. Returns what `solve` returns.
 
     PRECONDITION: pod rows are sorted by rank (solve_batch sorts and unsorts
     around this call) — slice boundaries supersede rank priority."""
-    _check_scope(learned)
     device = resolve_device(device)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
      loc_hoist, loc_plan, cnt, topo_rt) = _prepare(
@@ -1030,17 +1064,20 @@ def solve_chunked(
                          f"{mb}, and chunk_pods of the chunk size {chunk}")
     assigned, around = [], []
     round_base = 0
-    for start in range(0, N, mb):
+    for k, start in enumerate(range(0, N, mb)):
         sl = slice(start, start + mb)
         loc_k = None if loc is None else loc[:3] + (loc[3][sl],) + loc[4:]
         topo_k = None if topo_rt is None else (topo_rt[0], topo_rt[1][sl])
+        learned_k = (None if learned is None else learned_prep(
+            learned, req[sl], capacity, score_cols, salt=k))
         a_k, ar_k, free, r_k, cnt = _solve_rounds(
             req[sl], group_id[sl], rank[sl], valid[sl], group_feas,
             group_soft, free, cnt, capacity, loc_k, loc_hoist,
             max_rounds=max_rounds, chunk=chunk, policy=policy,
             use_pallas=use_pallas, has_loc_soft=has_loc_soft,
             pallas_soft=pallas_has_soft or has_loc_soft,
-            score_cols=score_cols, loc_plan=loc_plan, topo_rt=topo_k)
+            score_cols=score_cols, loc_plan=loc_plan, topo_rt=topo_k,
+            learned_rt=learned_k)
         # offset accept rounds so the chain's order is globally monotone
         around.append(torch.where(ar_k >= 0, ar_k + round_base, -1).to(torch.int32))
         assigned.append(a_k)
@@ -1288,8 +1325,8 @@ def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
     """Host wrapper: PodBatch + NodeArrays in → SolveResult (tensors on
     `device`, default `cuda`) out. Batches above max_batch (rounded down to
     a power of two) run as chained rank-ordered slices (solve_chunked), with
-    the host req. See prepare_solve_args for device_state."""
-    _check_scope(learned)
+    the host req. See prepare_solve_args for device_state. learned =
+    (params, seed) runs the learned policy's solve (ops/learned)."""
     device = resolve_device(device)
     mb = 1 << (max(int(max_batch), 64).bit_length() - 1)
     np_args, static_kwargs = prepare_solve_args(
@@ -1302,11 +1339,12 @@ def solve_batch(batch, node_arrays, *, max_rounds=16, chunk=512,
     if N > mb:
         np_args_s, order = _sort_pods_by_rank(np_args)
         assigned, around, free_after, rounds, cnt = solve_chunked(
-            *np_args_s, chunk_pods=mb, **kwargs)
+            *np_args_s, learned=learned, chunk_pods=mb, **kwargs)
         if order is not None:
             assigned, around = _unsort(order, assigned, around)
     else:
-        assigned, around, free_after, rounds, cnt = solve(*np_args, **kwargs)
+        assigned, around, free_after, rounds, cnt = solve(
+            *np_args, learned=learned, **kwargs)
     return SolveResult(assigned=assigned, free_after=free_after,
                        rounds=rounds, accept_round=around,
                        cnt_final=cnt if batch.locality is not None else None)

@@ -27,6 +27,14 @@ fl(fl(base + soft) + TOPO_GANG_W), elsewhere fl(base + soft) + 0.0, as the
 reference's steered argmax adds it. The score then depends on the pod, not
 only on its group. The bonus runs in the exact mode only (the reference's
 steered rounds take its plain argmax, never the Pallas kernel).
+
+The learned term (solver.policy=learned): given pod_emb [N, E] and node_emb
+[M, E] float32, a pod's score on a node is fl(s + ls), s the score above
+(with the bonus when it applies) and ls = `learned_dot`, the embeddings'
+dot product with e in order and each product and sum rounded, as the
+reference's learned argmax adds its [C, E] x [E, M] term. Exact mode with
+the soft matrix only (the reference's learned argmax never takes the
+Pallas kernel).
 """
 from __future__ import annotations
 
@@ -65,6 +73,28 @@ def pref_bonus(node_dom, pref):
     return torch.where(in_pref, TOPO_GANG_W, 0.0)
 
 
+def learned_dot(pod_emb, node_emb):
+    """[C, M] float32: sum over e of pod_emb[i, e] * node_emb[j, e], e in
+    order, each product and each sum rounded to float32 (no fused
+    multiply-add): the learned term as both kernels compute it."""
+    acc = pod_emb[:, 0:1] * node_emb[None, :, 0]
+    for e in range(1, pod_emb.shape[1]):
+        acc = acc + pod_emb[:, e:e + 1] * node_emb[None, :, e]
+    return acc
+
+
+def _check_learned(mode, has_soft, pod_emb, node_emb):
+    """Whether the learned term applies; raises on half a pair, the
+    quantized mode or a call without the soft matrix."""
+    if (pod_emb is None) != (node_emb is None):
+        raise ValueError("pod_emb and node_emb go together: give both or "
+                         "neither")
+    if pod_emb is not None and (mode != "exact" or not has_soft):
+        raise ValueError("the learned term runs in the exact mode with the "
+                         "soft matrix")
+    return pod_emb is not None
+
+
 def _check_bonus(mode, node_dom, pref):
     """Whether the planned-domain bonus applies; raises on half a pair or
     the quantized mode."""
@@ -81,13 +111,16 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
                          has_soft: bool = True, chunk: int = _POD_CHUNK,
                          rows: Optional[torch.Tensor] = None,
                          node_dom: Optional[torch.Tensor] = None,
-                         pref: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of both modes and the bonus, chunked over pods
-    so no [N, M] tensor is built. Returns (best [N] int32, feasible [N]
-    bool)."""
+                         pref: Optional[torch.Tensor] = None,
+                         pod_emb: Optional[torch.Tensor] = None,
+                         node_emb: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of both modes, the bonus and the learned term,
+    chunked over pods so no [N, M] tensor is built. Returns (best [N]
+    int32, feasible [N] bool)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     bonus = _check_bonus(mode, node_dom, pref)
+    learned = _check_learned(mode, has_soft, pod_emb, node_emb)
     if rows is not None:
         # the requested rows at their places, 0 / False elsewhere
         best = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
@@ -96,7 +129,8 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
         best[rows], feasible[rows] = best_nodes_reference(
             req[rows], group_id[rows], group_feas, group_soft, free,
             base_scores, mode=mode, has_soft=has_soft, chunk=chunk,
-            node_dom=node_dom, pref=pref[rows] if bonus else None)
+            node_dom=node_dom, pref=pref[rows] if bonus else None,
+            pod_emb=pod_emb[rows] if learned else None, node_emb=node_emb)
         return best, feasible
     N, R = req.shape
     M = free.shape[0]
@@ -115,6 +149,9 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
             scores = base_scores[None, :].expand(creq.shape[0], M)
         if bonus:
             scores = scores + pref_bonus(node_dom, pref[start:start + chunk])
+        if learned:
+            scores = scores + learned_dot(pod_emb[start:start + chunk],
+                                          node_emb)
         if mode == "exact":
             masked = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
             best = torch.argmax(masked, dim=1)
@@ -157,8 +194,9 @@ def _library():
     lib = torchtools.load_library(LIBRARY)
     if not getattr(lib, "_yk_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                      i, i, i, p, p, p, p, p, p, p, p, p]
+        lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                      i, i, i, i, i, i, p, p, p, p, p, p, p,
+                                      p, p]
         lib.yk_best_nodes.restype = i
         lib.yk_best_nodes_max_res.restype = i
         lib.yk_best_nodes_slice_nodes.restype = i
@@ -166,6 +204,28 @@ def _library():
         lib.yk_cuda_error_string.restype = ctypes.c_char_p
         lib._yk_typed = True
     return lib
+
+
+# embedding widths the kernels take; a narrower embedding is zero-padded
+# (a padded term adds 0.0 to the dot product, which changes no value)
+EMB_WIDTHS = (16, 32)
+
+
+def padded_emb(E: int) -> int:
+    """The kernel width an embedding of width E runs at (raises above the
+    widest)."""
+    for w in EMB_WIDTHS:
+        if 1 <= E <= w:
+            return w
+    raise ValueError(f"the kernels take embeddings of width 1 to "
+                     f"{EMB_WIDTHS[-1]}, got {E}")
+
+
+def pad_emb(x: torch.Tensor, width: int) -> torch.Tensor:
+    """[K, E] float32 -> contiguous [K, width], zero columns appended."""
+    if x.shape[1] == width:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, width - x.shape[1])).contiguous()
 
 
 def slice_nodes() -> int:
@@ -178,13 +238,17 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
                mode: str = "exact", has_soft: bool = True,
                chunk: int = _POD_CHUNK, rows: Optional[torch.Tensor] = None,
                node_dom: Optional[torch.Tensor] = None,
-               pref: Optional[torch.Tensor] = None):
+               pref: Optional[torch.Tensor] = None,
+               pod_emb: Optional[torch.Tensor] = None,
+               node_emb: Optional[torch.Tensor] = None):
     """Best node per pod. Shapes: req [N, R] int32, group_id [N] int32,
     group_feas [G, M] bool, group_soft [G, M] float32 (ignored when
     has_soft=False), free [M, R] int32, base_scores [M] float32; rows
     (optional) [N] bool, the rows to compute (the kernel counts them on the
     device: nothing is read back); node_dom [M] int32 and pref [N] int32
-    (optional, both or neither, exact mode): the planned-domain bonus.
+    (optional, both or neither, exact mode): the planned-domain bonus;
+    pod_emb [N, E] and node_emb [M, E] float32 (optional, both or neither,
+    exact mode with the soft matrix, E at most 32): the learned term.
 
     Returns (best [N] int32, feasible [N] bool), best = 0 where no node is
     feasible or the row was not requested. CPU tensors take the plain
@@ -193,12 +257,14 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     bonus = _check_bonus(mode, node_dom, pref)
+    learned = _check_learned(mode, has_soft, pod_emb, node_emb)
     device = req.device
     if device.type == "cpu":
         return best_nodes_reference(req, group_id, group_feas, group_soft,
                                     free, base_scores, mode=mode,
                                     has_soft=has_soft, chunk=chunk,
-                                    rows=rows, node_dom=node_dom, pref=pref)
+                                    rows=rows, node_dom=node_dom, pref=pref,
+                                    pod_emb=pod_emb, node_emb=node_emb)
     if device.type != "cuda":
         raise ValueError(f"best_nodes runs on cuda or cpu tensors, not "
                          f"{device.type}")
@@ -216,6 +282,13 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     if bonus:
         _check("node_dom", node_dom, torch.int32, (M,), device)
         _check("pref", pref, torch.int32, (N,), device)
+    emb = 0
+    if learned:
+        E = pod_emb.shape[1] if pod_emb.dim() == 2 else -1
+        _check("pod_emb", pod_emb, torch.float32, (N, E), device)
+        _check("node_emb", node_emb, torch.float32, (M, E), device)
+        emb = padded_emb(E)
+        pod_emb, node_emb = pad_emb(pod_emb, emb), pad_emb(node_emb, emb)
     if G < 1:
         raise ValueError("group_feas needs at least one group row")
     lib = _library()
@@ -244,6 +317,7 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
         req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
         group_soft.data_ptr() if has_soft else None, free.data_ptr(),
         base_scores.data_ptr(), ptr(rows), ptr(node_dom), ptr(pref),
+        ptr(pod_emb), ptr(node_emb), emb,
         N, M, G, R, int(has_soft), int(mode == "quantized"),
         index_span(M), keys.data_ptr(), ptr(bonus_keys), words.data_ptr(),
         row_best.data_ptr(), row_list.data_ptr(), row_count.data_ptr(),

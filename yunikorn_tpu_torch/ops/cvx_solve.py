@@ -30,9 +30,10 @@ arithmetic, and `free_after >= min(free, 0)` holds by construction.
 
 Scope: locality and host-port batches raise CvxUnsupported (greedy keeps
 the cycle), and shapes whose dense [N, M] state exceeds the cell budget
-are left to the partitioned pack arm. The learned warm start of the duals
-(`learned`) is ROADMAP item 12 and raises NotImplementedError; the
-mesh-sharded solve is item 14.
+are left to the partitioned pack arm. With `learned` (the two-tower
+params, host or device form) the duals start from the scorer's per-node
+prices (`_learned_dual_init`) instead of zero. The mesh-sharded solve is
+ROADMAP item 14.
 """
 from __future__ import annotations
 
@@ -45,7 +46,6 @@ from yunikorn_tpu_torch.ops.assign import (
     SOLVE_ARG_NAMES,
     _prepare,
     _solve_rounds,
-    not_ported,
     prepare_solve_args,
     solve_args_from_numpy,
 )
@@ -55,6 +55,8 @@ from yunikorn_tpu_torch.ops.pack_solve import (
     _row_sum,
     _unsupported_batch,
 )
+from yunikorn_tpu_torch.policy import features as pf
+from yunikorn_tpu_torch.policy import net as pnet
 from yunikorn_tpu_torch.utils import prng
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
@@ -71,6 +73,7 @@ _ETA_D = 0.5           # dual step on relative overload
 _GANG_W = 0.5          # gang-projection blend: 1 = hard min-coupling
 _MASS_W = 0.5          # weight of log(X) in the rounding scores
 _MASS_EPS = 1e-4       # floor under the log
+_DUAL_W = 4.0          # scale of the learned warm-start prices
 
 # full-fleet cell budget: one dense [N, M] float32 buffer per loop
 # temporary; 1 << 25 cells = 128 MiB
@@ -98,6 +101,8 @@ class CvxResult:
     # bool scalar: every cell of free_after >= min(initial free, 0)
     feasible: torch.Tensor
     iters: int
+    # whether the duals started from the learned policy's prices
+    learned_dual: bool = False
 
 
 def _project_rows(x, ok, bisect_iters: int = _PROJ_BISECT):
@@ -121,17 +126,37 @@ def _project_rows(x, ok, bisect_iters: int = _PROJ_BISECT):
     return (x - tau).clamp(min=0.0) * ok
 
 
+def _learned_dual_init(params, req, free, capacity, valid, v,
+                       score_cols: int):
+    """The learned warm start of the duals [M, R]: each node's two-tower
+    score against the demand-weighted mean pod embedding; nodes scoring
+    below the fleet mean start with a positive price (fill them last),
+    preferred nodes start free, the same price on every resource. Zero
+    (untrained) params give zero prices, the cold start."""
+    R = req.shape[1]
+    sc = score_cols if score_cols > 0 else R
+    inv_sc = pf.inv_capacity_scale(capacity[:, :sc])
+    pod_emb = pnet.pod_tower(params, pf.pod_features(req[:, :sc], inv_sc))
+    node_emb = pnet.node_tower(params, pf.node_features(
+        free[:, :sc], capacity[:, :sc], inv_sc))
+    w = v * valid.float()                                       # [N]
+    pe = (w @ pod_emb) / w.sum().clamp(min=1e-6)                # [E]
+    s = node_emb @ pe                                           # [M]
+    lam0 = _DUAL_W * (s.mean() - s).clamp(min=0.0)
+    return lam0[:, None].expand(free.shape[0], R).contiguous()
+
+
 def _relax_fleet(req_f, okf, tie, free_f, v, group_id, valid, G: int,
-                 iters: int):
+                 iters: int, lam0=None):
     """The fixed-trip primal-dual relaxation over the whole fleet:
     req_f [N, R] and free_f [M, R] column-normalized, okf [N, M] the
     float32 feasibility mask, tie [N, M] the score tiebreak, v [N] the
-    ask values, group_id [N] (int64) over G groups. Returns (X [N, M],
-    lam [M, R])."""
+    ask values, group_id [N] (int64) over G groups, lam0 [M, R] the
+    starting duals (zero when None). Returns (X [N, M], lam [M, R])."""
     N, M = okf.shape
     X = torch.zeros((N, M), dtype=torch.float32, device=okf.device)
-    lam = torch.zeros((M, free_f.shape[1]), dtype=torch.float32,
-                      device=okf.device)
+    lam = (torch.zeros((M, free_f.shape[1]), dtype=torch.float32,
+                       device=okf.device) if lam0 is None else lam0)
     gmin0 = torch.full((G,), float("inf"), dtype=torch.float32,
                        device=okf.device)
     for _ in range(iters):
@@ -177,14 +202,12 @@ def cvx_solve(
 ):
     """One full-fleet convex solve. Positional arguments are
     `assign.solve`'s (SOLVE_ARG_NAMES, numpy arrays or tensors), then the
-    seed and `learned` (ROADMAP item 12: raises unless None); they move to
-    `device` (default `cuda`). Returns (assigned [N] int32, free_after
-    [M, R] int32, feasible 0-dim bool), tensors on `device`."""
+    seed and `learned` (the two-tower params, host or device form, for the
+    warm-started duals, or None); they move to `device` (default `cuda`).
+    Returns (assigned [N] int32, free_after [M, R] int32, feasible 0-dim
+    bool), tensors on `device`."""
     if loc is not None:
         raise CvxUnsupported("locality batches take the greedy path")
-    if learned is not None:
-        not_ported("the learned warm start of the cvx duals (learned)", 12,
-                   "learned policy")
     device = resolve_device(device)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft,
      _loc, _lh, _lp, cnt0, _topo_rt) = _prepare(
@@ -211,7 +234,11 @@ def cvx_solve(
     base = node_base_scores(free[:, :sc], capacity[:, :sc], policy)
     tie = 0.05 * (base[None, :] + soft)
 
-    X, lam = _relax_fleet(req_f, okf, tie, free_f, v, gid, valid, G, iters)
+    lam0 = (None if learned is None else _learned_dual_init(
+        pnet.params_from_numpy(learned, device), req, free, capacity, valid,
+        v, score_cols))
+    X, lam = _relax_fleet(req_f, okf, tie, free_f, v, gid, valid, G, iters,
+                          lam0)
 
     # rounding scores: the final reduced costs plus the primal mass as a
     # log bonus, so the rounding samples where the relaxation put mass
@@ -247,12 +274,9 @@ def cvx_solve_batch(batch, node_arrays, *, policy: str = "binpacking",
     `device`, default `cuda`) out. Shares `prepare_solve_args` with the
     greedy and pack paths, so the arm sees the cluster state of the plans
     it duels. Raises CvxUnsupported for batches outside the model
-    (locality, host ports, shapes over the cell budget) and
-    NotImplementedError for `learned` (ROADMAP item 12)."""
+    (locality, host ports, shapes over the cell budget). learned: the
+    two-tower params for the warm-started duals."""
     device = resolve_device(device)
-    if learned is not None:
-        not_ported("the learned warm start of the cvx duals (learned)", 12,
-                   "learned policy")
     _unsupported_batch(batch, CvxUnsupported)
     np_args, static_kwargs = prepare_solve_args(
         batch, node_arrays, free_delta=free_delta, node_mask=node_mask,
@@ -266,8 +290,9 @@ def cvx_solve_batch(batch, node_arrays, *, policy: str = "binpacking",
             "budget (the partitioned pack arm covers it)")
     args, _ = solve_args_from_numpy(np_args, static_kwargs, device)
     assigned, free_after, feasible = cvx_solve(
-        *args, seed, iters=iters, round_rounds=round_rounds,
+        *args, seed, learned, iters=iters, round_rounds=round_rounds,
         repair_rounds=repair_rounds, chunk=chunk, policy=policy,
         score_cols=static_kwargs["score_cols"], device=device)
     return CvxResult(assigned=assigned, free_after=free_after,
-                     feasible=feasible, iters=iters)
+                     feasible=feasible, iters=iters,
+                     learned_dual=learned is not None)

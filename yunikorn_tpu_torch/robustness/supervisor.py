@@ -55,9 +55,9 @@ logger = log("robustness.supervisor")
 
 # the assignment path's ladder: the core's device and nothing below it
 ASSIGN_LADDER = ("device",)
-# the duel arms' paths (solver.policy=optimal): one device tier each; an
-# arm that fails sits the cycle out and the greedy plan stands
-DUEL_PATHS = ("pack", "cvx")
+# the duel arms' paths (solver.policy optimal, learned, all): one device
+# tier each; an arm that fails sits the cycle out and the greedy plan stands
+DUEL_PATHS = ("pack", "cvx", "policy")
 
 TRANSIENT = "transient"
 PERSISTENT = "persistent"
@@ -228,10 +228,10 @@ class SupervisedExecutor:
         # the committing cycle id, stamped by the core per cycle so
         # degrade/recover spans land on the right cycle lane
         self.cycle_id = 0
-        # solver.policy of the cycle being dispatched ("greedy"/"optimal"),
-        # stamped by the core per dispatch: supervised_dispatch_total carries
-        # it as a label so dashboards separate the two solve paths without
-        # new series names
+        # solver.policy of the cycle being dispatched ("greedy", "optimal",
+        # "learned" or "all"), stamped by the core per dispatch:
+        # supervised_dispatch_total carries it as a label so dashboards
+        # separate the solve paths without new series names
         self.policy_label = "greedy"
         # control-plane sharding (core/shard.py): shards share one metrics
         # registry, so each shard's supervisor prefixes its path LABEL
@@ -273,7 +273,7 @@ class SupervisedExecutor:
         self._m_dispatch = registry.counter(
             "supervised_dispatch_total",
             "supervised device-path attempts by path, outcome and the "
-            "cycle's solver.policy (greedy | optimal)",
+            "cycle's solver.policy (greedy | optimal | learned | all)",
             labelnames=("path", "outcome", "policy"))
         self._m_transitions = registry.counter(
             "circuit_transitions_total",
