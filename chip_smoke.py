@@ -4,8 +4,9 @@ around them, both again on a batch with pod locality and on a labelled
 fleet with topology steering, the device preemption planner, the device
 admission gate with the device-resident node, victim and request state,
 the pack and cvx duel arms of solver.policy=optimal, the learned policy's
-serving path (solver.policy=learned and all), and the shim, mock
-scheduler and scheduler binary that bring a cluster's pods to the core.
+serving path (solver.policy=learned and all) and its trainer, the shim,
+mock scheduler and scheduler binary that bring a cluster's pods to the
+core, and the sharded control plane (solver.shards >= 2).
 
     python3 chip_smoke.py
 
@@ -153,6 +154,20 @@ phase fails, and when no CUDA device is present):
           the card and on the CPU (the same winner, every arm's units within
           0.5%, the cvx arm's learned duals); and a device profile of one
           full-width learned solve
+  train   the learned policy's trainer: scripts/policy_bench.py --train
+          at its defaults through the port (TRAIN_CYCLES greedy-vs-pack
+          duels at TRAIN_SHAPE recorded on the card into a DatasetWriter;
+          fit on the card with TRAIN_EPOCHS twice, the same params hash,
+          and once on the CPU; each checkpoint evaluated at 512 x 4,096,
+          the card's winning with learned units >= TRAIN_MIN_WIN x
+          greedy's and no fewer placed; ms a step of each phase, fit
+          seconds), then at full width: the optimal core's cycle on the
+          pressure mix (10,000 x 50,000) recorded by core.policy_recorder
+          (one example of N 65,536 x M 16,384), a fit of FULL_FIT_EPOCHS
+          on the card at that shape (ms a step, peak memory), and the
+          checkpoint served by the learned core at full width: no failed
+          learned plan, every binding fits its node, both kernels'
+          launches counted from 0 around that cycle
   shim    the port's shim and MockScheduler on `cuda`, the path a user's
           pods take (informers -> application and task state machines ->
           dispatcher -> core -> allocation callback -> bind pool -> binding
@@ -176,14 +191,31 @@ phase fails, and when no CUDA device is present):
           /metrics carries the core's series, SIGTERM exits 0 within 30 s
           with the
           --trace-out JSON written, and the child's log names device=cuda
+  shard   the sharded control plane: usage_apply / usage_fold on the card
+          bit-equal to the CPU and a DeviceUsageMirror on the card at
+          divergence 0 through MIRROR_OPS ledger operations with epoch
+          fences; scripts/shard_bench.py's wave (SHARD_SHAPE: 20,000 asks,
+          10,000 nodes, 640 ICI domains, streamed in bursts of 256) at 1
+          and SHARD_COUNT shards through make_core_scheduler on the card:
+          placed and packed at 4 shards >= SHARD_MIN_QUALITY x 1 shard's,
+          the ledger's audit empty, the mirror at divergence 0, pods/s of
+          each and the speedup; scripts/failover_bench.py's cell (10,000
+          nodes, 4 shards, 1,024 pods bound, a second wave, then
+          quarantine_shard(1)): every node it owned re-homed, every ask
+          bound, the audit empty after each phase, quarantine_s and
+          recover_s; and the binary with --shards 2 --ledger-serve: every
+          pod bound (/ws/v1/shards), yunikorn_shard_count 2 at /metrics,
+          SIGTERM exits 0
   kernels one line per kernel: launches (the wrapper's count of calls in
           the main path's run; launches_locality, launches_topology,
           launches_duel (launches_duel_repair of them in the pack arm's
           repair), launches_learned (launches_learned_arm of them in the
-          learned solve) and launches_shim: in the locality and topology
-          paths' full-width runs, the optimal and the learned core's
-          full-width cycles and the shim's pressure run on the card; for
-          learned_propose the learned core's cycle), error against
+          learned solve), launches_shim, launches_train and
+          launches_shard: in the locality and topology paths' full-width
+          runs, the optimal and the learned core's full-width cycles, the
+          shim's pressure run, the trained checkpoint's learned cycle and
+          the 4-shard wave on the card; for learned_propose the learned
+          core's cycle and the trained checkpoint's), error against
           the plain version, kernel / plain /
           bound milliseconds (best_nodes at the first odd round's inputs,
           as the main path calls it; learned_propose at full-width random
@@ -218,6 +250,8 @@ FADD_PER_CLK_SM = 128
 # (kept to restate that bound beside the corrected one)
 OLD_PEAK_OPS_S = 67e12
 MAIN_NODES, MAIN_PODS = 10_000, 50_000
+# the solve's padded shape at MAIN_NODES x MAIN_PODS (pods N, nodes M)
+FULL_SHAPE = (65_536, 16_384)
 CUT_NODES, CUT_PODS = 2_000, 10_000
 # the JAX package's result on the same workloads (rounds, pods placed)
 EXPECTED = {(MAIN_NODES, MAIN_PODS): (16, 45_977),
@@ -351,6 +385,29 @@ LEARNED_LMEAN_TOL = 1e-6
 # subtract, add and max, the compare)
 LEARNED_INT_OPS, LEARNED_SFU_OPS, LEARNED_FP_OPS = 74, 2, 6
 SFU_PER_CLK_SM = 16
+# the train phase: scripts/policy_bench.py --train's defaults (cycles of
+# TRAIN_SHAPE pods x nodes on the two-flavor fleet, fleet seeds 0..3, the
+# epochs of each phase) and its --assert-quality bar on learned/greedy
+# units; the full-width fit's epochs (a cut of depth: the JAX trainer's
+# defaults are 80 + 60)
+TRAIN_SHAPE = (256, 128)
+TRAIN_CYCLES = 4
+TRAIN_EPOCHS = (60, 40)
+TRAIN_MIN_WIN = 1.05
+FULL_FIT_EPOCHS = (3, 3)
+# the shard phase: scripts/shard_bench.py's round-16 table shape (pods,
+# nodes, ICI domains), its seed, cycle interval and quality bar, the
+# sharded count it compares against 1; scripts/failover_bench.py's cell
+# (nodes, shards, pods); the binary's run with --shards 2 --ledger-serve
+SHARD_SHAPE = (20_000, 10_000, 640)
+SHARD_SEED = 7
+SHARD_INTERVAL = 0.005
+SHARD_MIN_QUALITY = 0.97
+SHARD_COUNT = 4
+FAILOVER_NODES, FAILOVER_SHARDS, FAILOVER_PODS = 10_000, 4, 1_024
+SHARD_CMD_NODES, SHARD_CMD_PODS = 1_000, 2_000
+# the usage mirror's check: ledger operations and trackers
+MIRROR_OPS, MIRROR_TRACKERS = 4_096, 48
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -2822,6 +2879,230 @@ def phase_learned(dev, stats, clock_hz):
     return out
 
 
+def train_record(dev, writer, n_pods, n_nodes, seeds):
+    """scripts/policy_bench.py's recording through the port on `dev`: one
+    greedy-vs-pack duel (arm seed DUEL_SEED) per fleet seed on the
+    two-flavor fleet, each written in the policy_recorder format. Returns
+    the winners' counts."""
+    from yunikorn_tpu_torch.ops import pack_solve
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+
+    winners = {}
+    for s in seeds:
+        enc, batch, prio = learned_fleet(n_pods, n_nodes, s)
+        n = batch.num_pods
+        ga = solve_batch(batch, enc.nodes, device=dev).assigned[:n]
+        pa = pack_solve.pack_solve_batch(batch, enc.nodes, seed=DUEL_SEED,
+                                         device=dev).assigned[:n]
+        ga, pa = ga.cpu().numpy(), pa.cpu().numpy()
+        na = enc.nodes
+        cap = np.floor(na.capacity_arr).astype(np.int64)
+        winner, _ = pack_solve.choose_plan_n(
+            [("greedy", ga), ("optimal", pa)], batch.req.astype(np.int32),
+            batch.valid, cap_i=cap, priorities=np.asarray(prio))
+        writer({"req": batch.req.astype(np.int32),
+                "rank": np.asarray(batch.rank),
+                "valid": np.asarray(batch.valid),
+                "free0": np.floor(na.free).astype(np.int32),
+                "cap": cap.astype(np.int32),
+                "node_ok": np.asarray(na.valid & na.schedulable),
+                "priorities": np.asarray(prio), "score_cols":
+                int(batch.req.shape[1]), "winner": winner,
+                "plan_greedy": ga, "plan_optimal": pa})
+        winners[winner] = winners.get(winner, 0) + 1
+    return winners
+
+
+def train_eval(dev, params):
+    """policy_bench's evaluation of host-form `params` on `dev` at
+    LEARNED_EVAL (learned seed LEARNED_SEED): each plan's (placed, units),
+    the winner and the learned/greedy units ratio."""
+    from yunikorn_tpu_torch.ops import pack_solve
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+    from yunikorn_tpu_torch.policy import net
+
+    enc, batch, prio = learned_fleet(*LEARNED_EVAL)
+    n = batch.num_pods
+    learned = (net.params_from_numpy(params, dev), LEARNED_SEED)
+    g, lr = (solve_batch(batch, enc.nodes, device=dev, learned=x,
+                         **SOLVE_KW) for x in (None, learned))
+    for name, res in (("greedy", g), ("learned", lr)):
+        if int(res.free_after.min()) < 0:
+            raise AssertionError(f"{name} over-committed a node")
+    winner, st = pack_solve.choose_plan_n(
+        [("greedy", g.assigned[:n].cpu().numpy()),
+         ("learned", lr.assigned[:n].cpu().numpy())],
+        batch.req.astype(np.int32), batch.valid,
+        cap_i=np.floor(enc.nodes.capacity_arr).astype(np.int64),
+        priorities=np.asarray(prio))
+    got = {k: (st[k]["placed"], round(st[k]["units_norm"], 3)) for k in st}
+    return {"placed_units": got, "winner": winner,
+            "util_ratio": st["learned"]["units_norm"]
+            / st["greedy"]["units_norm"]}
+
+
+def timed_fit(examples, dev, epochs, **kw):
+    """policy/train.fit on `dev` with its steps timed: (params, report,
+    timing) with the median ms of an imitation and of a fine-tune step,
+    the fit's seconds and, on the card, its peak device memory."""
+    from yunikorn_tpu_torch.policy import train
+
+    steps = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, report = train.fit(examples, seed=0, imitation_epochs=epochs[0],
+                               finetune_epochs=epochs[1], device=dev,
+                               step_times=steps, **kw)
+    timing = {"fit_s": time.perf_counter() - t0}
+    for name, ts in steps.items():
+        timing[f"{name}_step_ms"] = statistics.median(ts) * 1e3
+        timing[f"{name}_steps"] = len(ts)
+    if dev.type == "cuda":
+        timing["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return params, report, timing
+
+
+def train_bench(dev):
+    """scripts/policy_bench.py --train at its defaults through the port:
+    TRAIN_CYCLES greedy-vs-pack duels at TRAIN_SHAPE recorded into a port
+    DatasetWriter, fit on the card (TRAIN_EPOCHS) twice — the same params
+    hash — and once on the CPU, each checkpoint evaluated at LEARNED_EVAL
+    on the card. Bar (policy_bench's --assert-quality): the card's
+    checkpoint wins with learned units >= TRAIN_MIN_WIN x greedy's and no
+    fewer placed."""
+    import tempfile
+
+    from yunikorn_tpu_torch.policy import net, train
+
+    ds = tempfile.mkdtemp(prefix="yk-train-")
+    t0 = time.perf_counter()
+    winners = train_record(dev, train.DatasetWriter(ds), *TRAIN_SHAPE,
+                           range(TRAIN_CYCLES))
+    record_s = time.perf_counter() - t0
+    examples = train.load_dataset(ds)
+    fits = [timed_fit(examples, dev, TRAIN_EPOCHS) for _ in range(2)]
+    cpu = timed_fit(examples, torch.device("cpu"), TRAIN_EPOCHS)
+    hashes = [net.params_hash(p) for p, _, _ in fits]
+    if hashes[0] != hashes[1]:
+        raise AssertionError(f"two fits on the card differ: {hashes}")
+    if fits[0][1] != fits[1][1]:
+        raise AssertionError("two fits on the card report other losses")
+    prefix = os.path.join(ROOT, "build", "policy_trained_card")
+    ck = net.save_checkpoint(prefix, fits[0][0],
+                             epoch=sum(TRAIN_EPOCHS),
+                             meta={"cycles": len(examples)})
+    ev = train_eval(dev, net.load_checkpoint(prefix).params)
+    ev_cpu = train_eval(dev, cpu[0])
+    g, lr = ev["placed_units"]["greedy"], ev["placed_units"]["learned"]
+    if (ev["winner"] != "learned" or ev["util_ratio"] < TRAIN_MIN_WIN
+            or lr[0] < g[0]):
+        raise AssertionError(f"the card's checkpoint: {ev}")
+    return {"shape": TRAIN_SHAPE, "cycles": len(examples),
+            "winners": winners, "record_s": record_s,
+            "epochs": TRAIN_EPOCHS, "hash_card": ck.hash,
+            "hash_card_again": hashes[1], "hash_cpu": net.params_hash(cpu[0]),
+            "report_card": fits[0][1], "report_cpu": cpu[1],
+            "timing_card": [t for _, _, t in fits], "timing_cpu": cpu[2],
+            "eval_card": ev, "eval_cpu_checkpoint": ev_cpu,
+            "committed_checkpoint": EXPECTED_LEARNED[1]}
+
+
+def train_full(dev, stats):
+    """The trainer at full width: duel_core_full's optimal core (the
+    pressure mix, 10,000 x 50,000; N 65,536, M 16,384) with
+    core.policy_recorder set to a DatasetWriter records its duel cycle;
+    a fit of FULL_FIT_EPOCHS at that shape on the card (ms a step of each
+    phase, peak memory); the checkpoint served by the learned core at
+    full width with every kernel's launches counted from 0 around its
+    cycle. Bars: one cycle recorded at the full shape, no failed learned
+    plan, every binding fits its node."""
+    import gc
+    import tempfile
+
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+    from yunikorn_tpu_torch.ops.learned import learned_propose
+    from yunikorn_tpu_torch.policy import net, train
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    nodes = make_pressure_nodes(MAIN_NODES)
+    asks = asks_of(make_pressure_pods(MAIN_PODS))
+    ds = tempfile.mkdtemp(prefix="yk-train-full-")
+    writer = train.DatasetWriter(ds)
+    _, core, _ = make_core(dev, nodes, apps, SolverOptions(policy="optimal"))
+    core.policy_recorder = writer
+    n_optimal, cycle_s = core_cycle(core, asks)
+    entry = dict(core.metrics["last_cycle"]["default"])
+    core.stop()
+    del core
+    gc.collect()
+    examples = train.load_dataset(ds)
+    if writer.written != 1 or len(examples) != 1:
+        raise AssertionError(f"{writer.written} duel cycles recorded")
+    shape = {"pods": int(examples[0]["req"].shape[0]),
+             "nodes": int(examples[0]["free0"].shape[0]),
+             "winner": examples[0]["winner"],
+             "plans": sorted(k for k in examples[0] if k.startswith("plan_"))}
+    if (shape["pods"], shape["nodes"]) != FULL_SHAPE:
+        raise AssertionError(f"recorded cycle {shape}")
+    torch.cuda.empty_cache()
+    params, report, timing = timed_fit(examples, dev, FULL_FIT_EPOCHS)
+    del examples
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = os.path.join(ROOT, "build", "policy_trained_full")
+    ck = net.save_checkpoint(prefix, params, epoch=sum(FULL_FIT_EPOCHS))
+    cache, core, cb = make_core(dev, nodes, apps, SolverOptions(
+        policy="learned", policy_checkpoint=prefix))
+    try:
+        best_nodes.launches = 0
+        learned_propose.launches = 0
+        n, serve_s = core_cycle(core, asks)
+        launches = {"best_nodes": best_nodes.launches,
+                    "learned_propose": learned_propose.launches}
+        served = dict(core.metrics["last_cycle"]["default"])
+        outcomes = core.metrics.get("policy_plans_total") or {}
+        check_tiers(core, "learned core (trained checkpoint)")
+        nodes_used = check_bindings(cache, cb.bound, asks)
+    finally:
+        core.stop()
+    if outcomes.get("outcome=failed") or not outcomes:
+        raise AssertionError(f"policy outcomes {outcomes}")
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"kernel launches {launches}")
+    if served.get("checkpoint") != ck.hash:
+        raise AssertionError(f"served {served.get('checkpoint')} != {ck.hash}")
+    stats.setdefault("best_nodes", {})["launches_train"] = \
+        launches["best_nodes"]
+    stats.setdefault("learned_propose", {})["launches_train"] = \
+        launches["learned_propose"]
+    return {"recorded": shape, "optimal_cycle": {
+                "placed": n_optimal, "cycle_ms": cycle_s * 1e3,
+                "winner": entry.get("solver_policy"),
+                "pack_util": entry.get("pack_util")},
+            "epochs": FULL_FIT_EPOCHS, "report": report, "timing": timing,
+            "checkpoint": ck.hash, "served": {
+                "placed": n, "cycle_ms": serve_s * 1e3,
+                "winner": served.get("solver_policy"),
+                "learned_util": served.get("learned_util"),
+                "learned_placed": served.get("learned_placed"),
+                "learned_ms": served.get("learned_ms"),
+                "policy_outcomes": outcomes, "launches": launches,
+                "nodes_used": nodes_used, "oversubscribed": 0}}
+
+
+def phase_train(dev, stats):
+    """The learned policy's trainer on the card: policy_bench's --train
+    through the port (record, fit twice and on the CPU, evaluate), then
+    the full-width record -> fit -> serve loop."""
+    return {"bench": train_bench(dev), "full": train_full(dev, stats)}
+
+
 class ThreadSampler:
     """Where the host's CPU time goes over a run: every `period` seconds
     each thread's CPU time (user + system, Linux /proc/self/task, in clock
@@ -3220,6 +3501,394 @@ def phase_cmd():
     return out
 
 
+class CountingCallback:
+    """scripts/shard_bench.py's callback: every placement by allocation
+    key, and when the last one landed."""
+
+    def __init__(self):
+        import threading
+
+        self.mu = threading.Lock()
+        self.placed = {}
+        self.last_place_at = time.perf_counter()
+
+    def update_allocation(self, response):
+        if response.new:
+            with self.mu:
+                for a in response.new:
+                    self.placed[a.allocation_key] = a
+                self.last_place_at = time.perf_counter()
+
+    def update_application(self, response):
+        pass
+
+    def update_node(self, response):
+        pass
+
+    def predicates(self, args):
+        return None
+
+    def preemption_predicates(self, args):
+        return []
+
+    def send_event(self, events):
+        pass
+
+    def update_container_scheduling_state(self, request):
+        pass
+
+    def get_state_dump(self):
+        return "{}"
+
+
+def shard_front(dev, shards, nodes, cotenants=(), interval=0.05,
+                failover=None):
+    """A scheduler of `shards` port cores on `dev` built as users build it
+    (core/shard.make_core_scheduler; for shards >= 2 the sharded front),
+    with `nodes` and the co-tenant pods registered and dynamic queues.
+    (core, cache, callback)."""
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.common import si
+    from yunikorn_tpu_torch.core.shard import make_core_scheduler
+
+    cache = SchedulerCache()
+    cb = CountingCallback()
+    core = make_core_scheduler(cache, shards=shards, interval=interval,
+                               failover_options=failover, device=dev)
+    core.register_resource_manager(si.RegisterResourceManagerRequest(
+        rm_id="smoke", policy_group="queues"), cb)
+    infos = []
+    for n in nodes:
+        cache.update_node(n)
+        infos.append(si.NodeInfo(node_id=n.name, action=si.NodeAction.CREATE,
+                                 node=n))
+    core.update_node(si.NodeRequest(nodes=infos))
+    for p in cotenants:
+        cache.update_pod(p)
+    return core, cache, cb
+
+
+def submit_apps(core, app_ids, queue):
+    from yunikorn_tpu_torch.common import si
+
+    core.update_application(si.ApplicationRequest(new=[
+        si.AddApplicationRequest(application_id=a, queue_name=queue,
+                                 user=si.UserGroupInfo(user="smoke"))
+        for a in app_ids]))
+
+
+def shard_pass(dev, shards, fleet, wave=256, wave_gap_s=0.01, stall_s=3.0,
+               timeout_s=120.0):
+    """scripts/shard_bench.py's run_pass on the port: the wave streams in
+    in bursts of `wave` asks while the shards' own cycle loops drain it;
+    placed, packed cpu, pods/s from the start to the last placement, the
+    admitted cycles, best_nodes' launches, and for the sharded front the
+    ledger's audit and the usage mirror's divergence."""
+    from yunikorn_tpu_torch.common.si import AllocationRequest
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    nodes, cotenants, asks = fleet
+    core, _, cb = shard_front(dev, shards, nodes, cotenants, SHARD_INTERVAL)
+    submit_apps(core, sorted({a for a, _ in asks}), "root.tenants")
+    bursts = [asks[i:i + wave] for i in range(0, len(asks), wave)]
+    best_nodes.launches = 0
+    t0 = time.perf_counter()
+    core.start()
+    try:
+        for burst in bursts:
+            core.update_allocation(AllocationRequest(
+                asks=[a for _, a in burst]))
+            time.sleep(wave_gap_s)
+        while True:
+            with cb.mu:
+                placed, last = len(cb.placed), cb.last_place_at
+            now = time.perf_counter()
+            if (placed >= len(asks) or now - t0 > timeout_s
+                    or (placed and now - last > stall_s)):
+                break
+            time.sleep(0.02)
+    finally:
+        core.stop()
+    launches = best_nodes.launches
+    with cb.mu:
+        allocs = list(cb.placed.values())
+        wall = max(cb.last_place_at - t0, 1e-6)
+    hist = core.obs.get("cycle_stage_ms")
+    out = {"shards": shards, "placed": len(allocs),
+           "packed_cpu": sum(a.resource.get("cpu") or 0 for a in allocs),
+           "wall_s": wall, "pods_per_s": len(allocs) / wall,
+           "best_nodes_launches": launches}
+    if shards > 1:
+        out["cycles"] = sum(int(hist.child_state(stage="total",
+                                                 shard=str(k))[0])
+                            for k in range(shards))
+        out["audit"] = core.ledger.audit()
+        out["mirror_divergence"] = core.usage_mirror.divergence()
+        out["mirror"] = core.usage_mirror.stats()
+        out["bound_per_shard"] = [s["bound"]
+                                  for s in core.shard_report()["shards"]]
+    else:
+        out["cycles"] = int(hist.child_state(stage="total")[0])
+    return out
+
+
+def shard_bench(dev, stats):
+    """scripts/shard_bench.py's workload (client/synthetic.make_shard_fleet,
+    seed SHARD_SEED) through 1 and SHARD_COUNT shards on the card. Bars
+    (the bench's): placed and packed units at SHARD_COUNT shards >=
+    SHARD_MIN_QUALITY x the 1-shard run's, the ledger's audit empty and
+    the mirror's divergence 0. Reports pods/s and the speedup (no bar)."""
+    from yunikorn_tpu_torch.client.synthetic import make_shard_fleet
+
+    shape = SHARD_SHAPE
+    fleet = make_shard_fleet(*shape, seed=SHARD_SEED)
+    runs = [shard_pass(dev, n, fleet) for n in (1, SHARD_COUNT)]
+    base, best = runs
+    q_placed = best["placed"] / max(base["placed"], 1)
+    q_packed = best["packed_cpu"] / max(base["packed_cpu"], 1)
+    if (q_placed < SHARD_MIN_QUALITY or q_packed < SHARD_MIN_QUALITY
+            or best["audit"] or best["mirror_divergence"]):
+        raise AssertionError(f"{SHARD_COUNT} shards against 1: placed "
+                             f"{q_placed:.4f}x, packed {q_packed:.4f}x, "
+                             f"audit {best['audit']}, divergence "
+                             f"{best['mirror_divergence']}")
+    stats.setdefault("best_nodes", {})["launches_shard"] = \
+        best["best_nodes_launches"]
+    return {"shape": shape, "runs": runs, "placed_ratio": q_placed,
+            "packed_ratio": q_packed,
+            "speedup": best["pods_per_s"] / base["pods_per_s"]}
+
+
+def shard_failover(dev):
+    """scripts/failover_bench.py's cell on the port: n_pods bound across
+    every shard, a second wave landing, then quarantine_shard(1) and the
+    drain. Bars: every node the dead shard owned re-homed, every ask
+    bound, the ledger's audit empty after each phase, the mirror at
+    divergence 0."""
+    from yunikorn_tpu_torch.common.objects import make_node, make_pod
+    from yunikorn_tpu_torch.common.resource import get_pod_resource
+    from yunikorn_tpu_torch.common.si import AllocationAsk, AllocationRequest
+    from yunikorn_tpu_torch.robustness.failover import FailoverOptions
+
+    n_nodes, n_shards, n_pods = FAILOVER_NODES, FAILOVER_SHARDS, FAILOVER_PODS
+    still = FailoverOptions(stale_budget_s=3600.0, probe_interval_s=3600.0,
+                            rejoin_after_s=3600.0)
+    t0 = time.perf_counter()
+    front, _, cb = shard_front(
+        dev, n_shards, [make_node(f"bn-{i}", cpu_milli=8000)
+                        for i in range(n_nodes)], failover=still)
+    registration_s = time.perf_counter() - t0
+    apps = [f"bapp-{i}" for i in range(max(n_shards * 4, 16))]
+    submit_apps(front, apps, "root.default")
+
+    def wave(prefix, count):
+        keys = []
+        for i in range(count):
+            pod = make_pod(f"{prefix}-{i}", cpu_milli=200, memory=2**27)
+            keys.append(f"{prefix}-{i}")
+            front.update_allocation(AllocationRequest(asks=[AllocationAsk(
+                allocation_key=keys[-1], application_id=apps[i % len(apps)],
+                resource=get_pod_resource(pod), pod=pod)]))
+        return keys
+
+    def wait_bound(keys, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            with cb.mu:
+                if all(k in cb.placed for k in keys):
+                    return True
+            time.sleep(0.05)
+        return False
+
+    front.start()
+    try:
+        keys = wave("bp", n_pods)
+        if not wait_bound(keys, 120):
+            raise AssertionError("the working set did not bind")
+        victim = 1 % n_shards
+        owned_before = front.fanout.count_for(victim)
+        keys += wave("bw", max(n_pods // 4, n_shards * 8))
+        parked = sum(1 for k, h in front._ask_home.items()
+                     if h == victim and k not in front._alloc_shard)
+        t_q = time.perf_counter()
+        ok = front.quarantine_shard(victim, "smoke")
+        quarantine_s = time.perf_counter() - t_q
+        audit_q = front.ledger.audit()
+        t_r = time.perf_counter()
+        all_bound = wait_bound(keys, 120)
+        recover_s = time.perf_counter() - t_r
+        out = {"shards": n_shards, "nodes": n_nodes, "pods": n_pods,
+               "registration_s": registration_s,
+               "owned_before": owned_before, "parked_before": parked,
+               "quarantine_ok": bool(ok), "quarantine_s": quarantine_s,
+               "rehomed_nodes": front._rehomed_nodes_total,
+               "owned_after": front.fanout.count_for(victim),
+               "recover_s": recover_s, "bound": len(cb.placed),
+               "asks": len(keys), "audit_after_quarantine": audit_q,
+               "audit_final": front.ledger.audit(),
+               "mirror_divergence": front.usage_mirror.divergence()}
+    finally:
+        front.stop()
+    if not (ok and all_bound and out["rehomed_nodes"] == owned_before
+            and out["owned_after"] == 0 and not audit_q
+            and not out["audit_final"] and not out["mirror_divergence"]):
+        raise AssertionError(f"failover cell: {out}")
+    return out
+
+
+def shard_cmd():
+    """The binary with the sharded front: `--nodes SHARD_CMD_NODES --pods
+    SHARD_CMD_PODS --shards 2 --ledger-serve` in a subprocess on the card:
+    /ws/v1/shards reports every node and every pod bound, /metrics the
+    shard series, SIGTERM exits 0."""
+    import signal
+    import socket
+    import tempfile
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    log_path = os.path.join(tempfile.mkdtemp(prefix="yk-shard-cmd-"),
+                            "scheduler.log")
+    argv = [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
+            "--nodes", str(SHARD_CMD_NODES), "--pods", str(SHARD_CMD_PODS),
+            "--rest-port", str(port), "--shards", "2", "--ledger-serve"]
+    out = {"argv": argv[2:]}
+
+    def counts():
+        status, body = rest_call(port, "/ws/v1/shards")
+        if status != 200:
+            return 0, 0
+        shards = json.loads(body)["shards"]
+        return (sum(s["nodes"] for s in shards),
+                sum(s["bound"] for s in shards))
+
+    def wait(cond, what, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"the scheduler exited "
+                                     f"{proc.returncode} waiting for {what}")
+            try:
+                if cond():
+                    return time.perf_counter()
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                stderr=log)
+        try:
+            out["nodes_ready_s"] = wait(
+                lambda: counts()[0] == SHARD_CMD_NODES,
+                f"{SHARD_CMD_NODES} nodes", 120) - t0
+            out["all_bound_s"] = wait(
+                lambda: counts()[1] == SHARD_CMD_PODS,
+                f"{SHARD_CMD_PODS} pods bound", 120) - t0
+            status, metrics = rest_call(port, "/metrics")
+            if status != 200 or "yunikorn_shard_count 2" not in metrics:
+                raise AssertionError("/metrics lacks yunikorn_shard_count 2")
+            status, shards = rest_call(port, "/ws/v1/shards")
+            rep = json.loads(shards)
+            out["bound_per_shard"] = [s["bound"] for s in rep["shards"]]
+            out["ledger"] = rep.get("ledger")
+            proc.send_signal(signal.SIGTERM)
+            t_term = time.perf_counter()
+            out["exit_code"] = proc.wait(timeout=30)
+            out["exit_s"] = time.perf_counter() - t_term
+        except Exception as e:
+            tail = open(log_path).read()[-1500:]
+            raise AssertionError(f"{type(e).__name__}: {e}; the scheduler's "
+                                 f"log ends: {tail}") from e
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    if out["exit_code"] != 0:
+        raise AssertionError(f"exit code {out['exit_code']}")
+    log_text = open(log_path).read()
+    for line in ("control-plane sharding: 2 shards", "ledger service",
+                 "device=cuda"):
+        if line not in log_text:
+            raise AssertionError(f"the scheduler's log lacks {line!r}")
+    return out
+
+
+def shard_mirror(dev):
+    """The usage mirror on the card: usage_apply / usage_fold against the
+    CPU on int64 deltas up to 2^62 with repeated cells (bit-equal), and a
+    DeviceUsageMirror on the card through MIRROR_OPS random ledger
+    operations over MIRROR_TRACKERS trackers and 8 resources, drained
+    every 64 operations and by every stale-epoch refresh of a fenced
+    shard: divergence 0 after every drain; the ms of a drain of 64
+    operations (host clock around refresh, which reads the fold back)."""
+    import random
+
+    from yunikorn_tpu_torch.core.shard import GlobalQuotaLedger
+    from yunikorn_tpu_torch.ops.gate_solve import usage_apply, usage_fold
+    from yunikorn_tpu_torch.ops.ledger_mirror import DeviceUsageMirror
+
+    rng = np.random.default_rng(0)
+    S, T, K, B = 4, 64, 8, 4_096
+    base = rng.integers(-2**61, 2**61, (S, T, K), dtype=np.int64)
+    t_idx = rng.integers(0, 4, B)
+    k_idx = rng.integers(0, 2, B)
+    vals = rng.integers(-2**62 // B, 2**62 // B, B, dtype=np.int64)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        x = torch.from_numpy(base.copy()).to(d)
+        usage_apply(x, 2, *(torch.from_numpy(a).to(d)
+                            for a in (t_idx, k_idx, vals)))
+        outs.append((x.cpu(), usage_fold(x).cpu()))
+    if not (torch.equal(outs[0][0], outs[1][0])
+            and torch.equal(outs[0][1], outs[1][1])):
+        raise AssertionError("usage_apply / usage_fold: card != cpu")
+    ledger = GlobalQuotaLedger()
+    mirror = DeviceUsageMirror(SHARD_COUNT, device=dev)
+    ledger.attach_mirror(mirror)
+    pyrng = random.Random(0)
+    live, drains, refresh_ms = [], 0, []
+    for i in range(MIRROR_OPS):
+        if live and pyrng.random() < 0.4:
+            ledger.release(live.pop(pyrng.randrange(len(live))))
+        else:
+            tid = f"q|root.t{pyrng.randrange(MIRROR_TRACKERS)}"
+            ch = [(tid, [(f"r{k}", 10**15) for k in range(8)],
+                   [(f"r{k}", pyrng.randrange(1, 10**9)) for k in range(8)])]
+            if ledger.reserve(f"k{i}", ch):
+                ledger.commit(f"k{i}", ch)
+                live.append(f"k{i}")
+        if i % 64 == 63:
+            shard = (i // 64) % SHARD_COUNT
+            if pyrng.random() < 0.1:
+                stale = mirror.epoch_of(shard)
+                mirror.fence_shard(shard)
+                mirror.refresh(shard, ledger, epoch=stale)
+            t0 = time.perf_counter()
+            mirror.refresh(shard, ledger, epoch=mirror.epoch_of(shard))
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+            drains += 1
+            if mirror.divergence(ledger):
+                raise AssertionError(f"divergence after drain {drains}")
+    if mirror.host_usage() != ledger.usage_snapshot():
+        raise AssertionError("host usage != the ledger's snapshot")
+    return {"apply_fold_bit_equal": True, "ops": MIRROR_OPS,
+            "drains": drains, "divergence": 0, "stats": mirror.stats(),
+            "refresh_ms_median": statistics.median(refresh_ms),
+            "device": str(mirror._dev.device)}
+
+
+def phase_shard(dev, stats):
+    """The sharded control plane on the card: the usage mirror,
+    shard_bench's workload at 1 and SHARD_COUNT shards, failover_bench's
+    quarantine cell, and the binary with --shards 2 --ledger-serve."""
+    return {"mirror": shard_mirror(dev), "bench": shard_bench(dev, stats),
+            "failover": shard_failover(dev), "cmd": shard_cmd()}
+
+
 def profile_solve(fn, top: int = 15):
     """Device time by kernel over one run of fn, such as one warm solve
     (torch.profiler), the device-busy sum and the idle share of the
@@ -3292,8 +3961,10 @@ def main() -> int:
               ("duel", lambda: phase_duel(dev, stats)),
               ("learned", lambda: phase_learned(dev, stats,
                                                 max_sm_clock_hz())),
+              ("train", lambda: phase_train(dev, stats)),
               ("shim", lambda: phase_shim(dev, stats)),
-              ("cmd", lambda: phase_cmd())]
+              ("cmd", lambda: phase_cmd()),
+              ("shard", lambda: phase_shard(dev, stats))]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -68,6 +68,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     res = assign.solve_batch(batch, enc.nodes, device="cpu")
     assert res.assigned.device.type == "cpu" and int(res.assigned.max()) >= 0
 
+    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
+    from yunikorn_tpu_torch.cmd import policy_train
+    from yunikorn_tpu_torch.core.shard import make_core_scheduler
+    from yunikorn_tpu_torch.ops.ledger_mirror import DeviceUsageMirror
+    from yunikorn_tpu_torch.policy import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.fit([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        policy_train.main(["--dataset", ".", "--out", "unused"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_core_scheduler(SchedulerCache(), shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceUsageMirror(2)
+
     from yunikorn_tpu_torch.cmd import scheduler as cmd
     from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
     from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler

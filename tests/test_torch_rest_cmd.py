@@ -15,7 +15,10 @@
   --trace-out.
 - Each flag whose feature is not ported raises NotImplementedError naming
   its ROADMAP item before anything is built; --policy learned|all and
-  --policy-checkpoint reach the core's SolverOptions.
+  --policy-checkpoint reach the core's SolverOptions; --shards,
+  --shard-epoch-seconds, --ledger-endpoint and --ledger-serve reach
+  core/shard.make_core_scheduler, and the binary with --shards 2
+  --ledger-serve binds every streamed pod through two port cores.
 """
 import importlib
 import json
@@ -179,11 +182,30 @@ def free_port():
         return s.getsockname()[1]
 
 
-def drive_binary(tmp_path, extra=()):
+def partition_counts(port):
+    """(nodes, allocations) as /ws/v1/nodes and /ws/v1/apps serve them."""
+    status, body = http(port, "/ws/v1/nodes")
+    nodes = len(json.loads(body)) if status == 200 else 0
+    status, body = http(port, "/ws/v1/apps")
+    return nodes, sum(len(a["allocations"]) for a in json.loads(body).values())
+
+
+def shard_counts(port):
+    """(nodes, allocations) summed over /ws/v1/shards (a sharded core's
+    partition routes serve its primary shard only)."""
+    status, body = http(port, "/ws/v1/shards")
+    if status != 200:
+        return 0, 0
+    shards = json.loads(body)["shards"]
+    return (sum(s["nodes"] for s in shards), sum(s["bound"] for s in shards))
+
+
+def drive_binary(tmp_path, extra=(), counts=partition_counts):
     """Run the binary (main(..., device="cpu")) in a subprocess with 50
     nodes and 20 streamed pods plus `extra` flags: wait until REST serves
-    the nodes and every pod is allocated, then SIGTERM it (exit 0).
-    Returns (/metrics body, the child's log, the --trace-out path)."""
+    the nodes and every pod is allocated (as `counts` reads them), then
+    SIGTERM it (exit 0). Returns (/metrics body, the child's log, the
+    --trace-out path)."""
     port = free_port()
     trace_out = tmp_path / "cycles.json"
     argv = ["--nodes", "50", "--rest-port", str(port), "--pods", "20",
@@ -198,21 +220,14 @@ def drive_binary(tmp_path, extra=()):
         try:
             def nodes():
                 try:
-                    status, body = http(port, "/ws/v1/nodes")
+                    return counts(port)[0]
                 except OSError:
                     return 0
-                return len(json.loads(body)) if status == 200 else 0
 
             wait_until(lambda: proc.poll() is not None or nodes() == 50,
                        "50 nodes at the REST API", timeout=45)
             assert proc.poll() is None, log.read_text()[-2000:]
-
-            def allocated():
-                status, body = http(port, "/ws/v1/apps")
-                return sum(len(a["allocations"])
-                           for a in json.loads(body).values())
-
-            wait_until(lambda: allocated() == 20, "20 pods allocated",
+            wait_until(lambda: counts(port)[1] == 20, "20 pods allocated",
                        timeout=45)
             status, body = http(port, "/metrics")
             assert status == 200
@@ -245,11 +260,53 @@ def test_cmd_scheduler_policy_optimal_binds_pods(tmp_path):
     assert "device=cpu" in log
 
 
+def test_cmd_scheduler_shards_ledger_serve_binds_pods(tmp_path):
+    """--shards 2 --ledger-serve: two port cores behind the sharded front,
+    coupled through a LedgerClient to the in-process LedgerServer; every
+    streamed pod binds and /ws/v1/shards reports both shards."""
+    body, log, _ = drive_binary(tmp_path, ["--shards", "2", "--ledger-serve"],
+                                counts=shard_counts)
+    assert "yunikorn_shard_count 2" in body
+    assert "control-plane sharding: 2 shards" in log
+    assert "ledger service: authority on" in log
+    assert "device=cpu" in log
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["--shards", "2"], {"shards": 2}),
+    (["--shard-epoch-seconds", "5"], {"epoch_seconds": 5.0}),
+    (["--ledger-endpoint", "127.0.0.1:1"],
+     {"ledger_endpoint": "127.0.0.1:1"}),
+    (["--ledger-serve"], {"ledger_serve": True}),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_shard_flags_reach_make_core_scheduler(argv, want, monkeypatch):
+    """The sharded control plane's flags become make_core_scheduler's
+    arguments (the build is stopped there)."""
+    from yunikorn_tpu_torch.cmd import scheduler as cmd
+    from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
+    from yunikorn_tpu_torch.core import shard as tshard
+
+    class Built(Exception):
+        pass
+
+    seen = []
+
+    def build(cache, **kw):
+        seen.append(kw)
+        raise Built
+
+    monkeypatch.setattr(tshard, "make_core_scheduler", build)
+    try:
+        with pytest.raises(Built):
+            cmd.main(["--rest-port", "0", *argv], device="cpu")
+    finally:
+        reset_for_tests()
+    got = seen[0]
+    assert {k: got[k] for k in want} == want
+    assert got["device"] == "cpu"
+
+
 @pytest.mark.parametrize("argv,env,item", [
-    (["--shards", "2"], {}, 13),
-    (["--shard-epoch-seconds", "5"], {}, 13),
-    (["--ledger-endpoint", "127.0.0.1:1"], {}, 13),
-    (["--ledger-serve"], {}, 13),
     (["--aot-store", "aot"], {}, 15),
     ([], {"YK_AOT_STORE": "aot"}, 15),
     (["--prewarm", "1024x4096"], {}, 15),
@@ -271,15 +328,18 @@ def test_unported_flags_raise(argv, env, item, monkeypatch):
         <= threads
 
 
-def test_mock_scheduler_shards_above_one_raise():
+def test_mock_scheduler_shards_above_one_build_the_sharded_front():
     from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
+    from yunikorn_tpu_torch.core.shard import ShardedCoreScheduler
     from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler
 
+    ms = MockScheduler()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            MockScheduler().init(conf_extra={"solver.shards": "2"},
-                                 device="cpu")
+        ms.init(conf_extra={"solver.shards": "2"}, device="cpu")
+        assert isinstance(ms.core, ShardedCoreScheduler)
+        assert [c.device.type for c in ms.core.shards] == ["cpu", "cpu"]
     finally:
+        ms.stop()
         reset_for_tests()
 
 
@@ -293,7 +353,7 @@ def test_binary_flags_reach_the_solver_options(argv, want, monkeypatch):
     SolverOptions (the core is stopped at its construction)."""
     from yunikorn_tpu_torch.cmd import scheduler as cmd
     from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
-    from yunikorn_tpu_torch.core import scheduler as tsched
+    from yunikorn_tpu_torch.core import shard as tshard
 
     class Built(Exception):
         pass
@@ -304,7 +364,8 @@ def test_binary_flags_reach_the_solver_options(argv, want, monkeypatch):
         seen.append((solver_options, kw.get("device")))
         raise Built
 
-    monkeypatch.setattr(tsched, "CoreScheduler", core)
+    # the binary builds its core through core/shard.make_core_scheduler
+    monkeypatch.setattr(tshard, "CoreScheduler", core)
     ckpt = str(ROOT / "tests" / "data" / "policy_fragmented_v1")
     argv = [ckpt if a == "CKPT" else a for a in argv]
     try:

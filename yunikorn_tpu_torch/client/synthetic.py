@@ -11,7 +11,9 @@ build), the duel arms' fragmented two-flavor fleet under a mixed,
 priority-skewed wave (make_pack_nodes / make_pack_pods / pack_asks,
 scripts/pack_bench.py's and cvx_bench.py's build), and a quota-bound
 pending backlog for the admission gate (build_gate_tree / build_gate_trace
-/ gate_meta_for, scripts/gate_bench.py's build).
+/ gate_meta_for, scripts/gate_bench.py's build), and the sharded control
+plane's fragmented fleet under mixed-size apps (make_shard_fleet,
+scripts/shard_bench.py's build).
 """
 from __future__ import annotations
 
@@ -288,6 +290,47 @@ def make_gang_pods(n_pods: int, n_nodes: int,
             gangs.append((app, size))
         g += 1
     return pods, gangs
+
+
+def make_shard_fleet(n_pods: int, n_nodes: int, n_domains: int,
+                     seed: int = 0):
+    """scripts/shard_bench.py's build: n_nodes (8,000m / 8 GiB) in
+    n_domains ICI domains (labelled as make_topology_fleet's), Running
+    co-tenant pods of 4,000m or 6,000m / 1 GiB on about 55% of them, and a
+    wave of n_pods asks of 1,000m / 1 GiB in mixed-size apps (1, 1, 2, 3,
+    5 or 8 pods each, bench-app-{k}). (nodes, co-tenant pods, [(app id,
+    AllocationAsk)])."""
+    from yunikorn_tpu_torch.common.resource import get_pod_resource
+    from yunikorn_tpu_torch.common.si import AllocationAsk
+    from yunikorn_tpu_torch.topology.model import (LABEL_ICI_DOMAIN,
+                                                   LABEL_RACK, LABEL_SLICE)
+
+    rng = random.Random(seed)
+    per = max(n_nodes // n_domains, 1)
+    nodes = []
+    for i in range(n_nodes):
+        dom = i // per
+        nodes.append(make_node(
+            f"n{i:05d}", cpu_milli=8000, memory=8 * 2**30,
+            labels={LABEL_SLICE: f"slice-{dom // 8}",
+                    LABEL_RACK: f"rack-{dom // 4}",
+                    LABEL_ICI_DOMAIN: f"ici-{dom % 8}"}))
+    cotenants = [make_pod(f"cot-{i}", cpu_milli=rng.choice([4000, 6000]),
+                          memory=2**30, node_name=f"n{i:05d}",
+                          phase="Running")
+                 for i in range(n_nodes) if rng.random() < 0.55]
+    asks = []
+    app_n = 0
+    while len(asks) < n_pods:
+        size = min(rng.choice([1, 1, 2, 3, 5, 8]), n_pods - len(asks))
+        app_id = f"bench-app-{app_n}"
+        app_n += 1
+        for j in range(size):
+            pod = make_pod(f"bp-{app_n}-{j}", cpu_milli=1000, memory=2**30)
+            asks.append((app_id, AllocationAsk(
+                allocation_key=f"bp-{app_n}-{j}", application_id=app_id,
+                resource=get_pod_resource(pod), pod=pod)))
+    return nodes, cotenants, asks
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,8 @@ kwok-style perf mode).
 Usage:
     python -m yunikorn_tpu_torch.cmd.scheduler [--nodes N] [--rest-port P]
         [--pods N] [--policy greedy|optimal|learned|all]
-        [--policy-checkpoint PREFIX]
+        [--policy-checkpoint PREFIX] [--shards N]
+        [--shard-epoch-seconds S] [--ledger-serve | --ledger-endpoint H:P]
 
 The JAX package's cmd/scheduler.py, ported. The core runs on the card:
 main(argv, device=None) passes `device` to it, so the command line always
@@ -16,10 +17,13 @@ runs on `cuda` and raises without a CUDA device; device="cpu" (a caller's
 choice, as the tests make it) runs the plain PyTorch path. The flags are
 the JAX binary's; those whose feature the port lacks raise
 NotImplementedError naming their ROADMAP item before the core is built:
---shards above 1, --shard-epoch-seconds, --ledger-endpoint and
---ledger-serve (item 13, the sharded control plane), --aot-store (also from
-$YK_AOT_STORE or conf solver.aotStore) and --prewarm (item 15, the
-warm-start layer), --kubeconfig (item 16, the real-cluster client).
+--aot-store (also from $YK_AOT_STORE or conf solver.aotStore) and
+--prewarm (item 15, the warm-start layer), --kubeconfig (item 16, the
+real-cluster client). --shards N >= 2 builds the sharded front end
+(core/shard.py) over N port cores on the one device, coupled through the
+exact global quota ledger; --ledger-serve puts that ledger behind a local
+socket and --ledger-endpoint couples to one in another process
+(core/ledger_service.py).
 --policy optimal runs the duel of the pack arm (or, with conf
 solver.pack=cvx, the cvx arm) against the greedy plan on the core's
 device; --policy learned the learned arm's (the two-tower scorer of the
@@ -55,17 +59,8 @@ POD_WAVE = 200
 def _check_flags(args, conf) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for each flag (or
     configmap key) whose feature the port does not have yet."""
-    from yunikorn_tpu_torch.core.scheduler import resolve_shards
-
     if args.kubeconfig:
         not_ported("--kubeconfig", 16, "real-cluster client")
-    resolve_shards(args.shards or conf.solver_shards)
-    if args.shard_epoch_seconds:
-        not_ported("--shard-epoch-seconds", 13, "sharded control plane")
-    if args.ledger_endpoint or conf.solver_ledger_endpoint:
-        not_ported("--ledger-endpoint", 13, "sharded control plane")
-    if args.ledger_serve:
-        not_ported("--ledger-serve", 13, "sharded control plane")
     if args.aot_store or conf.solver_aot_store:
         not_ported("--aot-store", 15, "warm-start layer")
     if args.prewarm:
@@ -100,9 +95,12 @@ def main(argv=None, device=None) -> int:
                              "JSON to this path at shutdown (the live ring "
                              "is always available at /debug/traces)")
     parser.add_argument("--shards", type=str, default="",
-                        help="control-plane shards: 'auto' or a count in "
-                             "[1, 64]; above 1 is not ported yet (ROADMAP "
-                             "item 13). Default: conf solver.shards (auto=1)")
+                        help="control-plane shards (core/shard.py): 'auto' "
+                             "or a count in [1, 64]. N >= 2 runs N pipelined "
+                             "CoreScheduler shards over disjoint topology-"
+                             "aligned node partitions, coupled through the "
+                             "exact global quota ledger + stranded-ask "
+                             "repair. Default: conf solver.shards (auto=1)")
     parser.add_argument("--policy", type=str, default="",
                         choices=("", "greedy", "optimal", "learned", "all"),
                         help="solver.policy override: greedy; optimal "
@@ -119,15 +117,25 @@ def main(argv=None, device=None) -> int:
                              "(policy_checkpoint_rejected_total) and the "
                              "learned arm skips")
     parser.add_argument("--shard-epoch-seconds", type=float, default=0.0,
-                        help="re-seed the shard partition every N seconds: "
-                             "not ported yet (ROADMAP item 13)")
+                        help="re-seed the shard partition every N seconds "
+                             "(0 = never): moved ICI domains migrate "
+                             "between shards so fragmentation cannot "
+                             "ossify")
     parser.add_argument("--ledger-endpoint", type=str, default="",
                         help="couple the sharded control plane to a quota "
-                             "ledger in another process: not ported yet "
-                             "(ROADMAP item 13)")
+                             "ledger served at host:port in ANOTHER "
+                             "process (core/ledger_service.py): every "
+                             "reserve/confirm/release rides the RPC "
+                             "boundary with deadlines, idempotent replay, "
+                             "circuit breaker and degraded-mode admission. "
+                             "Default: conf solver.ledgerEndpoint; empty = "
+                             "in-process direct ledger")
     parser.add_argument("--ledger-serve", action="store_true",
                         help="host the ledger authority behind a local "
-                             "socket: not ported yet (ROADMAP item 13)")
+                             "socket in THIS process and couple the shards "
+                             "through LedgerClient anyway (the single-box "
+                             "service shape; peers join via "
+                             "--ledger-endpoint). Requires --shards >= 2")
     args = parser.parse_args(argv)
 
     # The JAX binary seeds its persistent compilation cache here; the port's
@@ -146,9 +154,13 @@ def main(argv=None, device=None) -> int:
         for node in make_kwok_nodes(args.nodes):
             cluster.add_node(node)
 
-    from yunikorn_tpu_torch.core.scheduler import CoreScheduler, SolverOptions
+    from yunikorn_tpu_torch.core.ledger_service import LedgerClientOptions
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+    from yunikorn_tpu_torch.core.shard import (make_core_scheduler,
+                                               resolve_shards)
     from yunikorn_tpu_torch.obs.flightrec import FlightRecorderOptions
     from yunikorn_tpu_torch.obs.slo import SloOptions
+    from yunikorn_tpu_torch.robustness.failover import FailoverOptions
     from yunikorn_tpu_torch.robustness.supervisor import SupervisorOptions
 
     cache = SchedulerCache()
@@ -157,15 +169,35 @@ def main(argv=None, device=None) -> int:
         solver_opts.policy = args.policy
     if args.policy_checkpoint:
         solver_opts.policy_checkpoint = args.policy_checkpoint
-    core = CoreScheduler(
-        cache,
+    n_shards = resolve_shards(args.shards or holder.get().solver_shards)
+    ledger_endpoint = (args.ledger_endpoint
+                       or holder.get().solver_ledger_endpoint)
+    core = make_core_scheduler(
+        cache, shards=n_shards,
         solver_options=solver_opts,
         trace_spans=holder.get().obs_trace_spans,
         supervisor_options=SupervisorOptions.from_conf(holder.get()),
         slo_options=SloOptions.from_conf(holder.get()),
+        epoch_seconds=args.shard_epoch_seconds,
+        failover_options=FailoverOptions.from_conf(holder.get()),
         journey_capacity=holder.get().obs_journey_capacity,
         flightrec_options=FlightRecorderOptions.from_conf(holder.get()),
+        delivery_high_water=holder.get().solver_delivery_high_water,
+        ledger_endpoint=ledger_endpoint, ledger_serve=args.ledger_serve,
+        ledger_client_options=LedgerClientOptions.from_conf(holder.get()),
         device=device)
+    if n_shards > 1:
+        logger.info("control-plane sharding: %d shards (epoch %ss, "
+                    "failover stale budget %ss)",
+                    n_shards, args.shard_epoch_seconds or "off",
+                    holder.get().robustness_failover_stale_s)
+        if args.ledger_serve:
+            logger.info("ledger service: authority on %s (fail-closed=%s)",
+                        core.ledger_server.endpoint,
+                        holder.get().robustness_ledger_fail_closed)
+        elif ledger_endpoint:
+            logger.info("ledger service: coupling to remote authority at "
+                        "%s", ledger_endpoint)
     context = Context(cluster, core, cache=cache)
     shim = KubernetesShim(cluster, core, context=context)
     rest = RestServer(core, context, port=args.rest_port)

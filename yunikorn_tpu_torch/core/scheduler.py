@@ -25,7 +25,6 @@ The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
   - solver.shard=True (multi-GPU node-dim sharding, item 14) and an AOT
     namespace (the warm-start layer, item 15)
-  - the learned policy's duel recorder (policy_recorder, item 12b)
   - any fallback below the device tier: a gate scan, row-store sync,
     mirror refresh or solve that fails after its retries fails the cycle;
     nothing re-runs the card's work on the CPU. A device preemption
@@ -138,7 +137,8 @@ from yunikorn_tpu_torch.obs.slo import SloEngine, SloOptions
 from yunikorn_tpu_torch.obs.trace import CycleTracer
 from yunikorn_tpu_torch.ops import cvx_solve as cvx_mod
 from yunikorn_tpu_torch.ops import pack_solve as pack_mod
-from yunikorn_tpu_torch.ops.assign import load_kernels, not_ported, solve_batch
+from yunikorn_tpu_torch.ops.assign import (apply_free_delta, load_kernels,
+                                           not_ported, solve_batch)
 from yunikorn_tpu_torch.policy import net as policy_net
 from yunikorn_tpu_torch.robustness.health import HealthMonitor, solver_source
 from yunikorn_tpu_torch.robustness.supervisor import (
@@ -161,6 +161,13 @@ COMPLETING_TIMEOUT = 30.0  # Running app with nothing left → Completed after t
 # asks migrated into it, so it must never auto-complete the application —
 # only the home shard (and the front end's fleet view) can decide that.
 SHARD_GUEST_APP_TAG = "yunikorn.io/shard-guest"
+
+# Diagnostic marker stamped on re-homed app registrations (shard failover:
+# the app's home shard was quarantined and a surviving shard takes over).
+# No behavior keys off it: a re-homed registration works because it does
+# NOT carry the guest tag, and because the app already holds its fleet-wide
+# app slot on the ledger (reserve/commit are idempotent per key).
+SHARD_REHOME_APP_TAG = "yunikorn.io/shard-rehomed"
 
 # what _preempt_dispatch returns for a device dispatch that failed: the
 # cycle plans nothing (no host re-plan)
@@ -360,7 +367,7 @@ class CoreScheduler(SchedulerAPI):
         _check_options(self.solver, aot_namespace)
         self._lock = locking.RMutex()
         self.cache = cache
-        # ---- control-plane sharding hooks (core/shard.py, ROADMAP item 13)
+        # ---- control-plane sharding hooks (core/shard.py)
         # All default off and the defaults are bit-identical to the
         # pre-shard scheduler: no ledger probes, per-core registry, no
         # shard label on cycle_stage_ms. quota_ledger: shared
@@ -368,7 +375,7 @@ class CoreScheduler(SchedulerAPI):
         # (reserve at gate, confirm at commit, release on
         # release/eviction/app removal). shard_label: stamps per-shard
         # series in a SHARED registry. Pure host code, kept as in the JAX
-        # package; the sharded front that sets them is item 13.
+        # package; core/shard.ShardedCoreScheduler sets them.
         self.quota_ledger = quota_ledger
         self.shard_label = shard_label
         self.shard_index = 0
@@ -654,6 +661,11 @@ class CoreScheduler(SchedulerAPI):
         # set_policy_checkpoint (a rejected load touches neither)
         self._policy_ckpt = None
         self._policy_params = None
+        # optional per-cycle duel recorder (policy/train.DatasetWriter or
+        # any callable taking the raw-example dict): the hook that turns
+        # the scheduler into its own training-data source. Failures are
+        # swallowed — recording must never touch the scheduling path.
+        self.policy_recorder = None
         if self.solver.policy_checkpoint:
             self.set_policy_checkpoint(self.solver.policy_checkpoint)
         # the device mirror of the last greedy dispatch (the arms reuse it)
@@ -1930,7 +1942,44 @@ class CoreScheduler(SchedulerAPI):
                 "checkpoint": (self._policy_ckpt.hash
                                if self._policy_ckpt else ""),
             }
+        self._record_duel(h, cands, winner)
         return by_name[winner]
+
+    def _record_duel(self, h: "_SolveHandle", cands, winner: str) -> None:
+        """Feed the optional policy_recorder one raw-tensor duel example
+        (the policy/train.py training-data contract): host arrays only —
+        the plans were read back once for the duel, the overlay and the
+        node mask are host arrays. Never throws into the scheduling
+        path."""
+        rec = self.policy_recorder
+        if rec is None:
+            return
+        try:
+            na = self.encoder.nodes
+            free0 = np.floor(na.free).astype(np.int32)
+            if h.overlay is not None:
+                free0 = apply_free_delta(free0, h.overlay)
+            node_ok = np.asarray(na.valid & na.schedulable)
+            if h.node_mask is not None:
+                node_ok = node_ok & np.asarray(
+                    h.node_mask[: node_ok.shape[0]])
+            ex = {
+                "req": h.batch.req.astype(np.int32),
+                "rank": np.asarray(h.batch.rank),
+                "valid": np.asarray(h.batch.valid),
+                "free0": free0,
+                "cap": np.floor(na.capacity_arr).astype(np.int32),
+                "node_ok": node_ok,
+                "priorities": np.asarray(
+                    [(a.priority or 0) for a in h.admitted], np.int64),
+                "score_cols": int(h.batch.req.shape[1]),
+                "winner": winner,
+            }
+            for name, assigned in cands:
+                ex[f"plan_{name}"] = assigned
+            rec(ex)
+        except Exception:
+            logger.exception("policy duel recording failed (ignored)")
 
     def _solve_materialize(self, h: "_SolveHandle"):
         """Finish one supervised solve: read the result back to the host
@@ -3924,18 +3973,14 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
                    "warm-start layer")
 
 
-def resolve_shards(value) -> int:
-    """solver.shards -> shard count, resolved as the JAX package resolves it
-    ("auto" = 1, integers clamp to [1, 64], unparsable = 1). The port has
-    the single-shard core only: a count above 1 raises."""
-    s = str(value).strip().lower()
-    try:
-        n = 1 if s in ("", "auto") else max(1, min(int(s), 64))
-    except ValueError:
-        n = 1
-    if n > 1:
-        not_ported(f"solver.shards={n}", 13, "sharded control plane")
-    return n
+def __getattr__(name):
+    # resolve_shards lives in core/shard (which imports this module); the
+    # name stays importable from here, resolved at first use
+    if name == "resolve_shards":
+        from yunikorn_tpu_torch.core.shard import resolve_shards
+
+        return resolve_shards
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:

@@ -285,3 +285,23 @@ def gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """[N, R] int32 request tensor for one batch: each ask's pool slot (0 =
     the reserved zero row for padding), a new tensor."""
     return pool.index_select(0, idx.long())
+
+
+# ---------------------------------------------------------------------------
+# Device-resident usage mirror ops (ops/ledger_mirror.DeviceUsageMirror)
+# ---------------------------------------------------------------------------
+def usage_apply(dev: torch.Tensor, shard: int, t_idx: torch.Tensor,
+                k_idx: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """Scatter one shard's drained confirmed-usage deltas into its row of
+    the [S, T, K] int64 mirror, in place: dev[shard, t_idx[b], k_idx[b]]
+    += deltas[b]. Padded entries carry delta 0 at index (0, 0), where the
+    add is the identity. Integer adds are exact in any order, so repeated
+    indices accumulate to the same value however the device orders them."""
+    shard_idx = torch.full_like(t_idx, int(shard))
+    return dev.index_put_((shard_idx, t_idx, k_idx), deltas, accumulate=True)
+
+
+def usage_fold(dev: torch.Tensor) -> torch.Tensor:
+    """Fleet usage: the [S, T, K] mirror summed over the shard axis to the
+    [T, K] totals every shard's gate precheck reads (int64)."""
+    return dev.sum(dim=0, dtype=torch.int64)

@@ -1,5 +1,5 @@
-"""The learned dispatch policy's serving half (solver.policy=learned and
-all), the JAX package's policy/ in PyTorch.
+"""The learned dispatch policy (solver.policy=learned and all), the JAX
+package's policy/ in PyTorch: the serving half and the offline trainer.
 
 A two-tower scorer, trained offline, scores asks against nodes inside the
 assignment solve: an additive term in the odd rounds' best-node score and
@@ -13,7 +13,7 @@ Modules:
              versioned checkpoint format (.npz + JSON manifest) with
              reject-on-mismatch validation, byte for byte the JAX
              package's
-
-The offline trainer (policy/train.py there) is not ported yet (ROADMAP
-item 12b).
+  train      the duel dataset format (DatasetWriter, the core's
+             policy_recorder) and the two-phase fit on a device
+             (cmd/policy_train is its command line)
 """

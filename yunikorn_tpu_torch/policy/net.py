@@ -97,6 +97,19 @@ def params_from_numpy(params: Dict, device) -> Dict:
             "tau": float(np.float32(params["tau"]))}
 
 
+def params_to_numpy(params: Dict) -> Dict:
+    """Host-form params (numpy float32 leaves, tau np.float32) of
+    device-form ones: params_from_numpy's inverse, the form the trainer
+    returns and save_checkpoint writes."""
+    def tower(layers):
+        return tuple((w.detach().cpu().numpy().astype(np.float32),
+                      b.detach().cpu().numpy().astype(np.float32))
+                     for w, b in layers)
+
+    return {"pod": tower(params["pod"]), "node": tower(params["node"]),
+            "tau": np.float32(params["tau"])}
+
+
 def _tower(layers, x):
     (w1, b1), (w2, b2) = layers
     return torch.tanh(x @ w1 + b1) @ w2 + b2

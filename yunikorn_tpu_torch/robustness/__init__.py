@@ -11,10 +11,14 @@ cycle, and the health report says so.
                   per-path circuit breakers with half-open probe recovery
     faults      — injectable fault plane the chaos tests drive
     health      — component health state machine behind /ws/v1/health
-
-Shard failover (the JAX package's robustness/failover.py) is ROADMAP item
-13 and is not part of the port yet.
+    failover    — shard failure domains: detect a dead/wedged control-plane
+                  shard, quarantine + re-home its domains, rebuild + rejoin
+                  (core/shard.py registers failover_source on its health)
 """
+from yunikorn_tpu_torch.robustness.failover import (
+    FailoverOptions,
+    ShardSupervisor,
+)
 from yunikorn_tpu_torch.robustness.faults import (
     FaultPlane,
     InjectedCrash,
@@ -32,11 +36,13 @@ from yunikorn_tpu_torch.robustness.supervisor import (
 __all__ = [
     "AllTiersFailed",
     "DeadlineExceeded",
+    "FailoverOptions",
     "FaultPlane",
     "HealthMonitor",
     "InjectedCrash",
     "InjectedFault",
     "SupervisedExecutor",
+    "ShardSupervisor",
     "SupervisorOptions",
     "classify_error",
 ]

@@ -11,9 +11,9 @@ bench.py builds on it, mirroring scheduler_perf_test.go's use.
 The JAX package's shim/mock_scheduler.py, ported. The core runs on the card:
 init, restart and _boot take `device` (default None = `cuda`, raising
 without a CUDA device) and pass it to the core; device="cpu" runs the plain
-PyTorch path on the CPU. The core is the port's CoreScheduler, built
-directly: solver.shards resolving above 1 raises NotImplementedError (the
-sharded control plane and its failover are ROADMAP item 13).
+PyTorch path on the CPU. The core is built through
+core/shard.make_core_scheduler: solver.shards "auto"/1 gives the plain
+CoreScheduler, N >= 2 the sharded front end over N port cores.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
 from yunikorn_tpu_torch.client.fake import BindStats, FakeCluster
 from yunikorn_tpu_torch.common.objects import ConfigMap, Node, ObjectMeta, Pod
 from yunikorn_tpu_torch.conf.schedulerconf import get_holder, reset_for_tests
-from yunikorn_tpu_torch.core.scheduler import CoreScheduler, resolve_shards
+from yunikorn_tpu_torch.core.scheduler import CoreScheduler
 from yunikorn_tpu_torch.dispatcher import dispatcher as dispatch_mod
 from yunikorn_tpu_torch.shim.scheduler import KubernetesShim
 
@@ -43,8 +43,9 @@ class MockScheduler:
               device=None) -> None:
         """Shared conf/dispatcher/core/shim construction for init + restart
         (self.cluster must already exist). conf_extra's solver.shards (or
-        the configmap's) must resolve to 1: "auto"/1 builds the plain
-        CoreScheduler, N >= 2 raises (ROADMAP item 13)."""
+        the configmap's) selects the control-plane shard count: "auto"/1
+        builds the plain CoreScheduler, N >= 2 the sharded front end
+        (core/shard.make_core_scheduler)."""
         reset_for_tests()
         holder = get_holder()
         cm = {"service.schedulingInterval": str(interval),
@@ -54,21 +55,25 @@ class MockScheduler:
         dispatch_mod.reset_dispatcher()
         cache = SchedulerCache()
         from yunikorn_tpu_torch.core.scheduler import SolverOptions
+        from yunikorn_tpu_torch.core.shard import make_core_scheduler
 
         self._solver_policy = solver_policy
         self._device = device
         from yunikorn_tpu_torch.obs.flightrec import FlightRecorderOptions
         from yunikorn_tpu_torch.obs.slo import SloOptions
+        from yunikorn_tpu_torch.robustness.failover import FailoverOptions
         from yunikorn_tpu_torch.robustness.supervisor import SupervisorOptions
 
-        resolve_shards(holder.get().solver_shards)
-        self.core = CoreScheduler(
-            cache, interval=core_interval, solver_policy=solver_policy,
+        self.core = make_core_scheduler(
+            cache, shards=holder.get().solver_shards,
+            interval=core_interval, solver_policy=solver_policy,
             solver_options=SolverOptions.from_conf(holder.get()),
             supervisor_options=SupervisorOptions.from_conf(holder.get()),
             slo_options=SloOptions.from_conf(holder.get()),
+            failover_options=FailoverOptions.from_conf(holder.get()),
             journey_capacity=holder.get().obs_journey_capacity,
             flightrec_options=FlightRecorderOptions.from_conf(holder.get()),
+            delivery_high_water=holder.get().solver_delivery_high_water,
             device=device)
         self.context = Context(self.cluster, self.core, cache=cache)
         self.shim = KubernetesShim(self.cluster, self.core, context=self.context)
