@@ -198,12 +198,18 @@ phase fails, and when no CUDA device is present):
           10,000 nodes, 640 ICI domains, streamed in bursts of 256) at 1
           and SHARD_COUNT shards through make_core_scheduler on the card:
           placed and packed at 4 shards >= SHARD_MIN_QUALITY x 1 shard's,
-          the ledger's audit empty, the mirror at divergence 0, pods/s of
-          each and the speedup; scripts/failover_bench.py's cell (10,000
-          nodes, 4 shards, 1,024 pods bound, a second wave, then
-          quarantine_shard(1)): every node it owned re-homed, every ask
-          bound, the audit empty after each phase, quarantine_s and
-          recover_s; and the binary with --shards 2 --ledger-serve: every
+          the ledger's audit empty, the mirror at divergence 0, every
+          best_nodes call of both runs (captured on the shard threads)
+          bit-equal to best_nodes_reference, pods/s of each and the
+          speedup; scripts/failover_bench.py's cell (10,000 nodes, 4
+          shards, 1,024 pods bound, a second wave, then
+          quarantine_shard(1)) on a queue with a max, so every bind
+          charges the ledger and the shards' cycles drain its deltas into
+          the mirror on the card: every node it owned re-homed, every ask
+          bound, a late refresh with the dead shard's old epoch fenced,
+          the audit empty and the mirror equal to the ledger's confirmed
+          usage after each phase, quarantine_s and recover_s; and the
+          binary with --shards 2 --ledger-serve: every
           pod bound (/ws/v1/shards), yunikorn_shard_count 2 at /metrics,
           SIGTERM exits 0
   kernels one line per kernel: launches (the wrapper's count of calls in
@@ -216,7 +222,8 @@ phase fails, and when no CUDA device is present):
           shim's pressure run, the trained checkpoint's learned cycle and
           the 4-shard wave on the card; for learned_propose the learned
           core's cycle and the trained checkpoint's), error against
-          the plain version, kernel / plain /
+          the plain version (max_abs_err_shard: over the shard wave's
+          calls), kernel / plain /
           bound milliseconds (best_nodes at the first odd round's inputs,
           as the main path calls it; learned_propose at full-width random
           inputs)
@@ -225,6 +232,7 @@ The last two lines are the card's name and power limit, and the result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -405,6 +413,20 @@ SHARD_INTERVAL = 0.005
 SHARD_MIN_QUALITY = 0.97
 SHARD_COUNT = 4
 FAILOVER_NODES, FAILOVER_SHARDS, FAILOVER_PODS = 10_000, 4, 1_024
+# the failover cell's queue: a max every pod charges (so each bind
+# reserves and commits through the ledger, whose deltas the usage mirror
+# drains on the card) and that still admits the cell's 1,280 pods of
+# 200 millicores and 128 MiB
+FAILOVER_QUEUES = """
+partitions:
+  - name: default
+    queues:
+      - name: root
+        queues:
+          - name: capped
+            resources:
+              max: {vcore: 512, memory: 512Gi}
+"""
 SHARD_CMD_NODES, SHARD_CMD_PODS = 1_000, 2_000
 # the usage mirror's check: ledger operations and trackers
 MIRROR_OPS, MIRROR_TRACKERS = 4_096, 48
@@ -757,10 +779,11 @@ def check_placements(batch, enc, res, n, dev):
         raise AssertionError("a padding row was placed")
 
 
-def solve_capturing(batch, enc, dev):
-    """One solve_batch on `dev` with the kernel's launch count set to 0
-    just before it and read just after, and a copy of every best_nodes
-    call's inputs: (result, captured calls, launches, host ms)."""
+@contextlib.contextmanager
+def capturing_best_nodes():
+    """Route ops/assign's best_nodes through a spy that keeps a copy of
+    every call's inputs, cloned on the thread (and so the stream) that
+    made the call; yields the list of (args, kwargs)."""
     from yunikorn_tpu_torch.ops import assign
     from yunikorn_tpu_torch.ops.best_nodes import best_nodes
 
@@ -774,6 +797,36 @@ def solve_capturing(batch, enc, dev):
 
     assign.best_nodes = spy
     try:
+        yield captured
+    finally:
+        assign.best_nodes = best_nodes
+
+
+def hold_calls(captured, where):
+    """Each captured best_nodes call again through the kernel and through
+    best_nodes_reference: raises unless both outputs are bit-equal;
+    returns the largest |best - best_ref| (0)."""
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference)
+
+    err = 0
+    for args, kwargs in captured:
+        got = best_nodes(*args, **kwargs)
+        ref = best_nodes_reference(*args, **kwargs)
+        err = max(err, int((got[0].long() - ref[0].long()).abs().max()))
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"kernel differs from plain at {where}")
+    return err
+
+
+def solve_capturing(batch, enc, dev):
+    """One solve_batch on `dev` with the kernel's launch count set to 0
+    just before it and read just after, and a copy of every best_nodes
+    call's inputs: (result, captured calls, launches, host ms)."""
+    from yunikorn_tpu_torch.ops import assign
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+
+    with capturing_best_nodes() as captured:
         best_nodes.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -781,8 +834,6 @@ def solve_capturing(batch, enc, dev):
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = best_nodes.launches
-    finally:
-        assign.best_nodes = best_nodes
     return res, captured, launches, first_ms
 
 
@@ -3542,11 +3593,11 @@ class CountingCallback:
 
 
 def shard_front(dev, shards, nodes, cotenants=(), interval=0.05,
-                failover=None):
+                failover=None, queues_yaml=""):
     """A scheduler of `shards` port cores on `dev` built as users build it
     (core/shard.make_core_scheduler; for shards >= 2 the sharded front),
-    with `nodes` and the co-tenant pods registered and dynamic queues.
-    (core, cache, callback)."""
+    with `nodes` and the co-tenant pods registered, and `queues_yaml`'s
+    queues (dynamic queues when it is empty). (core, cache, callback)."""
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
     from yunikorn_tpu_torch.common import si
     from yunikorn_tpu_torch.core.shard import make_core_scheduler
@@ -3556,7 +3607,7 @@ def shard_front(dev, shards, nodes, cotenants=(), interval=0.05,
     core = make_core_scheduler(cache, shards=shards, interval=interval,
                                failover_options=failover, device=dev)
     core.register_resource_manager(si.RegisterResourceManagerRequest(
-        rm_id="smoke", policy_group="queues"), cb)
+        rm_id="smoke", policy_group="queues", config=queues_yaml), cb)
     infos = []
     for n in nodes:
         cache.update_node(n)
@@ -3583,7 +3634,10 @@ def shard_pass(dev, shards, fleet, wave=256, wave_gap_s=0.01, stall_s=3.0,
     in bursts of `wave` asks while the shards' own cycle loops drain it;
     placed, packed cpu, pods/s from the start to the last placement, the
     admitted cycles, best_nodes' launches, and for the sharded front the
-    ledger's audit and the usage mirror's divergence."""
+    ledger's audit and the usage mirror's divergence. Every best_nodes
+    call the cores make (on whichever shard's thread) is captured and
+    held against best_nodes_reference after the run: bit-equal, or the
+    pass raises."""
     from yunikorn_tpu_torch.common.si import AllocationRequest
     from yunikorn_tpu_torch.ops.best_nodes import best_nodes
 
@@ -3591,25 +3645,30 @@ def shard_pass(dev, shards, fleet, wave=256, wave_gap_s=0.01, stall_s=3.0,
     core, _, cb = shard_front(dev, shards, nodes, cotenants, SHARD_INTERVAL)
     submit_apps(core, sorted({a for a, _ in asks}), "root.tenants")
     bursts = [asks[i:i + wave] for i in range(0, len(asks), wave)]
-    best_nodes.launches = 0
-    t0 = time.perf_counter()
-    core.start()
-    try:
-        for burst in bursts:
-            core.update_allocation(AllocationRequest(
-                asks=[a for _, a in burst]))
-            time.sleep(wave_gap_s)
-        while True:
-            with cb.mu:
-                placed, last = len(cb.placed), cb.last_place_at
-            now = time.perf_counter()
-            if (placed >= len(asks) or now - t0 > timeout_s
-                    or (placed and now - last > stall_s)):
-                break
-            time.sleep(0.02)
-    finally:
-        core.stop()
-    launches = best_nodes.launches
+    with capturing_best_nodes() as captured:
+        best_nodes.launches = 0
+        t0 = time.perf_counter()
+        core.start()
+        try:
+            for burst in bursts:
+                core.update_allocation(AllocationRequest(
+                    asks=[a for _, a in burst]))
+                time.sleep(wave_gap_s)
+            while True:
+                with cb.mu:
+                    placed, last = len(cb.placed), cb.last_place_at
+                now = time.perf_counter()
+                if (placed >= len(asks) or now - t0 > timeout_s
+                        or (placed and now - last > stall_s)):
+                    break
+                time.sleep(0.02)
+        finally:
+            core.stop()
+        launches = best_nodes.launches
+    if len(captured) != launches:
+        raise AssertionError(f"{shards} shards: {launches} launches but "
+                             f"{len(captured)} calls captured")
+    max_abs_err = hold_calls(captured, f"a {shards}-shard call's inputs")
     with cb.mu:
         allocs = list(cb.placed.values())
         wall = max(cb.last_place_at - t0, 1e-6)
@@ -3617,7 +3676,10 @@ def shard_pass(dev, shards, fleet, wave=256, wave_gap_s=0.01, stall_s=3.0,
     out = {"shards": shards, "placed": len(allocs),
            "packed_cpu": sum(a.resource.get("cpu") or 0 for a in allocs),
            "wall_s": wall, "pods_per_s": len(allocs) / wall,
-           "best_nodes_launches": launches}
+           "best_nodes_launches": launches,
+           "calls_held": len(captured), "max_abs_err": max_abs_err,
+           "call_shapes_nm": sorted({(int(a[0].shape[0]), int(a[4].shape[0]))
+                                     for a, _ in captured})}
     if shards > 1:
         out["cycles"] = sum(int(hist.child_state(stage="total",
                                                  shard=str(k))[0])
@@ -3652,19 +3714,48 @@ def shard_bench(dev, stats):
                              f"{q_placed:.4f}x, packed {q_packed:.4f}x, "
                              f"audit {best['audit']}, divergence "
                              f"{best['mirror_divergence']}")
-    stats.setdefault("best_nodes", {})["launches_shard"] = \
-        best["best_nodes_launches"]
+    stats.setdefault("best_nodes", {}).update(
+        launches_shard=best["best_nodes_launches"],
+        max_abs_err_shard=max(r["max_abs_err"] for r in runs))
     return {"shape": shape, "runs": runs, "placed_ratio": q_placed,
             "packed_ratio": q_packed,
             "speedup": best["pods_per_s"] / base["pods_per_s"]}
 
 
+def mirror_exact(front, timeout_s=10.0):
+    """Poll the sharded front's usage mirror until, drained, it equals the
+    ledger's confirmed usage cell for cell (divergence() 0 and host_usage()
+    == usage_snapshot(); a shard's drain may be in flight between its
+    journal swap and its fold). Raises at the timeout; returns the polls
+    taken and the mirror's stats."""
+    mirror, ledger = front.usage_mirror, front.ledger
+    deadline = time.perf_counter() + timeout_s
+    polls = 0
+    while True:
+        polls += 1
+        div = mirror.divergence()
+        if div == 0 and mirror.host_usage() == ledger.usage_snapshot():
+            return {"polls": polls, **mirror.stats()}
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"mirror diverged: {div} cells after "
+                                 f"{polls} polls")
+        time.sleep(0.05)
+
+
 def shard_failover(dev):
     """scripts/failover_bench.py's cell on the port: n_pods bound across
     every shard, a second wave landing, then quarantine_shard(1) and the
-    drain. Bars: every node the dead shard owned re-homed, every ask
-    bound, the ledger's audit empty after each phase, the mirror at
-    divergence 0."""
+    drain. The pods go to a queue with a max (FAILOVER_QUEUES), so every
+    bind reserves and commits through the ledger and the shards' cycles
+    drain its deltas into the usage mirror on the card, the dead shard's
+    epoch fenced while the second wave binds. Bars: every node the dead
+    shard owned re-homed, every ask bound and its pod in the ledger's
+    confirmed usage, the dead shard's mirror epoch bumped and a late
+    refresh with its old stamp fenced, and after each phase the ledger's
+    audit empty and the mirror equal to the ledger's confirmed usage
+    (mirror_exact). Reports the journal's undrained deltas at the
+    quarantine and which shards' rows of the card's [S, T, K] tensor
+    carry usage (the shards' cycles drain into their own rows)."""
     from yunikorn_tpu_torch.common.objects import make_node, make_pod
     from yunikorn_tpu_torch.common.resource import get_pod_resource
     from yunikorn_tpu_torch.common.si import AllocationAsk, AllocationRequest
@@ -3676,10 +3767,11 @@ def shard_failover(dev):
     t0 = time.perf_counter()
     front, _, cb = shard_front(
         dev, n_shards, [make_node(f"bn-{i}", cpu_milli=8000)
-                        for i in range(n_nodes)], failover=still)
+                        for i in range(n_nodes)], failover=still,
+        queues_yaml=FAILOVER_QUEUES)
     registration_s = time.perf_counter() - t0
     apps = [f"bapp-{i}" for i in range(max(n_shards * 4, 16))]
-    submit_apps(front, apps, "root.default")
+    submit_apps(front, apps, "root.capped")
 
     def wave(prefix, count):
         keys = []
@@ -3705,18 +3797,28 @@ def shard_failover(dev):
         keys = wave("bp", n_pods)
         if not wait_bound(keys, 120):
             raise AssertionError("the working set did not bind")
+        audit_bound = front.ledger.audit()
+        mirror_bound = mirror_exact(front)
         victim = 1 % n_shards
         owned_before = front.fanout.count_for(victim)
         keys += wave("bw", max(n_pods // 4, n_shards * 8))
         parked = sum(1 for k, h in front._ask_home.items()
                      if h == victim and k not in front._alloc_shard)
+        in_flight = len(front.ledger._deltas or ())
         t_q = time.perf_counter()
         ok = front.quarantine_shard(victim, "smoke")
         quarantine_s = time.perf_counter() - t_q
         audit_q = front.ledger.audit()
+        # the dead shard's cycle refreshing late with its stale stamp
+        stale = mirror_bound["epochs"][victim]
+        fenced = front.usage_mirror.fenced_refreshes
+        front.usage_mirror.refresh(victim, front.ledger, epoch=stale)
+        fenced = front.usage_mirror.fenced_refreshes - fenced
+        mirror_q = mirror_exact(front)
         t_r = time.perf_counter()
         all_bound = wait_bound(keys, 120)
         recover_s = time.perf_counter() - t_r
+        mirror_final = mirror_exact(front)
         out = {"shards": n_shards, "nodes": n_nodes, "pods": n_pods,
                "registration_s": registration_s,
                "owned_before": owned_before, "parked_before": parked,
@@ -3724,14 +3826,26 @@ def shard_failover(dev):
                "rehomed_nodes": front._rehomed_nodes_total,
                "owned_after": front.fanout.count_for(victim),
                "recover_s": recover_s, "bound": len(cb.placed),
-               "asks": len(keys), "audit_after_quarantine": audit_q,
+               "asks": len(keys), "audit_after_bind": audit_bound,
+               "audit_after_quarantine": audit_q,
                "audit_final": front.ledger.audit(),
-               "mirror_divergence": front.usage_mirror.divergence()}
+               "mirror_after_bind": mirror_bound,
+               "mirror_after_quarantine": mirror_q,
+               "mirror_final": mirror_final,
+               "journal_at_quarantine": in_flight,
+               "stale_refreshes_fenced": fenced,
+               "mirror_device": str(front.usage_mirror.device),
+               "shard_rows_charged": (front.usage_mirror._dev != 0)
+               .flatten(1).any(1).tolist(),
+               "confirmed_usage": front.ledger.usage_snapshot()}
     finally:
         front.stop()
     if not (ok and all_bound and out["rehomed_nodes"] == owned_before
-            and out["owned_after"] == 0 and not audit_q
-            and not out["audit_final"] and not out["mirror_divergence"]):
+            and out["owned_after"] == 0 and not audit_bound
+            and not audit_q and not out["audit_final"]
+            and out["confirmed_usage"].get("q|root.capped", {}).get("pods")
+            == len(keys)
+            and mirror_final["epochs"][victim] > stale and fenced == 1):
         raise AssertionError(f"failover cell: {out}")
     return out
 

@@ -364,12 +364,9 @@ def test_ledger_wire_parity_across_packages(client_pkg, server_pkg):
 
 # ------------------------------------------------------------- port fronts
 def test_resolve_shards_values():
-    from yunikorn_tpu_torch.core.scheduler import resolve_shards
-
-    assert resolve_shards is tshard.resolve_shards
     for v, want in (("auto", 1), ("", 1), ("1", 1), ("4", 4), (8, 8),
                     ("999", 64), ("bogus", 1)):
-        assert resolve_shards(v) == want == jshard.resolve_shards(v)
+        assert tshard.resolve_shards(v) == want == jshard.resolve_shards(v)
 
 
 def test_make_core_scheduler_builds_port_cores():

@@ -3973,16 +3973,6 @@ def _check_options(so: SolverOptions, aot_namespace) -> None:
                    "warm-start layer")
 
 
-def __getattr__(name):
-    # resolve_shards lives in core/shard (which imports this module); the
-    # name stays importable from here, resolved at first use
-    if name == "resolve_shards":
-        from yunikorn_tpu_torch.core.shard import resolve_shards
-
-        return resolve_shards
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:
     """The first n rows of a solve's assignment as a host array: a CUDA
     tensor is copied off the card (numpy cannot read one)."""

@@ -882,7 +882,7 @@ class ShardedCoreScheduler(SchedulerAPI):
                  epoch_seconds: float = 0.0, aot_namespace: bool = False,
                  failover_options=None, journey_capacity: int = 8192,
                  flightrec_options=None, delivery_high_water: int = 1024,
-                 usage_mirror: bool = True, ledger_endpoint: str = "",
+                 ledger_endpoint: str = "",
                  ledger_serve: bool = False, ledger_client_options=None,
                  host_id: str = "", device=None):
         # aot_namespace=True gives each shard its own executable namespace
@@ -1043,13 +1043,11 @@ class ShardedCoreScheduler(SchedulerAPI):
         # device, pre-reduced across shards, so each shard's gate precheck
         # reads fleet usage with zero lock acquisitions. Built BEFORE the
         # shards so every core shares it.
-        self.usage_mirror = None
-        if usage_mirror:
-            from yunikorn_tpu_torch.ops.ledger_mirror import DeviceUsageMirror
-            self.usage_mirror = DeviceUsageMirror(
-                n_shards, device=self.device,
-                divergence_gauge=self._m_mirror_div)
-            self.ledger.attach_mirror(self.usage_mirror)
+        from yunikorn_tpu_torch.ops.ledger_mirror import DeviceUsageMirror
+        self.usage_mirror = DeviceUsageMirror(
+            n_shards, device=self.device,
+            divergence_gauge=self._m_mirror_div)
+        self.ledger.attach_mirror(self.usage_mirror)
         self.shards: List[CoreScheduler] = []
         self._callbacks: List[Optional[_ShardCallback]] = [None] * n_shards
         for k in range(n_shards):
@@ -1132,8 +1130,7 @@ class ShardedCoreScheduler(SchedulerAPI):
         # mirror journal epoch stamp: a quarantined zombie's stale stamp
         # fences its late refreshes out of the fold (rebuilt cores get the
         # post-fence epoch here)
-        core._mirror_epoch = (self.usage_mirror.epoch_of(k)
-                              if self.usage_mirror is not None else 0)
+        core._mirror_epoch = self.usage_mirror.epoch_of(k)
         self.tracer.register(k, core.tracer, name=f"shard {k}")
         return core
 
@@ -1311,8 +1308,7 @@ class ShardedCoreScheduler(SchedulerAPI):
                 "exhausted": int(self._m_repair.value(outcome="exhausted")),
             },
             "ledger": self.ledger.stats(),
-            "mirror": (self.usage_mirror.stats()
-                       if self.usage_mirror is not None else None),
+            "mirror": self.usage_mirror.stats(),
             "suppressed_completions": suppressed,
             "failover": fo,
         }
@@ -1804,8 +1800,7 @@ class ShardedCoreScheduler(SchedulerAPI):
             # cannot scatter usage_apply rows into the fold — any deltas
             # it drained but never folded are requeued on the authority
             old_core.usage_mirror = None
-            if self.usage_mirror is not None:
-                self.usage_mirror.fence_shard(idx)
+            self.usage_mirror.fence_shard(idx)
             old_core._running.clear()  # soft-stop; never join a wedged loop
             try:
                 with old_core._wake:
