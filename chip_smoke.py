@@ -6,7 +6,8 @@ admission gate with the device-resident node, victim and request state,
 the pack and cvx duel arms of solver.policy=optimal, the learned policy's
 serving path (solver.policy=learned and all) and its trainer, the shim,
 mock scheduler and scheduler binary that bring a cluster's pods to the
-core, and the sharded control plane (solver.shards >= 2).
+core, the real-cluster client (--kubeconfig) and the trace-replay driver,
+and the sharded control plane (solver.shards >= 2).
 
     python3 chip_smoke.py
 
@@ -191,6 +192,36 @@ phase fails, and when no CUDA device is present):
           /metrics carries the core's series, SIGTERM exits 0 within 30 s
           with the
           --trace-out JSON written, and the child's log names device=cuda
+  kube    the binary with --kubeconfig, on the card, against
+          tests/fake_apiserver.py's server started in this process (the
+          client/kube reflectors over HTTP): CMD_NODES nodes at the server
+          before start, CMD_PODS sleep pods added in waves of KUBE_WAVE, the
+          event log compacted and every watch killed once halfway (the
+          reflectors reconnect, get 410 Gone and relist); every pod bound at
+          the server exactly once, /metrics valid under the port's
+          obs/promtext and carrying informer_restarts_total and
+          informer_last_sync_age_seconds, SIGTERM exits 0 within 30 s;
+          nodes_ready_s, all_bound_s, pods/s from the first bind to the
+          last, the informers' restarts, the first cycle's ms and the
+          cycles' mean stage ms
+  replay  yunikorn_tpu_torch.cmd.trace_replay's run_replay on the card,
+          every best_nodes and learned_propose call captured and held
+          against its plain version afterwards (best_nodes bit-equal;
+          learned_propose by check_proposals), each run's launches counted
+          from 0: (A) gang-storm at the JAX replay's acceptance shape
+          (REPLAY_STORM: 10,000 nodes, 900 pods, 6 tenants, 30 s): pass,
+          all five verdicts ok, every pod bound, the fingerprint, warm-up,
+          first cycle, trace, drain and wall seconds and the e2e p99; (B)
+          the policy round trip (REPLAY_POLICY, slice-fragmentation at
+          1,024 nodes x 768 pods): a recording under solver.policy=optimal
+          with --dataset-out holding at least one duel cycle, a fit on the
+          card by `python -m yunikorn_tpu_torch.cmd.policy_train` of
+          POLICY_FIT_EPOCHS, and the greedy, optimal and learned arms with
+          the new checkpoint: the learned arm serving it, binding no fewer
+          pods than greedy and launching learned_propose; (C) restart-storm
+          with a fresh-process takeover (REPLAY_TAKEOVER, no store): every
+          bound pod restored, none lost, none mis-evicted, the child's
+          first cycle ms
   shard   the sharded control plane: usage_apply / usage_fold on the card
           bit-equal to the CPU and a DeviceUsageMirror on the card at
           divergence 0 through MIRROR_OPS ledger operations with epoch
@@ -216,14 +247,15 @@ phase fails, and when no CUDA device is present):
           the main path's run; launches_locality, launches_topology,
           launches_duel (launches_duel_repair of them in the pack arm's
           repair), launches_learned (launches_learned_arm of them in the
-          learned solve), launches_shim, launches_train and
-          launches_shard: in the locality and topology paths' full-width
-          runs, the optimal and the learned core's full-width cycles, the
-          shim's pressure run, the trained checkpoint's learned cycle and
-          the 4-shard wave on the card; for learned_propose the learned
-          core's cycle and the trained checkpoint's), error against
-          the plain version (max_abs_err_shard: over the shard wave's
-          calls), kernel / plain /
+          learned solve), launches_shim, launches_train,
+          launches_replay_* and launches_shard: in the locality and
+          topology paths' full-width runs, the optimal and the learned
+          core's full-width cycles, the shim's pressure run, the trained
+          checkpoint's learned cycle, each replay run and the 4-shard wave
+          on the card; for learned_propose the learned core's cycle, the
+          trained checkpoint's and the replay's learned arm), error against
+          the plain version (max_abs_err_shard / max_abs_err_replay: over
+          the shard wave's / the replays' calls), kernel / plain /
           bound milliseconds (best_nodes at the first odd round's inputs,
           as the main path calls it; learned_propose at full-width random
           inputs)
@@ -430,6 +462,27 @@ partitions:
 SHARD_CMD_NODES, SHARD_CMD_PODS = 1_000, 2_000
 # the usage mirror's check: ledger operations and trackers
 MIRROR_OPS, MIRROR_TRACKERS = 4_096, 48
+# the kube phase: the binary with --kubeconfig against the fake API server
+# at the cmd phase's shape (CMD_NODES nodes, CMD_PODS sleep pods added at
+# the server in waves of KUBE_WAVE every KUBE_WAVE_GAP_S seconds; the
+# watches are killed and the event log compacted once, halfway)
+KUBE_WAVE, KUBE_WAVE_GAP_S = 500, 0.5
+# the replay phase, through yunikorn_tpu_torch.cmd.trace_replay's
+# run_replay on the card: (A) the JAX replay's acceptance shape,
+# gang-storm at 10,000 nodes with its defaults (900 pods, 6 tenants, 30 s,
+# seed 42, interval 0.05); (B) `make policy-smoke`'s replay half, a
+# slice-fragmentation replay recorded under solver.policy=optimal
+# (--dataset-out), a fit on the card of POLICY_FIT_EPOCHS, and the
+# three-arm A/B with the new checkpoint; (C) `make failover-smoke`'s
+# fresh-process takeover without a store
+REPLAY_STORM = ["--trace", "gang-storm", "--nodes", "10000"]
+REPLAY_POLICY = ["--trace", "slice-fragmentation", "--nodes", "1024",
+                 "--pods", "768", "--tenants", "4", "--duration", "12"]
+POLICY_FIT_EPOCHS = (30, 20)
+REPLAY_TAKEOVER = ["--trace", "restart-storm", "--nodes", "300", "--pods",
+                   "240", "--tenants", "4", "--duration", "14",
+                   "--restart-mode", "process", "--takeover-window", "25",
+                   "--slo-cold-budget-ms", "120000"]
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -800,6 +853,32 @@ def capturing_best_nodes():
         yield captured
     finally:
         assign.best_nodes = best_nodes
+
+
+@contextlib.contextmanager
+def capturing_learned_propose():
+    """Route ops/assign's learned_propose through a spy that keeps a copy
+    of every call's arguments by name (cloned on the calling thread);
+    yields the list of dicts."""
+    import inspect
+
+    from yunikorn_tpu_torch.ops import assign
+    from yunikorn_tpu_torch.ops.learned import learned_propose
+
+    sig = inspect.signature(learned_propose)
+    captured = []
+
+    def spy(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs).arguments
+        captured.append({k: v.clone() if isinstance(v, torch.Tensor) else v
+                         for k, v in bound.items()})
+        return learned_propose(*args, **kwargs)
+
+    assign.learned_propose = spy
+    try:
+        yield captured
+    finally:
+        assign.learned_propose = learned_propose
 
 
 def hold_calls(captured, where):
@@ -2847,10 +2926,6 @@ def learned_all_cut(dev):
     return out
 
 
-PROPOSE_ARGS = ("pod_emb", "node_emb", "group_id", "group_feas", "free",
-                "req", "active", "tau", "key", "rnd", "chunk")
-
-
 def learned_solve_calls(batch, enc, params, dev, stats, clock_hz):
     """One full-width learned solve with a copy of every learned_propose
     call's inputs; then each call again at its own inputs: the rows it
@@ -2860,20 +2935,10 @@ def learned_solve_calls(batch, enc, params, dev, stats, clock_hz):
     from yunikorn_tpu_torch.ops import assign
     from yunikorn_tpu_torch.ops import learned as lmod
 
-    captured = []
     real = lmod.learned_propose
-
-    def spy(*args, **kwargs):
-        captured.append({k: v.clone() if isinstance(v, torch.Tensor) else v
-                         for k, v in zip(PROPOSE_ARGS, args)})
-        return real(*args, **kwargs)
-
-    assign.learned_propose = spy
-    try:
+    with capturing_learned_propose() as captured:
         res = assign.solve_batch(batch, enc.nodes, device=dev,
                                  learned=(params, LEARNED_SEED), **SOLVE_KW)
-    finally:
-        assign.learned_propose = real
     calls = []
     for inp in captured:
         b = learned_propose_bound_ms(inp, clock_hz)
@@ -3435,6 +3500,15 @@ def phase_shim(dev, stats):
                              "card_run_s": card_s}}
 
 
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
 def rest_call(port, path, body=None, timeout=30):
     import urllib.error
     import urllib.request
@@ -3453,12 +3527,9 @@ def rest_call(port, path, body=None, timeout=30):
 def phase_cmd():
     """The scheduler binary as a user starts it, on the card."""
     import signal
-    import socket
     import tempfile
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+    port = free_port()
     tmp = tempfile.mkdtemp(prefix="yk-cmd-")
     trace_out = os.path.join(tmp, "cycles.json")
     log_path = os.path.join(tmp, "scheduler.log")
@@ -3550,6 +3621,385 @@ def phase_cmd():
                 "log_device_line": next(ln for ln in log_text.splitlines()
                                         if "device=cuda" in ln)[-120:]})
     return out
+
+
+def scheduler_argv(*flags):
+    """The command that starts the scheduler binary, as a user runs it."""
+    return [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
+            *flags]
+
+
+def fake_apiserver():
+    """tests/fake_apiserver.FakeAPIServer, started: (server, port)."""
+    from yunikorn_tpu_torch.cmd.trace_replay import fake_apiserver_class
+
+    server = fake_apiserver_class()()
+    return server, server.start()
+
+
+def metric_sums(families, name, by):
+    """{label value: sample sum} of a parsed family's samples named
+    `name`, keyed by the label `by`."""
+    out = {}
+    for fam in families.values():
+        for sample in fam.samples:
+            if sample.name == name:
+                key = sample.labels.get(by, "")
+                out[key] = out.get(key, 0.0) + sample.value
+    return out
+
+
+def phase_kube():
+    """The scheduler binary with --kubeconfig, on the card, against the
+    fake API server in this process: CMD_NODES nodes at the server before
+    start, CMD_PODS sleep pods added in waves, the watches killed and the
+    event log compacted once halfway (the reflectors reconnect, get 410 and
+    relist). Every pod bound exactly once at the server, /metrics valid
+    under the port's promtext with the reflectors' series, SIGTERM exits
+    0."""
+    import signal
+    import tempfile
+
+    from yunikorn_tpu_torch.obs.promtext import (parse_exposition,
+                                                 validate_exposition)
+
+    server, api_port = fake_apiserver()
+    tmp = tempfile.mkdtemp(prefix="yk-kube-")
+    kubeconfig = os.path.join(tmp, "kubeconfig")
+    with open(kubeconfig, "w") as f:
+        # JSON, which the kubeconfig loader's YAML parser reads
+        json.dump({"apiVersion": "v1", "kind": "Config",
+                   "current-context": "fake",
+                   "clusters": [{"name": "fake", "cluster": {
+                       "server": f"http://127.0.0.1:{api_port}"}}],
+                   "contexts": [{"name": "fake", "context": {
+                       "cluster": "fake", "user": "u"}}],
+                   "users": [{"name": "u", "user": {}}]}, f)
+    for i in range(CMD_NODES):
+        server.add_node_doc(f"kn-{i}")
+    rest = free_port()
+    argv = scheduler_argv("--kubeconfig", kubeconfig, "--rest-port",
+                          str(rest))
+    log_path = os.path.join(tmp, "scheduler.log")
+    out = {"argv": argv[2:4] + ["<kubeconfig>"] + argv[5:]}
+
+    def bound_names():
+        return [n for n, _ in list(server.bindings)]
+
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                    stderr=log)
+            try:
+                def wait(cond, what, timeout, on_tick=None):
+                    deadline = time.perf_counter() + timeout
+                    while time.perf_counter() < deadline:
+                        if proc.poll() is not None:
+                            raise AssertionError(
+                                f"the scheduler exited {proc.returncode} "
+                                f"waiting for {what}")
+                        try:
+                            if cond():
+                                return time.perf_counter()
+                        except OSError:
+                            pass
+                        if on_tick is not None:
+                            on_tick()
+                        time.sleep(0.1)
+                    raise AssertionError(f"timed out waiting for {what}")
+
+                t_nodes = wait(lambda: len(json.loads(rest_call(
+                    rest, "/ws/v1/nodes")[1])) == CMD_NODES,
+                    f"{CMD_NODES} nodes", 180)
+                out["nodes_ready_s"] = t_nodes - t0
+                first_bind = []
+
+                def note_first_bind():
+                    if not first_bind and server.bindings:
+                        first_bind.append(time.perf_counter())
+
+                added = 0
+                disrupted = {}
+                t_pods = time.perf_counter()
+                while added < CMD_PODS:
+                    for i in range(added, min(added + KUBE_WAVE, CMD_PODS)):
+                        server.add_pod_doc(f"kp-{i}", app_id=f"kube-app-{i % 5}")
+                    added = min(added + KUBE_WAVE, CMD_PODS)
+                    if not disrupted and added >= CMD_PODS // 2:
+                        # the reflectors' resume point falls out of the
+                        # compacted log: each reconnect gets 410 and relists
+                        server.compact()
+                        disrupted = {"at_pods_added": added,
+                                     "bound_then": len(server.bindings),
+                                     "watches_killed": server.kill_watches()}
+                    end = time.perf_counter() + KUBE_WAVE_GAP_S
+                    while time.perf_counter() < end:
+                        note_first_bind()
+                        time.sleep(0.02)
+                t_bound = wait(lambda: len(server.bindings) >= CMD_PODS,
+                               f"{CMD_PODS} pods bound at the server", 240,
+                               on_tick=note_first_bind)
+                note_first_bind()
+                time.sleep(1.0)  # a late duplicate bind would land here
+                out["all_bound_s"] = t_bound - t0
+                out["disruption"] = disrupted
+                status, metrics = rest_call(rest, "/metrics")
+                if status != 200:
+                    raise AssertionError(f"/metrics: {status}")
+                problems = validate_exposition(metrics)
+                if problems:
+                    raise AssertionError(f"/metrics invalid: {problems[:5]}")
+                fams = parse_exposition(metrics)
+                for fam in ("yunikorn_informer_restarts_total",
+                            "yunikorn_informer_last_sync_age_seconds"):
+                    if fam not in fams:
+                        raise AssertionError(f"/metrics lacks {fam}")
+                status, health = rest_call(rest, "/ws/v1/health")
+                informers = json.loads(health).get("components", {}).get(
+                    "informers", {})
+                stage_sum = metric_sums(fams, "yunikorn_cycle_stage_ms_sum",
+                                        "stage")
+                stage_n = metric_sums(fams, "yunikorn_cycle_stage_ms_count",
+                                      "stage")
+                cold = metric_sums(fams, "yunikorn_cold_first_cycle_ms", "")
+                proc.send_signal(signal.SIGTERM)
+                t_term = time.perf_counter()
+                rc = proc.wait(timeout=30)
+                out.update({
+                    "exit_code": rc, "exit_s": time.perf_counter() - t_term,
+                    "informer_restarts": sum(metric_sums(
+                        fams, "yunikorn_informer_restarts_total",
+                        "informer").values()),
+                    "informer_health": {k: informers.get(k) for k in
+                                        ("healthy", "restarts")},
+                    "metrics_families": len(fams),
+                    "cold_first_cycle_ms": cold.get(""),
+                    "stage_mean_ms": {
+                        k: stage_sum[k] / stage_n[k]
+                        for k in sorted(stage_sum) if stage_n.get(k)},
+                    "cycles": max(stage_n.values(), default=0)})
+            except Exception as e:
+                tail = open(log_path).read()[-1500:]
+                raise AssertionError(f"{type(e).__name__}: {e}; the "
+                                     f"scheduler's log ends: {tail}") from e
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=10)
+        names = bound_names()
+    finally:
+        server.stop()
+    if out.get("exit_code") != 0:
+        raise AssertionError(f"exit code {out.get('exit_code')}")
+    if len(names) != CMD_PODS or len(set(names)) != CMD_PODS:
+        raise AssertionError(f"{len(names)} bindings of {len(set(names))} "
+                             f"pods, want each of {CMD_PODS} once")
+    log_text = open(log_path).read()
+    if "device=cuda" not in log_text:
+        raise AssertionError("the scheduler's log does not name device=cuda")
+    out.update({"bound": len(names),
+                "first_bind_after_first_pod_s": (
+                    first_bind[0] - t_pods if first_bind else None),
+                "pods_added_s": t_pods - t0,
+                "pods_per_s_first_to_last_bind": (
+                    CMD_PODS / (t_bound - first_bind[0])
+                    if first_bind and t_bound > first_bind[0] else None)})
+    return out
+
+
+@contextlib.contextmanager
+def capturing_kernels():
+    """capturing_best_nodes and capturing_learned_propose together: yields
+    (best_nodes calls, learned_propose calls)."""
+    with capturing_best_nodes() as bn_calls, \
+            capturing_learned_propose() as lp_calls:
+        yield bn_calls, lp_calls
+
+
+def hold_learned_calls(captured, where):
+    """Each captured learned_propose call again through the kernel and its
+    plain version, held by check_proposals (nf equal, picks and proposals
+    equal off counted near-ties, lmean within LEARNED_LMEAN_TOL); returns
+    the summed near-tie counts and the largest lmean error."""
+    from yunikorn_tpu_torch.ops.learned import (learned_propose,
+                                                learned_propose_reference)
+
+    out = {"calls": len(captured), "pick_near_ties": 0, "gate_near_ties": 0,
+           "lmean_max_abs_err": 0.0}
+    for inp in captured:
+        try:
+            check = check_proposals(learned_propose(**inp),
+                                    learned_propose_reference(**inp), inp)
+        except AssertionError as e:
+            raise AssertionError(f"learned_propose at {where}: {e}") from e
+        out["pick_near_ties"] += check["pick_near_ties"]
+        out["gate_near_ties"] += check["gate_near_ties"]
+        out["lmean_max_abs_err"] = max(out["lmean_max_abs_err"],
+                                       check["lmean_max_abs_err"])
+    return out
+
+
+def replay_run(argv, policy, dev, where):
+    """One run_replay of trace_replay's command line `argv` under `policy`
+    on `dev`, with both kernels' launch counts set to 0 just before it and
+    read just after, and every call of each captured and then held against
+    its plain version. Returns (report, launches, held)."""
+    from yunikorn_tpu_torch.cmd import trace_replay
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+    from yunikorn_tpu_torch.ops.learned import learned_propose
+
+    args = trace_replay.build_parser().parse_args(argv)
+    with capturing_kernels() as (bn_calls, lp_calls):
+        torch.cuda.synchronize()
+        best_nodes.launches = 0
+        learned_propose.launches = 0
+        report = trace_replay.run_replay(args, policy, device=dev)
+        torch.cuda.synchronize()
+        launches = {"best_nodes": best_nodes.launches,
+                    "learned_propose": learned_propose.launches}
+    held = {"best_nodes_calls": len(bn_calls),
+            "best_nodes_max_abs_err": hold_calls(bn_calls, where),
+            "learned_propose": hold_learned_calls(lp_calls, where)}
+    return report, launches, held
+
+
+def replay_summary(report):
+    fp = report["fingerprint"]
+    t = report["timings"]
+    e2e = report["slo"]["objectives"]["pod_e2e_p99"]
+    return {"pass": report["pass"], "bound": fp["bound"],
+            "created": fp["created"], "all_bound": fp["all_bound"],
+            "verdicts": fp["verdicts"],
+            "violated": fp["violated_objectives"],
+            "policy_duels": t.get("policy_duels"),
+            "e2e_p99_s": e2e["value"],
+            **{k: t.get(k) for k in ("warmup_s", "cold_first_cycle_ms",
+                                     "trace_s", "drain_s", "wall_s")}}
+
+
+def replay_storm(dev, stats):
+    """(A) gang-storm at the JAX replay's acceptance shape: every verdict
+    ok, every pod bound."""
+    report, launches, held = replay_run(REPLAY_STORM, "auto", dev,
+                                        "the gang-storm replay")
+    out = {"fingerprint": report["fingerprint"],
+           **replay_summary(report), "launches": launches, "held": held}
+    fp = report["fingerprint"]
+    if not (report["pass"] and fp["all_bound"]
+            and set(fp["verdicts"].values()) == {"ok"}
+            and len(fp["verdicts"]) == 5):
+        raise AssertionError(f"gang-storm at 10,000 nodes did not pass: "
+                             f"{json.dumps(out)[:1500]}")
+    bn = stats.setdefault("best_nodes", {})
+    bn["launches_replay_storm"] = launches["best_nodes"]
+    bn["max_abs_err_replay"] = max(bn.get("max_abs_err_replay", 0),
+                                   held["best_nodes_max_abs_err"])
+    return out
+
+
+def replay_policy(dev, stats):
+    """(B) the policy round trip: record a slice-fragmentation replay's
+    duels under solver.policy=optimal, fit a checkpoint on the card with
+    the port's trainer command, then replay the same trace per arm (greedy,
+    optimal, learned with the new checkpoint). The dataset holds a cycle,
+    the learned arm binds no fewer pods than greedy and launches
+    learned_propose, and every kernel call is held. (best_nodes' launches
+    are counted but not required: at this shape every pod may place in
+    the water fill's round 0, before an odd round calls it.)"""
+    import tempfile
+
+    from yunikorn_tpu_torch.policy.train import load_dataset
+
+    tmp = tempfile.mkdtemp(prefix="yk-policy-")
+    ds = os.path.join(tmp, "dataset")
+    prefix = os.path.join(tmp, "ckpt")
+    bn = stats.setdefault("best_nodes", {})
+    lp = stats.setdefault("learned_propose", {})
+    report, launches, held = replay_run(
+        REPLAY_POLICY + ["--dataset-out", ds], "optimal", dev,
+        "the recording replay")
+    cycles = len(load_dataset(ds))
+    out = {"record": {**replay_summary(report), "cycles": cycles,
+                      "launches": launches, "held": held}}
+    bn["launches_replay_record"] = launches["best_nodes"]
+    if cycles < 1:
+        raise AssertionError("the recording replay wrote no duel cycle")
+    t0 = time.perf_counter()
+    fit = subprocess.run(
+        [sys.executable, "-m", "yunikorn_tpu_torch.cmd.policy_train",
+         "--dataset", ds, "--out", prefix,
+         "--imitation-epochs", str(POLICY_FIT_EPOCHS[0]),
+         "--finetune-epochs", str(POLICY_FIT_EPOCHS[1]),
+         "--device", dev.type],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if fit.returncode != 0:
+        raise AssertionError(f"policy_train exited {fit.returncode}: "
+                             f"{fit.stderr[-1500:]}")
+    fitted = json.loads(fit.stdout)
+    losses = fitted["losses"]
+    out["fit"] = {"seconds": time.perf_counter() - t0,
+                  "hash": fitted["hash"], "cycles": fitted["cycles"],
+                  "winners": fitted["winners"],
+                  "imitation_loss": [losses["imitation"][0],
+                                     losses["imitation"][-1]],
+                  "finetune_loss": [losses["finetune"][0],
+                                    losses["finetune"][-1]]}
+    arms = {}
+    for policy in ("greedy", "optimal", "learned"):
+        report, launches, held = replay_run(
+            REPLAY_POLICY + ["--policy-checkpoint", prefix], policy, dev,
+            f"the {policy} arm")
+        arms[policy] = {**replay_summary(report),
+                        "checkpoint": report["fingerprint"][
+                            "policy_checkpoint"],
+                        "launches": launches, "held": held}
+        bn[f"launches_replay_{policy}"] = launches["best_nodes"]
+        bn["max_abs_err_replay"] = max(bn.get("max_abs_err_replay", 0),
+                                       held["best_nodes_max_abs_err"])
+    out["arms"] = arms
+    learned = arms["learned"]
+    lp["launches_replay_learned"] = learned["launches"]["learned_propose"]
+    lp["lmean_max_abs_err_replay"] = learned["held"]["learned_propose"][
+        "lmean_max_abs_err"]
+    if learned["bound"] < arms["greedy"]["bound"]:
+        raise AssertionError(f"the learned arm bound {learned['bound']} < "
+                             f"greedy's {arms['greedy']['bound']}")
+    if learned["launches"]["learned_propose"] < 1:
+        raise AssertionError("learned_propose never launched in the learned "
+                             "arm")
+    if learned["checkpoint"] != fitted["hash"]:
+        raise AssertionError(f"the learned arm served {learned['checkpoint']}"
+                             f", not the fit's {fitted['hash']}")
+    return out
+
+
+def replay_takeover(dev, stats):
+    """(C) restart-storm with a fresh-process takeover (no store): the
+    child recovers every bound pod, loses none and evicts none."""
+    report, launches, held = replay_run(REPLAY_TAKEOVER, "auto", dev,
+                                        "the takeover replay")
+    proc = report["fingerprint"]["process_restart"] or {}
+    out = {**replay_summary(report), "process_restart": proc,
+           "takeover": report["timings"].get("takeover"),
+           "restart_first_cycle_ms": report["timings"].get(
+               "restart_first_cycle_ms"),
+           "launches": launches, "held": held}
+    stats.setdefault("best_nodes", {})["launches_replay_takeover"] = \
+        launches["best_nodes"]
+    if not (proc.get("restored_all") and proc.get("lost_bound") == 0
+            and proc.get("mis_evictions") == 0):
+        raise AssertionError(f"the takeover failed: {json.dumps(out)[:1500]}")
+    return out
+
+
+def phase_replay(dev, stats):
+    """The port's trace-replay driver on the card: (A) gang-storm at
+    10,000 nodes, (B) the policy round trip, (C) the fresh-process
+    takeover."""
+    return {"storm": replay_storm(dev, stats),
+            "policy": replay_policy(dev, stats),
+            "takeover": replay_takeover(dev, stats)}
 
 
 class CountingCallback:
@@ -3856,12 +4306,9 @@ def shard_cmd():
     /ws/v1/shards reports every node and every pod bound, /metrics the
     shard series, SIGTERM exits 0."""
     import signal
-    import socket
     import tempfile
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+    port = free_port()
     log_path = os.path.join(tempfile.mkdtemp(prefix="yk-shard-cmd-"),
                             "scheduler.log")
     argv = [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
@@ -4078,6 +4525,8 @@ def main() -> int:
               ("train", lambda: phase_train(dev, stats)),
               ("shim", lambda: phase_shim(dev, stats)),
               ("cmd", lambda: phase_cmd()),
+              ("kube", lambda: phase_kube()),
+              ("replay", lambda: phase_replay(dev, stats)),
               ("shard", lambda: phase_shard(dev, stats))]
     t_all = time.perf_counter()
     for name, fn in phases:

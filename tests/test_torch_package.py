@@ -84,6 +84,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         DeviceUsageMirror(2)
 
     from yunikorn_tpu_torch.cmd import scheduler as cmd
+    from yunikorn_tpu_torch.cmd import trace_replay
     from yunikorn_tpu_torch.conf.schedulerconf import reset_for_tests
     from yunikorn_tpu_torch.shim.mock_scheduler import MockScheduler
 
@@ -92,6 +93,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             MockScheduler().init()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cmd.main(["--nodes", "2", "--rest-port", "0"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trace_replay.main(["--nodes", "2", "--pods", "4"])
+        args = trace_replay.build_parser().parse_args(["--nodes", "2"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trace_replay.run_replay(args, "greedy")
         ms = MockScheduler()
         ms.init(device="cpu")
         try:

@@ -310,7 +310,6 @@ def test_shard_flags_reach_make_core_scheduler(argv, want, monkeypatch):
     (["--aot-store", "aot"], {}, 15),
     ([], {"YK_AOT_STORE": "aot"}, 15),
     (["--prewarm", "1024x4096"], {}, 15),
-    (["--kubeconfig", "kubeconfig"], {}, 16),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_unported_flags_raise(argv, env, item, monkeypatch):
     from yunikorn_tpu_torch.cmd import scheduler as cmd

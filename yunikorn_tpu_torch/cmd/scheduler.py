@@ -2,12 +2,13 @@
 
 Role-equivalent to pkg/cmd/shim/main.go:38-70: bootstrap configmaps, start the
 core in-process, create + run the shim, expose the REST API, wait for
-SIGINT/SIGTERM. The cluster backend is the in-memory FakeCluster (also the
-kwok-style perf mode).
+SIGINT/SIGTERM. The cluster backend is the in-memory FakeCluster (default,
+also the kwok-style perf mode) or, with --kubeconfig, a cluster's API server
+through the client/kube reflectors over HTTP.
 
 Usage:
     python -m yunikorn_tpu_torch.cmd.scheduler [--nodes N] [--rest-port P]
-        [--pods N] [--policy greedy|optimal|learned|all]
+        [--kubeconfig PATH] [--pods N] [--policy greedy|optimal|learned|all]
         [--policy-checkpoint PREFIX] [--shards N]
         [--shard-epoch-seconds S] [--ledger-serve | --ledger-endpoint H:P]
 
@@ -18,8 +19,10 @@ choice, as the tests make it) runs the plain PyTorch path. The flags are
 the JAX binary's; those whose feature the port lacks raise
 NotImplementedError naming their ROADMAP item before the core is built:
 --aot-store (also from $YK_AOT_STORE or conf solver.aotStore) and
---prewarm (item 15, the warm-start layer), --kubeconfig (item 16, the
-real-cluster client). --shards N >= 2 builds the sharded front end
+--prewarm (item 15, the warm-start layer). --kubeconfig reads the
+yunikorn-defaults and yunikorn-configs configmaps first, then schedules the
+cluster's pods onto its nodes (--nodes and --pods are ignored there).
+--shards N >= 2 builds the sharded front end
 (core/shard.py) over N port cores on the one device, coupled through the
 exact global quota ledger; --ledger-serve puts that ledger behind a local
 socket and --ledger-endpoint couples to one in another process
@@ -59,8 +62,6 @@ POD_WAVE = 200
 def _check_flags(args, conf) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for each flag (or
     configmap key) whose feature the port does not have yet."""
-    if args.kubeconfig:
-        not_ported("--kubeconfig", 16, "real-cluster client")
     if args.aot_store or conf.solver_aot_store:
         not_ported("--aot-store", 15, "warm-start layer")
     if args.prewarm:
@@ -80,7 +81,7 @@ def main(argv=None, device=None) -> int:
                         help="path to a queues.yaml config file")
     parser.add_argument("--kubeconfig", type=str, default="",
                         help="schedule against a real cluster via this "
-                             "kubeconfig: not ported yet (ROADMAP item 16)")
+                             "kubeconfig (kind/kwok); default: FakeCluster")
     parser.add_argument("--prewarm", type=str, default="",
                         help="warm standard solve buckets at startup, e.g. "
                              "'1024x4096,16384x65536' (nodes x pods): not "
@@ -147,12 +148,38 @@ def main(argv=None, device=None) -> int:
         with open(args.queues_yaml) as f:
             queues_yaml = f.read()
     holder = get_holder()
-    holder.update_config_maps([{"queues.yaml": queues_yaml}], initial=True)
-    _check_flags(args, holder.get())
-    cluster = FakeCluster()
-    if args.nodes:
-        for node in make_kwok_nodes(args.nodes):
-            cluster.add_node(node)
+    if args.kubeconfig:
+        if args.nodes or args.pods:
+            logger.warning("--nodes and --pods are ignored with --kubeconfig "
+                           "(nodes and pods come from the cluster)")
+        # real cluster: bootstrap configmaps BEFORE informers, then build the
+        # provider from the bootstrapped conf (QPS/DRA may come from the
+        # cluster's configmaps) — reference client/bootstrap.go:28 ordering
+        from yunikorn_tpu_torch.client.kube import (
+            KubeConfig, RealAPIProvider, RealKubeClient,
+            load_bootstrap_configmaps)
+
+        kc = KubeConfig.load(args.kubeconfig)
+        maps, binary_maps = load_bootstrap_configmaps(
+            RealKubeClient(kc), holder.get().namespace)
+        if queues_yaml:
+            maps.append({"queues.yaml": queues_yaml})
+            binary_maps.append({})
+        holder.update_config_maps(maps, initial=True, binary_maps=binary_maps)
+        _check_flags(args, holder.get())
+        conf0 = holder.get()
+        cluster = RealAPIProvider(kc, qps=conf0.kube_qps,
+                                  burst=conf0.kube_burst,
+                                  enable_dra=conf0.enable_dra,
+                                  namespace=conf0.namespace)
+    else:
+        holder.update_config_maps([{"queues.yaml": queues_yaml}],
+                                  initial=True)
+        _check_flags(args, holder.get())
+        cluster = FakeCluster()
+        if args.nodes:
+            for node in make_kwok_nodes(args.nodes):
+                cluster.add_node(node)
 
     from yunikorn_tpu_torch.core.ledger_service import LedgerClientOptions
     from yunikorn_tpu_torch.core.scheduler import SolverOptions
@@ -216,7 +243,7 @@ def main(argv=None, device=None) -> int:
     signal.signal(signal.SIGINT, handle_signal)
     signal.signal(signal.SIGTERM, handle_signal)
     feeder = None
-    if args.pods:
+    if args.pods and not args.kubeconfig:
         feeder = threading.Thread(
             target=_feed_pods, args=(cluster, args.pods, stop),
             name="pod-feeder", daemon=True)

@@ -9,7 +9,7 @@ keys (:210-265). The solver-specific knobs (`solver.*`) are new: they size the
 device-array buckets and the assignment loop.
 
 The JAX package's conf/schedulerconf.py, copied with its imports rewritten.
-Keys whose feature the port lacks (solver.shards above 1,
+Keys whose feature the port lacks (solver.shardSolve=true,
 solver.aotStore) still parse here; the core and the scheduler binary raise
 NotImplementedError naming their ROADMAP item when one asks for them.
 """
