@@ -203,7 +203,11 @@ phase fails, and when no CUDA device is present):
           informer_last_sync_age_seconds, SIGTERM exits 0 within 30 s;
           nodes_ready_s, all_bound_s, pods/s from the first bind to the
           last, the informers' restarts, the first cycle's ms and the
-          cycles' mean stage ms
+          cycles' mean stage ms, and when after the first pod the core
+          first held an app, an ask and an allocation (/ws/v1/apps, polled
+          every KUBE_POLL_S until the first allocation), the server its
+          first binding, and the dispatcher's backlog between the two
+          (/ws/v1/health, every KUBE_POLL_S)
   replay  yunikorn_tpu_torch.cmd.trace_replay's run_replay on the card,
           every best_nodes and learned_propose call captured and held
           against its plain version afterwards (best_nodes bit-equal;
@@ -221,7 +225,11 @@ phase fails, and when no CUDA device is present):
           pods than greedy and launching learned_propose; (C) restart-storm
           with a fresh-process takeover (REPLAY_TAKEOVER, no store): every
           bound pod restored, none lost, none mis-evicted, the child's
-          first cycle ms
+          first cycle ms; (D) gang-storm under contention
+          (REPLAY_CONTENTION: 1,024 nodes, 1,800 pods of 5 cores, 30 s; the
+          third storm outgrows the fleet until completions free room):
+          pass, all five verdicts ok, every pod bound, best_nodes launched
+          in the odd rounds and every call held
   shard   the sharded control plane: usage_apply / usage_fold on the card
           bit-equal to the CPU and a DeviceUsageMirror on the card at
           divergence 0 through MIRROR_OPS ledger operations with epoch
@@ -255,7 +263,9 @@ phase fails, and when no CUDA device is present):
           on the card; for learned_propose the learned core's cycle, the
           trained checkpoint's and the replay's learned arm), error against
           the plain version (max_abs_err_shard / max_abs_err_replay: over
-          the shard wave's / the replays' calls), kernel / plain /
+          the shard wave's / the replays' calls, held_shard_calls /
+          held_replay_calls of them; null when no call was held), kernel /
+          plain /
           bound milliseconds (best_nodes at the first odd round's inputs,
           as the main path calls it; learned_propose at full-width random
           inputs)
@@ -412,9 +422,9 @@ LEARNED_UNITS_RTOL = 0.005
 # kernel against plain: picks whose top two scores lie within
 # LEARNED_NEAR_TIE may differ (the card's logf against torch's log), and
 # the gate on rows within it of the margin; lmean within LEARNED_LMEAN_TOL
-# times max(1, |lmean|) (the two sum the feasible scores in other orders:
-# a float32 sum in another order moves by a few ulp, and one ulp is 1.2e-7
-# of the value)
+# times max(1, |lmean|) (both sum the feasible scores in float64, in other
+# orders, and round the mean once to float32: they differ only where the
+# two float64 sums straddle a float32 rounding boundary)
 LEARNED_NEAR_TIE = 1e-5
 LEARNED_LMEAN_TOL = 1e-6
 # the learned proposal pass's work per fitting pair on the card: 32-bit
@@ -467,6 +477,9 @@ MIRROR_OPS, MIRROR_TRACKERS = 4_096, 48
 # the server in waves of KUBE_WAVE every KUBE_WAVE_GAP_S seconds; the
 # watches are killed and the event log compacted once, halfway)
 KUBE_WAVE, KUBE_WAVE_GAP_S = 500, 0.5
+# how often the kube phase reads the core's state (/ws/v1/apps, then the
+# dispatcher's backlog at /ws/v1/health) until the first binding
+KUBE_POLL_S = 0.2
 # the replay phase, through yunikorn_tpu_torch.cmd.trace_replay's
 # run_replay on the card: (A) the JAX replay's acceptance shape,
 # gang-storm at 10,000 nodes with its defaults (900 pods, 6 tenants, 30 s,
@@ -483,6 +496,15 @@ REPLAY_TAKEOVER = ["--trace", "restart-storm", "--nodes", "300", "--pods",
                    "240", "--tenants", "4", "--duration", "14",
                    "--restart-mode", "process", "--takeover-window", "25",
                    "--slo-cold-budget-ms", "120000"]
+# (D) gang-storm under contention: the replay's own --overcommit makes each
+# pod 5 cores, one to an 8-core node; the storms of 600 pods on 1,024 nodes
+# (30 s: each storm binds for 6 s before half of the bound pods complete)
+# fit until the third (1,200 live), whose overflow waits for the second
+# storm's completions, so the cycles reach the odd rounds. 1,024 lies in
+# [1.5, 2) x 600: the end state (900 live) fits once each completion finds
+# its 300 pods bound
+REPLAY_CONTENTION = ["--trace", "gang-storm", "--nodes", "1024", "--pods",
+                     "1800", "--overcommit", "50"]
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -884,10 +906,13 @@ def capturing_learned_propose():
 def hold_calls(captured, where):
     """Each captured best_nodes call again through the kernel and through
     best_nodes_reference: raises unless both outputs are bit-equal;
-    returns the largest |best - best_ref| (0)."""
+    returns the largest |best - best_ref| (0), or None when nothing was
+    captured (no error was measured)."""
     from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
                                                    best_nodes_reference)
 
+    if not captured:
+        return None
     err = 0
     for args, kwargs in captured:
         got = best_nodes(*args, **kwargs)
@@ -3524,6 +3549,12 @@ def rest_call(port, path, body=None, timeout=30):
         return e.code, e.read().decode()
 
 
+def scheduler_argv(*flags):
+    """The command that starts the scheduler binary, as a user runs it."""
+    return [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
+            *flags]
+
+
 def phase_cmd():
     """The scheduler binary as a user starts it, on the card."""
     import signal
@@ -3534,9 +3565,8 @@ def phase_cmd():
     trace_out = os.path.join(tmp, "cycles.json")
     log_path = os.path.join(tmp, "scheduler.log")
     env = dict(os.environ, YK_PROFILE_DIR=os.path.join(tmp, "profile"))
-    argv = [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
-            "--nodes", str(CMD_NODES), "--rest-port", str(port),
-            "--trace-out", trace_out, "--pods", str(CMD_PODS)]
+    argv = scheduler_argv("--nodes", str(CMD_NODES), "--rest-port", str(port),
+                          "--trace-out", trace_out, "--pods", str(CMD_PODS))
     out = {"argv": argv[2:]}
 
     def wait(cond, what, timeout):
@@ -3621,12 +3651,6 @@ def phase_cmd():
                 "log_device_line": next(ln for ln in log_text.splitlines()
                                         if "device=cuda" in ln)[-120:]})
     return out
-
-
-def scheduler_argv(*flags):
-    """The command that starts the scheduler binary, as a user runs it."""
-    return [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
-            *flags]
 
 
 def fake_apiserver():
@@ -3714,10 +3738,45 @@ def phase_kube():
                     f"{CMD_NODES} nodes", 180)
                 out["nodes_ready_s"] = t_nodes - t0
                 first_bind = []
+                # when the core first held an app, an ask and an allocation,
+                # and the dispatcher's backlog from its first allocation
+                # until the server's first binding
+                core_seen = {}
+                backlog = []
+                polled = [0.0]
 
-                def note_first_bind():
+                def read(path):
+                    try:
+                        status, body = rest_call(rest, path)
+                    except OSError:
+                        return None
+                    return json.loads(body) if status == 200 else None
+
+                def note_progress():
+                    now = time.perf_counter()
                     if not first_bind and server.bindings:
-                        first_bind.append(time.perf_counter())
+                        first_bind.append(now)
+                    if first_bind or now - polled[0] < KUBE_POLL_S:
+                        return
+                    polled[0] = now
+                    if "alloc" in core_seen:
+                        health = read("/ws/v1/health") or {}
+                        d = health.get("components", {}).get("dispatcher")
+                        if d is not None:
+                            backlog.append((now - t_pods, d["buffered"]
+                                            + d["overflow"]))
+                        return
+                    apps = read("/ws/v1/apps")
+                    if apps is None:
+                        return
+                    apps = list(apps.values())
+                    for key, seen in (
+                            ("app", bool(apps)),
+                            ("ask", any(a["pendingAsks"] or a["allocations"]
+                                        for a in apps)),
+                            ("alloc", any(a["allocations"] for a in apps))):
+                        if seen:
+                            core_seen.setdefault(key, now)
 
                 added = 0
                 disrupted = {}
@@ -3735,12 +3794,12 @@ def phase_kube():
                                      "watches_killed": server.kill_watches()}
                     end = time.perf_counter() + KUBE_WAVE_GAP_S
                     while time.perf_counter() < end:
-                        note_first_bind()
+                        note_progress()
                         time.sleep(0.02)
                 t_bound = wait(lambda: len(server.bindings) >= CMD_PODS,
                                f"{CMD_PODS} pods bound at the server", 240,
-                               on_tick=note_first_bind)
-                note_first_bind()
+                               on_tick=note_progress)
+                note_progress()
                 time.sleep(1.0)  # a late duplicate bind would land here
                 out["all_bound_s"] = t_bound - t0
                 out["disruption"] = disrupted
@@ -3799,8 +3858,14 @@ def phase_kube():
     if "device=cuda" not in log_text:
         raise AssertionError("the scheduler's log does not name device=cuda")
     out.update({"bound": len(names),
+                **{f"first_{k}_at_core_after_first_pod_s": (
+                    core_seen[k] - t_pods if k in core_seen else None)
+                   for k in ("app", "ask", "alloc")},
                 "first_bind_after_first_pod_s": (
                     first_bind[0] - t_pods if first_bind else None),
+                # [s after the first pod, events queued] from the core's
+                # first allocation until the first binding
+                "dispatcher_backlog": backlog,
                 "pods_added_s": t_pods - t0,
                 "pods_per_s_first_to_last_bind": (
                     CMD_PODS / (t_bound - first_bind[0])
@@ -3808,25 +3873,17 @@ def phase_kube():
     return out
 
 
-@contextlib.contextmanager
-def capturing_kernels():
-    """capturing_best_nodes and capturing_learned_propose together: yields
-    (best_nodes calls, learned_propose calls)."""
-    with capturing_best_nodes() as bn_calls, \
-            capturing_learned_propose() as lp_calls:
-        yield bn_calls, lp_calls
-
-
 def hold_learned_calls(captured, where):
     """Each captured learned_propose call again through the kernel and its
     plain version, held by check_proposals (nf equal, picks and proposals
     equal off counted near-ties, lmean within LEARNED_LMEAN_TOL); returns
-    the summed near-tie counts and the largest lmean error."""
+    the summed near-tie counts and the largest lmean error (None when
+    nothing was captured)."""
     from yunikorn_tpu_torch.ops.learned import (learned_propose,
                                                 learned_propose_reference)
 
     out = {"calls": len(captured), "pick_near_ties": 0, "gate_near_ties": 0,
-           "lmean_max_abs_err": 0.0}
+           "lmean_max_abs_err": 0.0 if captured else None}
     for inp in captured:
         try:
             check = check_proposals(learned_propose(**inp),
@@ -3840,17 +3897,22 @@ def hold_learned_calls(captured, where):
     return out
 
 
-def replay_run(argv, policy, dev, where):
+def replay_run(argv, policy, dev, run, stats):
     """One run_replay of trace_replay's command line `argv` under `policy`
     on `dev`, with both kernels' launch counts set to 0 just before it and
     read just after, and every call of each captured and then held against
-    its plain version. Returns (report, launches, held)."""
+    its plain version. Folds best_nodes' launches into the kernels line as
+    launches_replay_<run>, its held calls as held_replay_calls and their
+    largest error as max_abs_err_replay (None until a call was held).
+    Returns (report, launches, held)."""
     from yunikorn_tpu_torch.cmd import trace_replay
     from yunikorn_tpu_torch.ops.best_nodes import best_nodes
     from yunikorn_tpu_torch.ops.learned import learned_propose
 
+    where = f"the {run} replay"
     args = trace_replay.build_parser().parse_args(argv)
-    with capturing_kernels() as (bn_calls, lp_calls):
+    with capturing_best_nodes() as bn_calls, \
+            capturing_learned_propose() as lp_calls:
         torch.cuda.synchronize()
         best_nodes.launches = 0
         learned_propose.launches = 0
@@ -3858,9 +3920,19 @@ def replay_run(argv, policy, dev, where):
         torch.cuda.synchronize()
         launches = {"best_nodes": best_nodes.launches,
                     "learned_propose": learned_propose.launches}
+    if len(bn_calls) != launches["best_nodes"]:
+        raise AssertionError(f"{where}: {launches['best_nodes']} best_nodes "
+                             f"launches but {len(bn_calls)} calls captured")
     held = {"best_nodes_calls": len(bn_calls),
             "best_nodes_max_abs_err": hold_calls(bn_calls, where),
             "learned_propose": hold_learned_calls(lp_calls, where)}
+    bn = stats.setdefault("best_nodes", {})
+    bn[f"launches_replay_{run}"] = launches["best_nodes"]
+    bn["held_replay_calls"] = (bn.get("held_replay_calls", 0)
+                               + held["best_nodes_calls"])
+    errs = [e for e in (bn.get("max_abs_err_replay"),
+                        held["best_nodes_max_abs_err"]) if e is not None]
+    bn["max_abs_err_replay"] = max(errs, default=None)
     return report, launches, held
 
 
@@ -3878,23 +3950,40 @@ def replay_summary(report):
                                      "trace_s", "drain_s", "wall_s")}}
 
 
-def replay_storm(dev, stats):
-    """(A) gang-storm at the JAX replay's acceptance shape: every verdict
-    ok, every pod bound."""
-    report, launches, held = replay_run(REPLAY_STORM, "auto", dev,
-                                        "the gang-storm replay")
-    out = {"fingerprint": report["fingerprint"],
-           **replay_summary(report), "launches": launches, "held": held}
+def replay_passed(report, what, out):
+    """Raises unless the replay passed with its five verdicts ok and every
+    pod bound."""
     fp = report["fingerprint"]
     if not (report["pass"] and fp["all_bound"]
             and set(fp["verdicts"].values()) == {"ok"}
             and len(fp["verdicts"]) == 5):
-        raise AssertionError(f"gang-storm at 10,000 nodes did not pass: "
-                             f"{json.dumps(out)[:1500]}")
-    bn = stats.setdefault("best_nodes", {})
-    bn["launches_replay_storm"] = launches["best_nodes"]
-    bn["max_abs_err_replay"] = max(bn.get("max_abs_err_replay", 0),
-                                   held["best_nodes_max_abs_err"])
+        raise AssertionError(f"{what} did not pass: {json.dumps(out)[:1500]}")
+
+
+def replay_storm(dev, stats):
+    """(A) gang-storm at the JAX replay's acceptance shape: every verdict
+    ok, every pod bound."""
+    report, launches, held = replay_run(REPLAY_STORM, "auto", dev, "storm",
+                                        stats)
+    out = {"fingerprint": report["fingerprint"],
+           **replay_summary(report), "launches": launches, "held": held}
+    replay_passed(report, "gang-storm at 10,000 nodes", out)
+    return out
+
+
+def replay_contention(dev, stats):
+    """(D) gang-storm under contention (REPLAY_CONTENTION): the third
+    storm outgrows the fleet until the second storm's completions free
+    room, so cycles leave pods for the odd rounds, which call best_nodes.
+    Every verdict ok, every pod bound, best_nodes launched and every call
+    held."""
+    report, launches, held = replay_run(REPLAY_CONTENTION, "auto", dev,
+                                        "contention", stats)
+    out = {**replay_summary(report), "launches": launches, "held": held}
+    replay_passed(report, "the contended gang-storm", out)
+    if launches["best_nodes"] < 1:
+        raise AssertionError("best_nodes never launched in the contended "
+                             "replay")
     return out
 
 
@@ -3905,8 +3994,9 @@ def replay_policy(dev, stats):
     optimal, learned with the new checkpoint). The dataset holds a cycle,
     the learned arm binds no fewer pods than greedy and launches
     learned_propose, and every kernel call is held. (best_nodes' launches
-    are counted but not required: at this shape every pod may place in
-    the water fill's round 0, before an odd round calls it.)"""
+    are counted but not required: at this shape every pod places in the
+    water fill's round 0, before an odd round calls it; D is the replay
+    that launches it.)"""
     import tempfile
 
     from yunikorn_tpu_torch.policy.train import load_dataset
@@ -3914,15 +4004,11 @@ def replay_policy(dev, stats):
     tmp = tempfile.mkdtemp(prefix="yk-policy-")
     ds = os.path.join(tmp, "dataset")
     prefix = os.path.join(tmp, "ckpt")
-    bn = stats.setdefault("best_nodes", {})
-    lp = stats.setdefault("learned_propose", {})
     report, launches, held = replay_run(
-        REPLAY_POLICY + ["--dataset-out", ds], "optimal", dev,
-        "the recording replay")
+        REPLAY_POLICY + ["--dataset-out", ds], "optimal", dev, "record", stats)
     cycles = len(load_dataset(ds))
     out = {"record": {**replay_summary(report), "cycles": cycles,
                       "launches": launches, "held": held}}
-    bn["launches_replay_record"] = launches["best_nodes"]
     if cycles < 1:
         raise AssertionError("the recording replay wrote no duel cycle")
     t0 = time.perf_counter()
@@ -3949,16 +4035,14 @@ def replay_policy(dev, stats):
     for policy in ("greedy", "optimal", "learned"):
         report, launches, held = replay_run(
             REPLAY_POLICY + ["--policy-checkpoint", prefix], policy, dev,
-            f"the {policy} arm")
+            policy, stats)
         arms[policy] = {**replay_summary(report),
                         "checkpoint": report["fingerprint"][
                             "policy_checkpoint"],
                         "launches": launches, "held": held}
-        bn[f"launches_replay_{policy}"] = launches["best_nodes"]
-        bn["max_abs_err_replay"] = max(bn.get("max_abs_err_replay", 0),
-                                       held["best_nodes_max_abs_err"])
     out["arms"] = arms
     learned = arms["learned"]
+    lp = stats.setdefault("learned_propose", {})
     lp["launches_replay_learned"] = learned["launches"]["learned_propose"]
     lp["lmean_max_abs_err_replay"] = learned["held"]["learned_propose"][
         "lmean_max_abs_err"]
@@ -3978,15 +4062,13 @@ def replay_takeover(dev, stats):
     """(C) restart-storm with a fresh-process takeover (no store): the
     child recovers every bound pod, loses none and evicts none."""
     report, launches, held = replay_run(REPLAY_TAKEOVER, "auto", dev,
-                                        "the takeover replay")
+                                        "takeover", stats)
     proc = report["fingerprint"]["process_restart"] or {}
     out = {**replay_summary(report), "process_restart": proc,
            "takeover": report["timings"].get("takeover"),
            "restart_first_cycle_ms": report["timings"].get(
                "restart_first_cycle_ms"),
            "launches": launches, "held": held}
-    stats.setdefault("best_nodes", {})["launches_replay_takeover"] = \
-        launches["best_nodes"]
     if not (proc.get("restored_all") and proc.get("lost_bound") == 0
             and proc.get("mis_evictions") == 0):
         raise AssertionError(f"the takeover failed: {json.dumps(out)[:1500]}")
@@ -3996,10 +4078,11 @@ def replay_takeover(dev, stats):
 def phase_replay(dev, stats):
     """The port's trace-replay driver on the card: (A) gang-storm at
     10,000 nodes, (B) the policy round trip, (C) the fresh-process
-    takeover."""
+    takeover, (D) gang-storm under contention."""
     return {"storm": replay_storm(dev, stats),
             "policy": replay_policy(dev, stats),
-            "takeover": replay_takeover(dev, stats)}
+            "takeover": replay_takeover(dev, stats),
+            "contention": replay_contention(dev, stats)}
 
 
 class CountingCallback:
@@ -4164,9 +4247,11 @@ def shard_bench(dev, stats):
                              f"{q_placed:.4f}x, packed {q_packed:.4f}x, "
                              f"audit {best['audit']}, divergence "
                              f"{best['mirror_divergence']}")
+    errs = [r["max_abs_err"] for r in runs if r["max_abs_err"] is not None]
     stats.setdefault("best_nodes", {}).update(
         launches_shard=best["best_nodes_launches"],
-        max_abs_err_shard=max(r["max_abs_err"] for r in runs))
+        held_shard_calls=sum(r["calls_held"] for r in runs),
+        max_abs_err_shard=max(errs, default=None))
     return {"shape": shape, "runs": runs, "placed_ratio": q_placed,
             "packed_ratio": q_packed,
             "speedup": best["pods_per_s"] / base["pods_per_s"]}
@@ -4311,9 +4396,9 @@ def shard_cmd():
     port = free_port()
     log_path = os.path.join(tempfile.mkdtemp(prefix="yk-shard-cmd-"),
                             "scheduler.log")
-    argv = [sys.executable, "-m", "yunikorn_tpu_torch.cmd.scheduler",
-            "--nodes", str(SHARD_CMD_NODES), "--pods", str(SHARD_CMD_PODS),
-            "--rest-port", str(port), "--shards", "2", "--ledger-serve"]
+    argv = scheduler_argv("--nodes", str(SHARD_CMD_NODES), "--pods",
+                          str(SHARD_CMD_PODS), "--rest-port", str(port),
+                          "--shards", "2", "--ledger-serve")
     out = {"argv": argv[2:]}
 
     def counts():

@@ -18,6 +18,7 @@ import base64
 import dataclasses
 import gzip
 import json
+import os
 import pathlib
 import signal
 import socket
@@ -122,6 +123,42 @@ def test_pod_decode_and_bind_roundtrip(api):
     client.bind(p, "n0")
     assert server.bindings == [("p0", "n0")]
     provider.stop()
+
+
+def test_identical_pod_condition_written_once(api):
+    """A condition the pod already carries is not written again (the
+    in-memory client's dedup): a pod left unschedulable cycle after cycle
+    costs one PATCH, and a changed condition is written."""
+    from yunikorn_tpu_torch.common.objects import PodCondition
+
+    server, cfg = api
+    server.add_pod_doc("p0", app_id="app-x")
+    provider = RealAPIProvider(cfg)
+    provider.start()
+    provider.wait_for_sync(timeout=10)
+    pod = provider.list_pods()[0]
+    provider.stop()
+    client = RealKubeClient(cfg)
+    skipped = PodCondition(type="PodScheduled", status="False",
+                           reason="Unschedulable", message="no room")
+
+    def patches():
+        return sum(1 for m, path in server.requests
+                   if m == "PATCH" and path.endswith("/p0/status"))
+
+    assert client.update_pod_condition(pod, skipped)
+    for _ in range(5):
+        assert not client.update_pod_condition(pod, skipped)
+    assert patches() == 1
+    bound = PodCondition(type="PodScheduled", status="True",
+                         reason="Scheduled", message="bound to n0")
+    assert client.update_pod_condition(pod, bound)
+    assert patches() == 2
+    assert [(c.type, c.status) for c in pod.status.conditions] == [
+        ("PodScheduled", "True")]
+    doc = server.store["pods"]["default/p0"]
+    assert [(c["type"], c["status"]) for c in doc["status"]["conditions"]
+            ] == [("PodScheduled", "True")]
 
 
 def test_configmap_bootstrap(api):
@@ -772,6 +809,29 @@ def write_kubeconfig(path, server_url: str):
     return path
 
 
+def _spawn_binary(package, kubeconfig, rest, log, *flags):
+    """The scheduler binary of `package` ("port" or "jax") with
+    --kubeconfig and `flags` on the CPU, its stderr into `log`."""
+    argv = ["--kubeconfig", str(kubeconfig), "--rest-port", str(rest),
+            *flags]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    if package == "port":
+        cmd = [sys.executable, "-c",
+               f"import sys; sys.path.insert(0, {str(ROOT)!r})\n"
+               "from yunikorn_tpu_torch.cmd.scheduler import main\n"
+               f"sys.exit(main({argv!r}, device='cpu'))\n"]
+    else:
+        cmd = [sys.executable, "-m", "yunikorn_tpu.cmd.scheduler", *argv]
+    return subprocess.Popen(cmd, cwd=str(ROOT), env=env,
+                            stdout=subprocess.DEVNULL, stderr=log)
+
+
+def _rest_json(rest, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{rest}{path}",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
 def test_kubeconfig_binary_binds_a_wave(api, tmp_path):
     """main(["--kubeconfig", ...], device="cpu") in a subprocess: it reads
     the bootstrap configmap, syncs its informers, binds every pod of a
@@ -785,15 +845,9 @@ def test_kubeconfig_binary_binds_a_wave(api, tmp_path):
         server.add_node_doc(f"kc-n{i}")
     kubeconfig = write_kubeconfig(tmp_path / "kubeconfig", cfg.server)
     rest = free_port()
-    argv = ["--kubeconfig", str(kubeconfig), "--rest-port", str(rest),
-            "--nodes", "3"]
-    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r})\n"
-            "from yunikorn_tpu_torch.cmd.scheduler import main\n"
-            f"sys.exit(main({argv!r}, device='cpu'))\n")
     log = tmp_path / "scheduler.log"
     with open(log, "w") as err:
-        proc = subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path,
-                                stdout=subprocess.DEVNULL, stderr=err)
+        proc = _spawn_binary("port", kubeconfig, rest, err, "--nodes", "3")
         try:
             def up():
                 try:
@@ -829,3 +883,142 @@ def test_kubeconfig_binary_binds_a_wave(api, tmp_path):
     text = log.read_text()
     assert "--nodes and --pods are ignored with --kubeconfig" in text
     assert "device=cpu" in text
+
+
+def test_kubeconfig_binary_binds_across_a_relist(api, tmp_path):
+    """The binary binds a first wave from the pod watch alone; then the
+    event log is compacted and every watch killed (the reflectors get 410
+    and relist), and a second wave binds too: every pod exactly once."""
+    server, cfg = api
+    for i in range(4):
+        server.add_node_doc(f"kr-n{i}")
+    kubeconfig = write_kubeconfig(tmp_path / "kubeconfig", cfg.server)
+    rest = free_port()
+    log = tmp_path / "scheduler.log"
+    with open(log, "w") as err:
+        proc = _spawn_binary("port", kubeconfig, rest, err)
+        try:
+            def up():
+                try:
+                    return len(_rest_json(rest, "/ws/v1/nodes")) == 4
+                except OSError:
+                    return False
+
+            assert _wait(lambda: proc.poll() is not None or up(), 45)
+            assert proc.poll() is None, log.read_text()[-2000:]
+            for i in range(10):
+                server.add_pod_doc(f"kr-a{i}", app_id="kr-app-a")
+            assert _wait(lambda: len(server.bindings) >= 10, 45), \
+                log.read_text()[-2000:]
+            server.compact()
+            assert server.kill_watches() >= 1
+            for i in range(10):
+                server.add_pod_doc(f"kr-b{i}", app_id="kr-app-b")
+            assert _wait(lambda: len(server.bindings) >= 20, 45), \
+                log.read_text()[-2000:]
+            time.sleep(0.5)  # a late duplicate bind would land here
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    names = [n for n, _ in server.bindings]
+    assert sorted(names) == sorted([f"kr-a{i}" for i in range(10)]
+                                   + [f"kr-b{i}" for i in range(10)])
+
+
+def first_bind_run(package, nodes, pods, wave, gap_s, disrupt):
+    """chip_smoke's kube phase on the CPU for one package's binary: a fresh
+    fake API server with `nodes` nodes, the binary started, then `pods`
+    sleep pods added `wave` at a time every `gap_s` s, with `disrupt` the
+    log compacted and every watch killed once halfway. Returns the seconds
+    from the first pod added to the core's first app and first allocation
+    (read at /ws/v1/apps every 0.2 s) and to the server's first and last
+    binding."""
+    import tempfile
+
+    server = FakeAPIServer()
+    api_port = server.start()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="yk-first-bind-"))
+    kubeconfig = write_kubeconfig(tmp / "kubeconfig",
+                                  f"http://127.0.0.1:{api_port}")
+    for i in range(nodes):
+        server.add_node_doc(f"kn-{i}")
+    rest = free_port()
+    out = {"package": package, "nodes": nodes, "pods": pods,
+           "disrupt": disrupt}
+    seen = {}
+    with open(tmp / "scheduler.log", "w") as err:
+        proc = _spawn_binary(package, kubeconfig, rest, err)
+        t0 = time.perf_counter()
+        try:
+            def up():
+                try:
+                    return len(_rest_json(rest, "/ws/v1/nodes")) == nodes
+                except OSError:
+                    return False
+
+            assert _wait(lambda: proc.poll() is not None or up(), 300)
+            assert proc.poll() is None
+            out["nodes_ready_s"] = time.perf_counter() - t0
+            polled = [0.0]
+
+            def tick():
+                now = time.perf_counter()
+                if server.bindings:
+                    seen.setdefault("bind", now)
+                if "alloc" in seen or now - polled[0] < 0.2:
+                    return
+                polled[0] = now
+                try:
+                    apps = list(_rest_json(rest, "/ws/v1/apps").values())
+                except OSError:
+                    return
+                if apps:
+                    seen.setdefault("app", now)
+                if any(a["allocations"] for a in apps):
+                    seen.setdefault("alloc", now)
+
+            t_pods = time.perf_counter()
+            added = 0
+            while added < pods:
+                for i in range(added, min(added + wave, pods)):
+                    server.add_pod_doc(f"kp-{i}", app_id=f"kube-app-{i % 5}")
+                added = min(added + wave, pods)
+                if disrupt and "disrupted" not in out and added >= pods // 2:
+                    server.compact()
+                    out["disrupted"] = server.kill_watches()
+                end = time.perf_counter() + gap_s
+                while time.perf_counter() < end:
+                    tick()
+                    time.sleep(0.02)
+            deadline = time.perf_counter() + 300
+            while (len(server.bindings) < pods
+                   and time.perf_counter() < deadline):
+                tick()
+                time.sleep(0.02)
+            tick()
+            out.update({f"first_{k}_after_first_pod_s": seen[k] - t_pods
+                        for k in ("app", "alloc", "bind") if k in seen})
+            out["all_bound_after_first_pod_s"] = time.perf_counter() - t_pods
+            out["bound"] = len(server.bindings)
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
+            server.stop()
+    return out
+
+
+if __name__ == "__main__":
+    # python -m tests.test_torch_kube --first-bind: time to first bind of
+    # both packages' binaries on the CPU, at a small wave and at chip_smoke's
+    # kube shape, with and without the compaction and watch kill
+    if "--first-bind" in sys.argv:
+        for package, nodes, pods, wave in (("port", 200, 1_000, 100),
+                                           ("jax", 200, 1_000, 100),
+                                           ("port", 1_000, 5_000, 500),
+                                           ("jax", 1_000, 5_000, 500)):
+            for disrupt in (True, False):
+                print(json.dumps(first_bind_run(package, nodes, pods, wave,
+                                                0.5, disrupt)), flush=True)

@@ -5,6 +5,8 @@ the CPU, against the JAX package's scripts/trace_replay.py.
   equal event lists and meta.
 - One tiny gang-storm replay through both drivers (64 nodes x 120 pods x
   4 s): equal fingerprint fields and verdicts, and the port's replay passes.
+- The same storm under contention (--overcommit 50): the port's cycles
+  reach the odd rounds' best_nodes, and every pod binds.
 - A tiny slice-fragmentation replay under solver.policy=optimal with
   --dataset-out records a dataset that the JAX package's load_dataset reads
   as the port's own load_dataset does.
@@ -87,6 +89,37 @@ def test_tiny_gang_storm_matches_jax(tmp_path):
     assert got["violated_objectives"] == []
     assert got_report["pass"] is True
     assert got_report["timings"]["prewarm"] == "not ported (ROADMAP item 15)"
+
+
+def test_contended_gang_storm_reaches_best_nodes(monkeypatch):
+    """The replay's own --overcommit makes each pod 5 cores, one to an
+    8-core node: the third storm of 40 outgrows the 64 nodes until the
+    second storm's completions free room, so cycles reach the odd rounds
+    and call best_nodes on rows left unplaced. 64 lies in [1.5, 2) x 40,
+    so the end state fits once each completion finds its pods bound (each
+    storm has 2.4 s). Every pod binds and every verdict is ok
+    (chip_smoke's contended replay at 1,024 nodes)."""
+    from yunikorn_tpu_torch.ops import assign
+
+    rows = []
+    real = assign.best_nodes
+
+    def spy(*args, **kwargs):
+        rows.append(int(kwargs["rows"].sum()))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(assign, "best_nodes", spy)
+    args = trace_replay.build_parser().parse_args(
+        ["--trace", "gang-storm", "--nodes", "64", "--pods", "120",
+         "--duration", "12", "--overcommit", "50", "--no-prewarm",
+         "--drain-timeout", "60"])
+    report = trace_replay.run_replay(args, "auto", device="cpu")
+    fp = report["fingerprint"]
+    assert rows and max(rows) >= 1
+    assert fp["all_bound"] and fp["bound"] == fp["created"] == 120
+    assert set(fp["verdicts"].values()) == {"ok"}
+    assert len(fp["verdicts"]) == 5
+    assert report["pass"] is True
 
 
 def test_dataset_out_loads_in_jax(tmp_path):

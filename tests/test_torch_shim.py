@@ -355,6 +355,15 @@ def o_recovery(p, ms):
     ms.start()
     ms.wait_for_task_state("app-1", bound.uid, BOUND)
     ms.wait_for_task_state("app-1", pending.uid, BOUND)
+
+    def scheduled():
+        # the condition is written on the bind pool after the bind
+        cur = ms.cluster.get_pod(pending.uid)
+        return any(c.type == "PodScheduled" and c.status == "True"
+                   for c in cur.status.conditions)
+
+    wait_until(scheduled, "the pending pod's PodScheduled condition",
+               timeout=10)
     cache = ms.context.schedulers_cache
     assert cache.is_pod_orphaned(orphan.uid)
     ms.add_node(p.node("late-node"))

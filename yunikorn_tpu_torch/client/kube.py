@@ -251,6 +251,17 @@ class RealKubeClient(KubeClient):
                 raise
 
     def update_pod_condition(self, pod: Pod, condition) -> bool:
+        """PATCH one pod condition, unless the pod already carries it: as
+        the in-memory client does (reference task.go:577-597), the written
+        condition is recorded on the pod object held here, so a pod left
+        unschedulable cycle after cycle is written once, not once a cycle
+        (each write is an API call under the client's token bucket, shared
+        with the binds, and a watch event back into the informers)."""
+        want = (condition.type, condition.status, condition.reason,
+                condition.message)
+        if any((c.type, c.status, c.reason, c.message) == want
+               for c in pod.status.conditions):
+            return False
         self.request_json(
             "PATCH",
             f"/api/v1/namespaces/{pod.namespace}/pods/{pod.name}/status",
@@ -260,6 +271,8 @@ class RealKubeClient(KubeClient):
             }]}},
             content_type="application/strategic-merge-patch+json",
         )
+        pod.status.conditions = [c for c in pod.status.conditions
+                                 if c.type != condition.type] + [condition]
         return True
 
     def update_pvc(self, pvc) -> None:

@@ -428,7 +428,7 @@ class ReplayStack:
             if self.core._first_cycle_ms is not None:
                 self.restart_first_cycle_ms = self.core._first_cycle_ms
                 break
-            if self.server is not None and not _pending_pods(self.server):
+            if not _pending_pods(self.port):
                 break
             time.sleep(0.2)
 
@@ -497,10 +497,14 @@ class ReplayStack:
                          for past in self._counters_history)
 
 
-def _pending_pods(server) -> int:
-    """Pods at the fake API server that are neither bound nor finished."""
-    with server._lock:
-        docs = list(server.store["pods"].values())
+def _pending_pods(port: int) -> int:
+    """Pods at the API server on `port` that are neither bound nor
+    finished, read through its LIST."""
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/v1/pods", timeout=10) as r:
+        docs = json.loads(r.read()).get("items", [])
     return sum(1 for d in docs
                if not (d.get("spec") or {}).get("nodeName")
                and (d.get("status") or {}).get("phase")

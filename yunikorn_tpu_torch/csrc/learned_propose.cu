@@ -17,7 +17,11 @@
 //               [i - c * chunk, m] (utils/prng)
 //   pick[i]   = the ok node of largest ls + tau * g, ties to the lowest m
 //   nf[i]     = the number of ok nodes
-//   lmean[i]  = (sum of ls over the ok nodes) / max(nf, 1)
+//   lmean[i]  = (sum of ls over the ok nodes) / max(nf, 1), summed and
+//               divided in float64 and rounded once to float32: a float32
+//               sum moves with its order by a few ulp of its terms (more
+//               than 1e-6 of the mean under cancellation), and the gate
+//               below reads lmean, so the order must not matter
 //   prop[i]   = pick[i] if nf > 0 and ls(i, pick) - lmean > 0.05, else M
 //
 // Inactive pods come back as prop M, pick 0, nf 0, lmean 0.
@@ -44,10 +48,11 @@
 //           the argmax as one atomicMax on an ordered 64-bit key (the score's
 //           order-preserving bits high, M - 1 - m low, so ties go to the
 //           lowest node), the count by an integer atomicAdd, and the slice's
-//           sum of ls into its own cell of a [N, slices] table (no float
-//           atomics: the sum is deterministic).
-//   finish  adds each row's slice sums in slice order, recomputes ls at the
-//           pick in the same order as main, and applies the gate.
+//           float64 sum of ls into its own cell of a [N, slices] table (no
+//           float atomics: the sum is deterministic).
+//   finish  adds each row's slice sums in slice order (float64), rounds
+//           the mean once, recomputes ls at the pick in the same order as
+//           main, and applies the gate.
 // A first, simple design: no tensor cores (a 16-term dot product a pair is
 // not a matrix product worth a wgmma tile), no TMA.
 #include <climits>
@@ -192,7 +197,7 @@ propose_kernel(const int32_t* __restrict__ req,
                int n_nodes, int n_groups, int n_res, int n_words,
                int n_slices, int chunk, float tau,
                unsigned long long* __restrict__ row_key,
-               int32_t* __restrict__ row_nf, float* __restrict__ partial) {
+               int32_t* __restrict__ row_nf, double* __restrict__ partial) {
   // [kSlice, res4] free rows, then [kSlice, kE] node embeddings
   extern __shared__ __align__(16) int32_t s_free[];
   const int count = min(*row_count, n_rows);
@@ -241,7 +246,8 @@ propose_kernel(const int32_t* __restrict__ req,
     for (int e = 0; e < kE; ++e) {
       pe[e] = row >= 0 ? pod_emb[(size_t)row * kE + e] : 0.0f;
     }
-    float best_v = 0.0f, sum = 0.0f;
+    float best_v = 0.0f;
+    double sum = 0.0;
     int best_j = -1, nf = 0;
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
@@ -266,7 +272,7 @@ propose_kernel(const int32_t* __restrict__ req,
         if (ok) {
           const float ls = dot_rn<kE>(pe, s_emb + j * kE);
           ++nf;
-          sum = __fadd_rn(sum, ls);
+          sum = __dadd_rn(sum, (double)ls);
           const unsigned long long idx = base + (unsigned)j;
           uint32_t x0 = (uint32_t)(idx >> 32), x1 = (uint32_t)idx;
           threefry2x32(k0, k1, x0, x1);
@@ -296,7 +302,7 @@ __global__ void finish_kernel(const uint8_t* __restrict__ active,
                               const float* __restrict__ node_emb,
                               const unsigned long long* __restrict__ row_key,
                               const int32_t* __restrict__ row_nf,
-                              const float* __restrict__ partial, int n_rows,
+                              const double* __restrict__ partial, int n_rows,
                               int n_nodes, int n_slices,
                               int32_t* __restrict__ prop,
                               int32_t* __restrict__ pick,
@@ -311,12 +317,12 @@ __global__ void finish_kernel(const uint8_t* __restrict__ active,
     lmean_out[i] = 0.0f;
     return;
   }
-  float sum = 0.0f;
+  double sum = 0.0;
   for (int s = 0; s < n_slices; ++s) {
-    sum = __fadd_rn(sum, partial[(size_t)i * n_slices + s]);
+    sum = __dadd_rn(sum, partial[(size_t)i * n_slices + s]);
   }
   const int nf = row_nf[i];
-  const float lmean = __fdiv_rn(sum, fmaxf((float)nf, 1.0f));
+  const float lmean = __double2float_rn(__ddiv_rn(sum, (double)max(nf, 1)));
   const unsigned long long k = row_key[i];
   const int p = k ? n_nodes - 1 - (int)(uint32_t)(k & 0xffffffffull) : 0;
   bool good = false;
@@ -387,7 +393,7 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
         static_cast<const int32_t*>(a.row_count), a.n_rows, a.n_nodes,
         a.n_groups, a.n_res, n_words, n_slices, a.chunk, a.tau,
         static_cast<unsigned long long*>(a.row_key),
-        static_cast<int32_t*>(a.row_nf), static_cast<float*>(a.partial));
+        static_cast<int32_t*>(a.row_nf), static_cast<double*>(a.partial));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   finish_kernel<kE><<<(a.n_rows + 255) / 256, 256, 0, stream>>>(
@@ -396,7 +402,7 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.node_emb),
       static_cast<const unsigned long long*>(a.row_key),
       static_cast<const int32_t*>(a.row_nf),
-      static_cast<const float*>(a.partial), a.n_rows, a.n_nodes, n_slices,
+      static_cast<const double*>(a.partial), a.n_rows, a.n_nodes, n_slices,
       static_cast<int32_t*>(a.prop), static_cast<int32_t*>(a.pick),
       static_cast<int32_t*>(a.nf), static_cast<float*>(a.lmean));
   return cudaGetLastError();
@@ -423,7 +429,7 @@ int yk_learned_propose_slice_nodes() { return kSlice; }
 // padded), key [2] int64 (two 32-bit words). Scratch: words [G, ceil(n_nodes
 // / 32)] uint32, chunk_keys [ceil(n_rows / chunk), 2] uint32, row_key
 // [n_rows] uint64, row_nf, row_list [n_rows] and row_count [1] int32,
-// partial [n_rows, ceil(n_nodes / slice)] float32. Outputs prop, pick, nf
+// partial [n_rows, ceil(n_nodes / slice)] float64. Outputs prop, pick, nf
 // [n_rows] int32 and lmean [n_rows] float32. Returns the first CUDA error of
 // the launches (0 = launched).
 int yk_learned_propose(const void* req, const void* group_id,

@@ -16,6 +16,8 @@ feasible and fitting nodes m (group row and min_r(free - req) >= 0),
              reference's random stream)
     pick   = the first argmax of u
     nf     = the number of such nodes, lmean = sum(ls) / max(nf, 1)
+             (summed and divided in float64, rounded once to float32, so
+             the kernel's order and the plain version's give one lmean)
     prop   = pick if nf > 0 and ls[pick] - lmean > GATE_MARGIN else M
 
 An untrained checkpoint embeds every pod to zero, so ls is 0, the gate never
@@ -115,8 +117,8 @@ def learned_propose_reference(pod_emb, node_emb, group_id, group_feas, free,
         ok, ls, u = chunk_scores(pod_emb, node_emb, group_id, group_feas,
                                  free, req, tau, round_key, c, chunk)
         nf = ok.sum(dim=1, dtype=torch.int32)
-        lmean = (torch.where(ok, ls, 0.0).sum(dim=1)
-                 / nf.float().clamp(min=1.0))
+        lmean = (torch.where(ok, ls, 0.0).sum(dim=1, dtype=torch.float64)
+                 / nf.double().clamp(min=1.0)).float()
         if M:
             pick = torch.argmax(u, dim=1)
             ls_best = ls.gather(1, pick[:, None])[:, 0]
@@ -214,7 +216,7 @@ def learned_propose(pod_emb, node_emb, group_id, group_feas, free, req,
     row_nf = torch.empty((N,), **i32)
     row_list = torch.empty((N,), **i32)
     row_count = torch.empty((1,), **i32)
-    partial = torch.empty((N, n_slices), dtype=torch.float32, device=device)
+    partial = torch.empty((N, n_slices), dtype=torch.float64, device=device)
     rc = lib.yk_learned_propose(
         req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
         free.data_ptr(), active.data_ptr(), pod_emb.data_ptr(),
