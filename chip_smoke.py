@@ -16,6 +16,27 @@ phase fails, and when no CUDA device is present):
 
   build   compile every CUDA kernel of the path from yunikorn_tpu_torch/csrc
           (one nvcc process per source, started together)
+  warm    the warm-start layer on one kernel-library store it builds:
+          `python -m yunikorn_tpu_torch.cmd.aot_smoke`'s three fresh
+          children at WARM_BUCKET (1,024 nodes x 10,240 pods): the cold
+          child on the empty store builds every kernel with nvcc and stores
+          it, the hit and prewarm children count a store hit per kernel and
+          build nothing (aot.compile_count() 0), all three place
+          identically, the prewarm child's first cycle is within
+          WARM_MAX_RATIO of the median of its warm cycles of new pods (the
+          ratio against warm cycles that re-submit the first cycle's asks,
+          the JAX smoke's trace, is reported beside it), and every best_nodes
+          (and learned_propose) call the prewarm makes equals its plain
+          version; each child's first-cycle cold_split (nvcc build and load
+          ms, device allocations, reserved-bytes growth, stage ms) and warm
+          ms; then the binary at the kube phase's shape (CMD_NODES nodes,
+          one wave of KUBE_WAVE pods, no watch kill) with --aot-store and
+          --prewarm WARM_KUBE_BUCKET: every pod bound once, a store hit per
+          kernel and no build, its first cycle and cold_split and the first
+          bind after the first pod; then replay C's fresh-process takeover
+          with --aot-store on the store and the bucket prewarm: the child
+          counts a hit per kernel and builds nothing, its cold verdict ok,
+          every bound pod restored
   kernel  each kernel against its plain PyTorch version on the card at the
           main path's shapes, both modes and soft variants, plus
           all-infeasible, forced-tie and ragged-M cases, masks of requested
@@ -54,8 +75,11 @@ phase fails, and when no CUDA device is present):
           solve on the ladder's device tier, pods/s, the cold first cycle,
           the warm cycle's stage split and its kernel launches, a profiled
           warm cycle on a clean mirror (0 node bytes) and one right after
-          discard_device_mirror (a full upload) with their HtoD ms, and a
-          1% churn cycle whose row store uploads only the churned rows); the
+          discard_device_mirror (a full upload) with their HtoD ms, a 1%
+          churn cycle whose row store uploads only the churned rows, the
+          core's cold_split (its first cycle, the warm-up), and one
+          --prewarm bucket at this shape whose peak device allocation and
+          the warm cycle's fit the card together); the
           pressure mix through the core (10,000 x 50,000, one cycle:
           best_nodes launched, no node oversubscribed, every binding
           satisfying its pod's selector and taints, placements equal to a
@@ -223,7 +247,8 @@ phase fails, and when no CUDA device is present):
           POLICY_FIT_EPOCHS, and the greedy, optimal and learned arms with
           the new checkpoint: the learned arm serving it, binding no fewer
           pods than greedy and launching learned_propose; (C) restart-storm
-          with a fresh-process takeover (REPLAY_TAKEOVER, no store): every
+          with a fresh-process takeover (REPLAY_TAKEOVER_COLD, no store):
+          every
           bound pod restored, none lost, none mis-evicted, the child's
           first cycle ms; (D) gang-storm under contention
           (REPLAY_CONTENTION: 1,024 nodes, 1,800 pods of 5 cores, 30 s; the
@@ -256,15 +281,17 @@ phase fails, and when no CUDA device is present):
           launches_duel (launches_duel_repair of them in the pack arm's
           repair), launches_learned (launches_learned_arm of them in the
           learned solve), launches_shim, launches_train,
-          launches_replay_* and launches_shard: in the locality and
-          topology paths' full-width runs, the optimal and the learned
-          core's full-width cycles, the shim's pressure run, the trained
-          checkpoint's learned cycle, each replay run and the 4-shard wave
-          on the card; for learned_propose the learned core's cycle, the
-          trained checkpoint's and the replay's learned arm), error against
-          the plain version (max_abs_err_shard / max_abs_err_replay: over
-          the shard wave's / the replays' calls, held_shard_calls /
-          held_replay_calls of them; null when no call was held), kernel /
+          launches_replay_*, launches_shard and launches_warm: in the
+          locality and topology paths' full-width runs, the optimal and the
+          learned core's full-width cycles, the shim's pressure run, the
+          trained checkpoint's learned cycle, each replay run, the 4-shard
+          wave and the warm phase's prewarm child on the card; for
+          learned_propose the learned core's cycle, the trained
+          checkpoint's and the replay's learned arm), error against the
+          plain version (max_abs_err_shard / max_abs_err_replay /
+          max_abs_err_warm: over the shard wave's / the replays' / the
+          prewarm's calls, held_shard_calls / held_replay_calls /
+          held_warm_calls of them; null when no call was held), kernel /
           plain /
           bound milliseconds (best_nodes at the first odd round's inputs,
           as the main path calls it; learned_propose at full-width random
@@ -488,14 +515,19 @@ KUBE_POLL_S = 0.2
 # (--dataset-out), a fit on the card of POLICY_FIT_EPOCHS, and the
 # three-arm A/B with the new checkpoint; (C) `make failover-smoke`'s
 # fresh-process takeover without a store
-REPLAY_STORM = ["--trace", "gang-storm", "--nodes", "10000"]
+# (A), (B) and (D) run without the bucket prewarm (--no-prewarm), as they
+# ran before the replay had one; (C) here is the cold takeover, and the warm
+# phase runs it again on a store, with the prewarm
+REPLAY_STORM = ["--trace", "gang-storm", "--nodes", "10000", "--no-prewarm"]
 REPLAY_POLICY = ["--trace", "slice-fragmentation", "--nodes", "1024",
-                 "--pods", "768", "--tenants", "4", "--duration", "12"]
+                 "--pods", "768", "--tenants", "4", "--duration", "12",
+                 "--no-prewarm"]
 POLICY_FIT_EPOCHS = (30, 20)
 REPLAY_TAKEOVER = ["--trace", "restart-storm", "--nodes", "300", "--pods",
                    "240", "--tenants", "4", "--duration", "14",
                    "--restart-mode", "process", "--takeover-window", "25",
                    "--slo-cold-budget-ms", "120000"]
+REPLAY_TAKEOVER_COLD = REPLAY_TAKEOVER + ["--no-prewarm"]
 # (D) gang-storm under contention: the replay's own --overcommit makes each
 # pod 5 cores, one to an 8-core node; the storms of 600 pods on 1,024 nodes
 # (30 s: each storm binds for 6 s before half of the bound pods complete)
@@ -504,7 +536,15 @@ REPLAY_TAKEOVER = ["--trace", "restart-storm", "--nodes", "300", "--pods",
 # [1.5, 2) x 600: the end state (900 live) fits once each completion finds
 # its 300 pods bound
 REPLAY_CONTENTION = ["--trace", "gang-storm", "--nodes", "1024", "--pods",
-                     "1800", "--overcommit", "50"]
+                     "1800", "--overcommit", "50", "--no-prewarm"]
+# the warm phase: cmd/aot_smoke's three fresh children (cold, hit, prewarm)
+# at the JAX smoke's bucket, the prewarm child's first cycle within
+# WARM_MAX_RATIO of its warm cycles'; the binary at the kube phase's shape
+# (CMD_NODES nodes, one wave of KUBE_WAVE pods) with --aot-store and
+# --prewarm WARM_KUBE_BUCKET; replay C's takeover on the phase's store
+WARM_BUCKET = "1024x10240"
+WARM_MAX_RATIO = 3.0
+WARM_KUBE_BUCKET = f"{CMD_NODES}x{KUBE_WAVE}"
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -1032,12 +1072,13 @@ def phase_main(dev, stats, clock_hz):
                                    has_soft, clock_hz, rows=kwargs.get("rows"))
     full_b = best_nodes_bound_ms(args[0], args[1], args[2], args[4], has_soft,
                                  clock_hz)
-    stats["best_nodes"] = {
+    # update: the warm phase, which runs first, put its counts there
+    stats.setdefault("best_nodes", {}).update({
         "launches": launches["best_nodes"], "max_abs_err": err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": masked_b["bound_ms"], "bound_by": masked_b["bound_by"],
         "library_ms": None,
-    }
+    })
     mirror = main_mirror(batch, enc, pods, res, dev)
     N, R = args[0].shape
     G, M = args[2].shape
@@ -1279,6 +1320,35 @@ def cycle_split(core):
         "encode_device_ms")}
 
 
+def full_width_prewarm(core, dev, core_peak):
+    """One --prewarm bucket at the core shape (utils/torchtools
+    .warm_bucket with the core, MAIN_NODES x MAIN_PODS): its peak device
+    allocation above what was allocated before it, against the live core's
+    peak over a warm cycle (`core_peak`). The prewarm runs on a thread
+    beside the first cycles on the same card, so the two peaks and what
+    is allocated outside them must fit the card together."""
+    from yunikorn_tpu_torch.utils.torchtools import warm_bucket
+
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    info = warm_bucket(MAIN_NODES, MAIN_PODS, core=core)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {"bucket": f"{MAIN_NODES}x{MAIN_PODS}", "seconds": info["seconds"],
+           "solves": info["solves"],
+           "best_nodes_calls": info["best_nodes_calls"],
+           "prewarm_peak_bytes": peak, "core_warm_cycle_peak_bytes": core_peak,
+           "allocated_before_bytes": base, "card_bytes": total,
+           "together_share": (base + peak + core_peak) / total}
+    if info["solves"] != 4 or info["best_nodes_calls"] != 1:
+        raise AssertionError(f"the full-width prewarm: {out}")
+    if base + peak + core_peak > total:
+        raise AssertionError(f"the prewarm beside a cycle would not fit the "
+                             f"card: {out}")
+    return out
+
+
 def core_bench_shape(dev):
     """bench.py's core cycle (bench.py:806-859) on the port's core."""
     from yunikorn_tpu_torch.client.synthetic import (make_kwok_nodes,
@@ -1296,10 +1366,14 @@ def core_bench_shape(dev):
     warmup_split = cycle_split(core)
     release_all(core, asks[:512])
     n_cold, cold_s = core_cycle(core, asks)
-    cold_split = cycle_split(core)
+    cold_cycle_split = cycle_split(core)
     release_all(core, asks)
     before = best_nodes.launches
+    torch.cuda.synchronize(dev)
+    mem_base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     n_warm, warm_s = core_cycle(core, asks)
+    core_peak = torch.cuda.max_memory_allocated(dev) - mem_base
     warm_launches = best_nodes.launches - before
     split = cycle_split(core)
     if (n_warmup, n_cold, n_warm) != (512, MAIN_PODS, MAIN_PODS):
@@ -1337,13 +1411,15 @@ def core_bench_shape(dev):
                                                         len(churn)):
         raise AssertionError(f"churn cycle placed {n_churn}, uploaded "
                              f"{churn_split['encode_device_rows']} rows")
+    prewarm_mem = full_width_prewarm(core, dev, core_peak)
     solves = check_tiers(core, "core-cycle shape")
     return {"nodes": MAIN_NODES, "pods": MAIN_PODS,
             "placed": {"warmup": n_warmup, "cold": n_cold, "warm": n_warm},
             "pods_per_s": n_warm / warm_s, "warm_cycle_ms": warm_s * 1e3,
             "cold_cycle_ms": cold_s * 1e3, "warmup_cycle_ms": warmup_s * 1e3,
             "cold_first_cycle_ms": core.metrics.get("cold_first_cycle_ms"),
-            "warm_split": split, "cold_split": cold_split,
+            "warm_split": split, "cold_cycle_split": cold_cycle_split,
+            "cold_split": core.cold_split(), "prewarm_memory": prewarm_mem,
             "warmup_split": warmup_split, "solves": solves, "tiers": "device",
             "degradations": 0, "warm_best_nodes_launches": warm_launches,
             "profiled_warm_cycle": profile,
@@ -3673,6 +3749,21 @@ def metric_sums(families, name, by):
     return out
 
 
+def write_kubeconfig(tmp, api_port) -> str:
+    """A kubeconfig under tmp naming the fake API server on api_port."""
+    kubeconfig = os.path.join(tmp, "kubeconfig")
+    with open(kubeconfig, "w") as f:
+        # JSON, which the kubeconfig loader's YAML parser reads
+        json.dump({"apiVersion": "v1", "kind": "Config",
+                   "current-context": "fake",
+                   "clusters": [{"name": "fake", "cluster": {
+                       "server": f"http://127.0.0.1:{api_port}"}}],
+                   "contexts": [{"name": "fake", "context": {
+                       "cluster": "fake", "user": "u"}}],
+                   "users": [{"name": "u", "user": {}}]}, f)
+    return kubeconfig
+
+
 def phase_kube():
     """The scheduler binary with --kubeconfig, on the card, against the
     fake API server in this process: CMD_NODES nodes at the server before
@@ -3689,16 +3780,7 @@ def phase_kube():
 
     server, api_port = fake_apiserver()
     tmp = tempfile.mkdtemp(prefix="yk-kube-")
-    kubeconfig = os.path.join(tmp, "kubeconfig")
-    with open(kubeconfig, "w") as f:
-        # JSON, which the kubeconfig loader's YAML parser reads
-        json.dump({"apiVersion": "v1", "kind": "Config",
-                   "current-context": "fake",
-                   "clusters": [{"name": "fake", "cluster": {
-                       "server": f"http://127.0.0.1:{api_port}"}}],
-                   "contexts": [{"name": "fake", "context": {
-                       "cluster": "fake", "user": "u"}}],
-                   "users": [{"name": "u", "user": {}}]}, f)
+    kubeconfig = write_kubeconfig(tmp, api_port)
     for i in range(CMD_NODES):
         server.add_node_doc(f"kn-{i}")
     rest = free_port()
@@ -3822,6 +3904,9 @@ def phase_kube():
                 stage_n = metric_sums(fams, "yunikorn_cycle_stage_ms_count",
                                       "stage")
                 cold = metric_sums(fams, "yunikorn_cold_first_cycle_ms", "")
+                status, snap = rest_call(rest, "/ws/v1/metrics")
+                out["cold_split"] = (json.loads(snap).get("cold_split")
+                                     if status == 200 else None)
                 proc.send_signal(signal.SIGTERM)
                 t_term = time.perf_counter()
                 rc = proc.wait(timeout=30)
@@ -3851,6 +3936,8 @@ def phase_kube():
         server.stop()
     if out.get("exit_code") != 0:
         raise AssertionError(f"exit code {out.get('exit_code')}")
+    if not out.get("cold_split"):
+        raise AssertionError("/ws/v1/metrics carries no cold_split")
     if len(names) != CMD_PODS or len(set(names)) != CMD_PODS:
         raise AssertionError(f"{len(names)} bindings of {len(set(names))} "
                              f"pods, want each of {CMD_PODS} once")
@@ -4061,7 +4148,7 @@ def replay_policy(dev, stats):
 def replay_takeover(dev, stats):
     """(C) restart-storm with a fresh-process takeover (no store): the
     child recovers every bound pod, loses none and evicts none."""
-    report, launches, held = replay_run(REPLAY_TAKEOVER, "auto", dev,
+    report, launches, held = replay_run(REPLAY_TAKEOVER_COLD, "auto", dev,
                                         "takeover", stats)
     proc = report["fingerprint"]["process_restart"] or {}
     out = {**replay_summary(report), "process_restart": proc,
@@ -4083,6 +4170,203 @@ def phase_replay(dev, stats):
             "policy": replay_policy(dev, stats),
             "takeover": replay_takeover(dev, stats),
             "contention": replay_contention(dev, stats)}
+
+
+def warm_smoke(dev, store, stats):
+    """cmd/aot_smoke's three fresh children on `store` (empty) at
+    WARM_BUCKET: the cold child builds every kernel and stores it, the hit
+    and prewarm children count a hit per kernel and build nothing, all three
+    place identically, the prewarm child's first cycle is within
+    WARM_MAX_RATIO of the median of its warm cycles of new pods, and every
+    prewarm kernel call equals its plain version (aot_smoke's bars; the
+    ratio against the JAX smoke's re-submitted warm cycles is reported). Folds the prewarm child's
+    launches and held calls into the kernels line."""
+    from yunikorn_tpu_torch.cmd import aot_smoke
+
+    args = aot_smoke.build_parser().parse_args(
+        ["--bucket", WARM_BUCKET, "--store", store,
+         "--max-ratio", str(WARM_MAX_RATIO)])
+    res = aot_smoke.run_smoke(args, dev)
+    children = {
+        w: {k: c.get(k) for k in (
+            "first_cycle_ms", "warm_ms", "warm_median_ms", "ref_warm_ms",
+            "ref_warm_median_ms", "aot_hits",
+            "aot_misses", "compile_count", "placed", "placements_digest",
+            "launches", "held", "cold_split", "prewarm", "process_s")}
+        for w, c in res["children"].items()}
+    out = {"children": children,
+           "prewarm_first_vs_warm": res["prewarm_first_vs_warm"],
+           "prewarm_first_vs_ref_warm": res["prewarm_first_vs_ref_warm"],
+           "placement_identical": res["placement_identical"],
+           "prewarm_held_calls": res["prewarm_held_calls"],
+           "prewarm_max_abs_err": res["prewarm_max_abs_err"]}
+    if res["failures"]:
+        raise AssertionError(f"aot_smoke: {res['failures']}; "
+                             f"{json.dumps(out)[:2500]}")
+    pre = res["children"]["prewarm"]
+    for name in ("best_nodes", "learned_propose"):
+        k = stats.setdefault(name, {})
+        k["launches_warm"] = pre["launches"][name]
+        k["held_warm_calls"] = pre["held"][f"{name}_calls"]
+    stats["best_nodes"]["max_abs_err_warm"] = res["prewarm_max_abs_err"]
+    return out
+
+
+def warm_kube(store):
+    """The binary as the kube phase starts it, with --aot-store (the warm
+    phase's store) and --prewarm WARM_KUBE_BUCKET: CMD_NODES nodes at the
+    server before start, and once they are at REST and the prewarm is done
+    (its log line), one wave of KUBE_WAVE pods (no watch kill). Every pod
+    bound once, the store's hits at /metrics with no nvcc build, the first
+    cycle (cold_first_cycle_ms and its cold_split at /ws/v1/metrics) and the
+    first bind after the first pod, SIGTERM exits 0."""
+    import signal
+    import tempfile
+
+    from yunikorn_tpu_torch.obs.promtext import parse_exposition
+
+    server, api_port = fake_apiserver()
+    tmp = tempfile.mkdtemp(prefix="yk-warm-kube-")
+    kubeconfig = write_kubeconfig(tmp, api_port)
+    for i in range(CMD_NODES):
+        server.add_node_doc(f"kn-{i}")
+    rest = free_port()
+    argv = scheduler_argv("--kubeconfig", kubeconfig, "--rest-port",
+                          str(rest), "--aot-store", store, "--prewarm",
+                          WARM_KUBE_BUCKET)
+    log_path = os.path.join(tmp, "scheduler.log")
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                    stderr=log)
+            try:
+                def wait(cond, what, timeout):
+                    deadline = time.perf_counter() + timeout
+                    while time.perf_counter() < deadline:
+                        if proc.poll() is not None:
+                            raise AssertionError(
+                                f"the scheduler exited {proc.returncode} "
+                                f"waiting for {what}")
+                        try:
+                            if cond():
+                                return time.perf_counter()
+                        except OSError:
+                            pass
+                        time.sleep(0.05)
+                    raise AssertionError(f"timed out waiting for {what}")
+
+                out["nodes_ready_s"] = wait(lambda: len(json.loads(rest_call(
+                    rest, "/ws/v1/nodes")[1])) == CMD_NODES,
+                    f"{CMD_NODES} nodes", 180) - t0
+                done = f"prewarm of bucket {WARM_KUBE_BUCKET} done"
+                out["prewarm_done_s"] = wait(
+                    lambda: done in open(log_path).read(), "the prewarm",
+                    120) - t0
+                t_pods = time.perf_counter()
+                for i in range(KUBE_WAVE):
+                    server.add_pod_doc(f"wp-{i}", app_id=f"warm-app-{i % 5}")
+                t_first = wait(lambda: len(server.bindings) >= 1,
+                               "the first binding", 120)
+                t_all = wait(lambda: len(server.bindings) >= KUBE_WAVE,
+                             f"{KUBE_WAVE} pods bound", 120)
+                time.sleep(1.0)  # a late duplicate bind would land here
+                out.update({"first_bind_after_first_pod_s": t_first - t_pods,
+                            "all_bound_after_first_pod_s": t_all - t_pods})
+                status, metrics = rest_call(rest, "/metrics")
+                fams = parse_exposition(metrics)
+                status, snap = rest_call(rest, "/ws/v1/metrics")
+                snap = json.loads(snap)
+                out.update({
+                    "cold_first_cycle_ms": metric_sums(
+                        fams, "yunikorn_cold_first_cycle_ms", "").get(""),
+                    "aot_store_hits": metric_sums(
+                        fams, "yunikorn_aot_store_hits_total", "").get(""),
+                    "aot_store_misses": sum(metric_sums(
+                        fams, "yunikorn_aot_store_misses_total",
+                        "path").values()),
+                    "cold_split": snap.get("cold_split")})
+                proc.send_signal(signal.SIGTERM)
+                t_term = time.perf_counter()
+                out["exit_code"] = proc.wait(timeout=30)
+                out["exit_s"] = time.perf_counter() - t_term
+            except Exception as e:
+                tail = open(log_path).read()[-1500:]
+                raise AssertionError(f"{type(e).__name__}: {e}; the "
+                                     f"scheduler's log ends: {tail}") from e
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=10)
+        names = [n for n, _ in list(server.bindings)]
+    finally:
+        server.stop()
+    if out.get("exit_code") != 0:
+        raise AssertionError(f"exit code {out.get('exit_code')}")
+    if len(names) != KUBE_WAVE or len(set(names)) != KUBE_WAVE:
+        raise AssertionError(f"{len(names)} bindings of {len(set(names))} "
+                             f"pods, want each of {KUBE_WAVE} once")
+    cold = out["cold_split"] or {}
+    if out["aot_store_hits"] != len(KERNELS) or out["aot_store_misses"]:
+        raise AssertionError(f"the binary's store: {out['aot_store_hits']} "
+                             f"hits, {out['aot_store_misses']} misses")
+    if cold.get("builds") != 0:
+        raise AssertionError(f"the binary's first cycle: {cold}")
+    return out
+
+
+def warm_takeover(dev, store, stats):
+    """Replay C with --aot-store on the warm phase's store, and the bucket
+    prewarm: the fresh-process child counts a store hit per kernel, builds
+    nothing, its cold verdict ok, every bound pod restored, none lost."""
+    report, launches, held = replay_run(
+        REPLAY_TAKEOVER + ["--aot-store", store], "auto", dev,
+        "takeover_store", stats)
+    proc = report["fingerprint"]["process_restart"] or {}
+    tk = report["timings"].get("takeover") or {}
+    out = {**replay_summary(report), "process_restart": proc,
+           "takeover": tk, "prewarm_s": report["timings"].get("prewarm"),
+           "launches": launches, "held": held}
+    if not (proc.get("restored_all") and proc.get("lost_bound") == 0
+            and proc.get("mis_evictions") == 0
+            and proc.get("cold_verdict") == "ok"):
+        raise AssertionError(f"the takeover failed: {json.dumps(out)[:1500]}")
+    if (tk.get("aot_hits"), tk.get("aot_builds")) != (len(KERNELS), 0):
+        raise AssertionError(f"the takeover child: {tk.get('aot_hits')} "
+                             f"hits, {tk.get('aot_builds')} builds")
+    if (tk.get("restored_allocations") != tk.get("bound_at_boot")
+            or not tk.get("bound_at_boot")):
+        raise AssertionError(f"the takeover restored "
+                             f"{tk.get('restored_allocations')} of "
+                             f"{tk.get('bound_at_boot')}")
+    if report["timings"].get("prewarm") is None:
+        raise AssertionError("the replay ran no bucket prewarm")
+    return out
+
+
+def phase_warm(dev, stats):
+    """The warm-start layer on the card, on one store the phase builds:
+    cmd/aot_smoke's children, the binary with --aot-store and --prewarm,
+    and replay C's takeover on the store."""
+    import tempfile
+
+    store = os.path.join(tempfile.mkdtemp(prefix="yk-warm-"), "store")
+    out, failed = {}, []
+    # each part runs (and reports) whatever an earlier one did; the phase
+    # fails if any did
+    for name, fn in (("smoke", lambda: warm_smoke(dev, store, stats)),
+                     ("kube", lambda: warm_kube(store)),
+                     ("takeover", lambda: warm_takeover(dev, store, stats))):
+        try:
+            out[name] = fn()
+        except Exception as e:
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"warm parts {failed} failed: "
+                             f"{json.dumps(out, default=str)[:6000]}")
+    return out
 
 
 class CountingCallback:
@@ -4594,6 +4878,7 @@ def main() -> int:
     stats = {}
     failed = []
     phases = [("build", lambda: phase_build()),
+              ("warm", lambda: phase_warm(dev, stats)),
               ("kernel", lambda: phase_kernel(dev)),
               ("cut", lambda: phase_cut(dev)),
               ("main", lambda: phase_main(dev, stats, max_sm_clock_hz())),

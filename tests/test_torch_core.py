@@ -663,17 +663,14 @@ def test_pipelined_cycles_publish_their_overlap():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, item", [
-    ({"shard": True}, 14), ({"aot_namespace": "s0"}, 15),
+    ({"shard": True}, 14),
 ])
 def test_unported_option_raises_naming_its_item(option, item):
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
 
-    kw = dict(option)
-    ns = kw.pop("aot_namespace", None)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}:"):
         tsched.CoreScheduler(SchedulerCache(), device="cpu",
-                             solver_options=tsched.SolverOptions(**kw),
-                             aot_namespace=ns)
+                             solver_options=tsched.SolverOptions(**option))
 
 
 def test_core_raises_without_cuda(monkeypatch):

@@ -10,10 +10,12 @@ the CPU, against the JAX package's scripts/trace_replay.py.
 - A tiny slice-fragmentation replay under solver.policy=optimal with
   --dataset-out records a dataset that the JAX package's load_dataset reads
   as the port's own load_dataset does.
-- A restart-storm replay with a fresh-process takeover on the CPU: every
-  bound pod restored, none lost, and no stall after the handback.
-- --aot-store, from the flag or $YK_AOT_STORE, raises NotImplementedError
-  naming ROADMAP item 15.
+- A restart-storm replay with a fresh-process takeover on the CPU, the
+  child on a kernel-library store (--aot-store): every bound pod restored,
+  none lost, no stall after the handback, and the child reports its store
+  hits and nvcc builds (0 and 0: the CPU path loads no kernel).
+
+The bucket prewarm and --aot-store are tested in tests/test_torch_aot.py.
 """
 import json
 import os
@@ -88,7 +90,8 @@ def test_tiny_gang_storm_matches_jax(tmp_path):
     assert len(got["verdicts"]) == 5
     assert got["violated_objectives"] == []
     assert got_report["pass"] is True
-    assert got_report["timings"]["prewarm"] == "not ported (ROADMAP item 15)"
+    # --no-prewarm: no bucket prewarm ran
+    assert got_report["timings"]["prewarm"] is None
 
 
 def test_contended_gang_storm_reaches_best_nodes(monkeypatch):
@@ -146,15 +149,17 @@ def test_dataset_out_loads_in_jax(tmp_path):
     assert fp["policy"] == "optimal" and fp["all_bound"]
 
 
-def test_process_takeover_restores_every_pod():
+def test_process_takeover_restores_every_pod(tmp_path):
     """--restart-mode process: a fresh interpreter on the parent's device
     takes over mid-storm, recovers every bound pod and loses none. When it
     hands back with no pod pending at the server, the parent's rebuild does
     not wait for a cycle that cannot come: the trace's pump goes on (the
-    JAX replay waits out its 120 s there)."""
+    JAX replay waits out its 120 s there). The child runs on the store
+    --aot-store names and reports its hits and builds."""
     argv = ["--trace", "restart-storm", "--nodes", "48", "--pods", "64",
             "--tenants", "4", "--duration", "6", "--restart-mode", "process",
-            "--takeover-window", "10", "--slo-cold-budget-ms", "120000"]
+            "--takeover-window", "10", "--slo-cold-budget-ms", "120000",
+            "--no-prewarm", "--aot-store", str(tmp_path / "store")]
     args = trace_replay.build_parser().parse_args(argv)
     report = trace_replay.run_replay(args, "auto", device="cpu")
     fp = report["fingerprint"]
@@ -162,20 +167,9 @@ def test_process_takeover_restores_every_pod():
         "restored_all": True, "lost_bound": 0, "mis_evictions": 0,
         "cold_verdict": "ok", "measured": True}
     assert fp["all_bound"] and fp["restarts"] == 2
-    assert report["timings"]["takeover"]["bound_at_boot"] >= 1
+    takeover = report["timings"]["takeover"]
+    assert takeover["bound_at_boot"] >= 1
+    assert (takeover["aot_hits"], takeover["aot_builds"]) == (0, 0)
+    assert takeover["cold_split"]["builds"] == 0
     assert report["timings"]["trace_s"] < 60
     assert report["pass"] is True
-
-
-@pytest.mark.parametrize("how", ["flag", "env"])
-def test_aot_store_is_not_ported(how, tmp_path, monkeypatch):
-    argv = list(TINY)
-    if how == "flag":
-        argv += ["--aot-store", str(tmp_path)]
-    else:
-        monkeypatch.setenv("YK_AOT_STORE", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        trace_replay.main(argv, device="cpu")
-    args = trace_replay.build_parser().parse_args(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        trace_replay.run_replay(args, "greedy", device="cpu")

@@ -11,15 +11,19 @@ Usage:
         [--kubeconfig PATH] [--pods N] [--policy greedy|optimal|learned|all]
         [--policy-checkpoint PREFIX] [--shards N]
         [--shard-epoch-seconds S] [--ledger-serve | --ledger-endpoint H:P]
+        [--aot-store DIR] [--prewarm NODESxPODS,...]
 
 The JAX package's cmd/scheduler.py, ported. The core runs on the card:
 main(argv, device=None) passes `device` to it, so the command line always
 runs on `cuda` and raises without a CUDA device; device="cpu" (a caller's
 choice, as the tests make it) runs the plain PyTorch path. The flags are
-the JAX binary's; those whose feature the port lacks raise
-NotImplementedError naming their ROADMAP item before the core is built:
---aot-store (also from $YK_AOT_STORE or conf solver.aotStore) and
---prewarm (item 15, the warm-start layer). --kubeconfig reads the
+the JAX binary's. --aot-store (also from $YK_AOT_STORE or conf
+solver.aotStore) installs the kernel-library store's runtime (aot/) before
+the core, so the first cycle loads its kernels from the store and builds
+nothing the store holds; --prewarm runs each bucket's solves on the core's
+device on a background thread after startup (utils/torchtools
+.prewarm_buckets). conf solver.aotBackground=true is refused at startup (the
+port has no background build). --kubeconfig reads the
 yunikorn-defaults and yunikorn-configs configmaps first, then schedules the
 cluster's pods onto its nodes (--nodes and --pods are ignored there).
 --shards N >= 2 builds the sharded front end
@@ -49,7 +53,6 @@ from yunikorn_tpu_torch.client.fake import FakeCluster
 from yunikorn_tpu_torch.client.synthetic import make_kwok_nodes, make_sleep_pods
 from yunikorn_tpu_torch.conf.schedulerconf import get_holder
 from yunikorn_tpu_torch.log.logger import log
-from yunikorn_tpu_torch.ops.assign import not_ported
 from yunikorn_tpu_torch.shim.scheduler import KubernetesShim
 from yunikorn_tpu_torch.webapp.rest import RestServer
 
@@ -57,15 +60,6 @@ logger = log("shim")
 
 # --pods arrive in waves of this many pods, one wave a second
 POD_WAVE = 200
-
-
-def _check_flags(args, conf) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for each flag (or
-    configmap key) whose feature the port does not have yet."""
-    if args.aot_store or conf.solver_aot_store:
-        not_ported("--aot-store", 15, "warm-start layer")
-    if args.prewarm:
-        not_ported("--prewarm", 15, "warm-start layer")
 
 
 def main(argv=None, device=None) -> int:
@@ -84,13 +78,15 @@ def main(argv=None, device=None) -> int:
                              "kubeconfig (kind/kwok); default: FakeCluster")
     parser.add_argument("--prewarm", type=str, default="",
                         help="warm standard solve buckets at startup, e.g. "
-                             "'1024x4096,16384x65536' (nodes x pods): not "
-                             "ported yet (ROADMAP item 15)")
+                             "'1024x4096,16384x65536' (nodes x pods): each "
+                             "bucket's solves run on the core's device on a "
+                             "background thread")
     parser.add_argument("--aot-store", type=str,
                         default=os.environ.get("YK_AOT_STORE", ""),
-                        help="prebuilt executable store directory (default "
-                             "$YK_AOT_STORE, else conf solver.aotStore): not "
-                             "ported yet (ROADMAP item 15)")
+                        help="kernel-library store directory (default "
+                             "$YK_AOT_STORE, else conf solver.aotStore): "
+                             "stored libraries load, missing ones build "
+                             "with nvcc and are stored")
     parser.add_argument("--trace-out", type=str, default="",
                         help="dump the cycle tracer as Chrome trace-event "
                              "JSON to this path at shutdown (the live ring "
@@ -139,10 +135,6 @@ def main(argv=None, device=None) -> int:
                              "--ledger-endpoint). Requires --shards >= 2")
     args = parser.parse_args(argv)
 
-    # The JAX binary seeds its persistent compilation cache here; the port's
-    # kernels build at the core's first solve and their libraries are cached
-    # by source hash. A warm-start layer is ROADMAP item 15.
-
     queues_yaml = ""
     if args.queues_yaml:
         with open(args.queues_yaml) as f:
@@ -166,7 +158,6 @@ def main(argv=None, device=None) -> int:
             maps.append({"queues.yaml": queues_yaml})
             binary_maps.append({})
         holder.update_config_maps(maps, initial=True, binary_maps=binary_maps)
-        _check_flags(args, holder.get())
         conf0 = holder.get()
         cluster = RealAPIProvider(kc, qps=conf0.kube_qps,
                                   burst=conf0.kube_burst,
@@ -175,7 +166,6 @@ def main(argv=None, device=None) -> int:
     else:
         holder.update_config_maps([{"queues.yaml": queues_yaml}],
                                   initial=True)
-        _check_flags(args, holder.get())
         cluster = FakeCluster()
         if args.nodes:
             for node in make_kwok_nodes(args.nodes):
@@ -189,6 +179,17 @@ def main(argv=None, device=None) -> int:
     from yunikorn_tpu_torch.obs.slo import SloOptions
     from yunikorn_tpu_torch.robustness.failover import FailoverOptions
     from yunikorn_tpu_torch.robustness.supervisor import SupervisorOptions
+
+    # the kernel-library store (aot/): installed BEFORE the core, so its
+    # first cycle's kernel loads already go through it
+    from yunikorn_tpu_torch import aot
+
+    aot_rt, prev_rt = None, aot.get_runtime()
+    store_path = args.aot_store or holder.get().solver_aot_store
+    if store_path:
+        aot_rt = aot.install(store_path)
+        logger.info("aot store attached at %s (%d entries)", store_path,
+                    aot_rt.store.entry_count())
 
     cache = SchedulerCache()
     solver_opts = SolverOptions.from_conf(holder.get())
@@ -225,6 +226,11 @@ def main(argv=None, device=None) -> int:
         elif ledger_endpoint:
             logger.info("ledger service: coupling to remote authority at "
                         "%s", ledger_endpoint)
+    if aot_rt is not None:
+        # hit/miss/build metrics land in this core's /metrics; build spans
+        # land on its cycle timeline
+        aot_rt.attach(registry=core.obs, tracer=core.tracer,
+                      cycle_id_fn=lambda: core.supervisor.cycle_id)
     context = Context(cluster, core, cache=cache)
     shim = KubernetesShim(cluster, core, context=context)
     rest = RestServer(core, context, port=args.rest_port)
@@ -233,6 +239,12 @@ def main(argv=None, device=None) -> int:
     shim.run()
     port = rest.start()
     logger.info("scheduler up; REST on :%d; device=%s", port, core.device)
+    if args.prewarm:
+        from yunikorn_tpu_torch.utils.torchtools import prewarm_buckets
+
+        # sharded front end: warm against the primary shard's variant
+        # (every shard runs the same solve on the same card)
+        prewarm_buckets(args.prewarm, core=getattr(core, "primary", core))
 
     stop = threading.Event()
 
@@ -254,6 +266,8 @@ def main(argv=None, device=None) -> int:
     rest.stop()
     core.stop()   # before the shim: no callbacks into a stopped dispatcher
     shim.stop()
+    if aot_rt is not None:
+        aot.set_runtime(prev_rt)
     if args.trace_out:
         import json
 

@@ -14,11 +14,13 @@ on the card: run_replay(args, policy, device=None) and main(argv,
 device=None) resolve the device as every entry point of the port does, so
 the command line runs on `cuda` and raises without a CUDA device;
 device="cpu" (a caller's choice, as the tests make it) runs the plain
-PyTorch path. The takeover child runs on its parent's device. The
-warm-start layer is ROADMAP item 15: --aot-store (also from $YK_AOT_STORE)
-raises NotImplementedError naming it, and the replay warms only with its
-warm-up wave (--no-prewarm is accepted; the report's timings say the bucket
-prewarm is not ported).
+PyTorch path. The takeover child runs on its parent's device. Before its
+warm-up wave the replay runs the bucket prewarm (utils/torchtools
+.prewarm_buckets: each bucket's solves on the core's device, at the fleet's
+and a shard's node scale; --no-prewarm skips it). --aot-store (also from
+$YK_AOT_STORE) installs the kernel-library store's runtime (aot/) in the
+replay and in its takeover child, which reports its store hits and nvcc
+builds.
 
 Traces (all seeded-deterministic: same seed => identical event list, and an
 identical report modulo the `timings` section):
@@ -95,7 +97,6 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
-from yunikorn_tpu_torch.ops.assign import not_ported
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
 # the checkout's root: it holds tests/fake_apiserver.py (the oracle API
@@ -447,6 +448,8 @@ class ReplayStack:
                "--takeover-device", str(self.device),
                "--takeover-conf", conf_path,
                "--takeover-window", str(spec.get("window", 25.0))]
+        if spec.get("aot_store"):
+            cmd += ["--aot-store", spec["aot_store"]]
         print(f"[replay] spawning fresh-process takeover: {' '.join(cmd)}",
               file=sys.stderr, flush=True)
         try:
@@ -542,9 +545,16 @@ def child_takeover(args, device) -> int:
     interned vocabularies and device buffers all start empty here, and the
     child's own SLO engine scores its first admitted cycle against the
     aot_cold_start budget carried in the conf map. It runs on `device`, its
-    parent's."""
+    parent's. Its kernel libraries come from the store --aot-store names
+    (else the default one): the report counts the store hits and the nvcc
+    builds this process ran (`aot_hits`, `aot_builds`), and the first
+    cycle's cold split."""
     import urllib.request
 
+    from yunikorn_tpu_torch import aot
+    from yunikorn_tpu_torch.utils import torchtools
+
+    rt = aot.install(args.aot_store) if args.aot_store else None
     with open(args.takeover_conf) as f:
         conf_map = json.load(f)
     port = args.takeover_port
@@ -566,6 +576,8 @@ def child_takeover(args, device) -> int:
     pre_uids = {v["uid"] for v in pre.values() if v["uid"]}
     t0 = time.time()
     stack = ReplayStack(None, port, conf_map, "takeover", device=device)
+    if rt is not None:
+        rt.attach(registry=stack.core.obs, tracer=stack.core.tracer)
     out: dict = {"bound_at_boot": len(pre)}
     try:
         deadline = t0 + args.takeover_window
@@ -601,6 +613,9 @@ def child_takeover(args, device) -> int:
             "violations": stack.core.slo.violations(),
             "bound_at_exit": len(post),
             "window_s": round(time.time() - t0, 2),
+            "aot_hits": torchtools.kernel_stats["hits"],
+            "aot_builds": aot.compile_count(),
+            "cold_split": stack.core.cold_split(),
         })
     finally:
         stack.stop()
@@ -654,8 +669,18 @@ def run_replay(args, policy: str, device=None) -> dict:
     """Replay one trace under `policy` on `device` (default `cuda`, raising
     without a card) and return the report."""
     device = resolve_device(device)
+    from yunikorn_tpu_torch import aot
+
+    prev_rt = aot.get_runtime()
     if args.aot_store:
-        not_ported("--aot-store", 15, "warm-start layer")
+        aot.install(args.aot_store)
+    try:
+        return _run_replay(args, policy, device)
+    finally:
+        aot.set_runtime(prev_rt)
+
+
+def _run_replay(args, policy: str, device) -> dict:
     FakeAPIServer = fake_apiserver_class()
 
     events, meta = generate_trace(
@@ -779,14 +804,47 @@ def run_replay(args, policy: str, device=None) -> dict:
     ledger = {"completed": set()}
     timings: Dict[str, object] = {}
     try:
-        # ---- warm-up: one wave of sleep pods through the whole path (the
-        # kernel libraries load, the device buffers grow to the fleet), then
-        # wipe the SLO windows so the measured phase starts clean. The
-        # bucket prewarm of the warm-start layer (ROADMAP item 15) has no
-        # port yet: this wave is the replay's only warm-up ----
+        # ---- warm-up: the bucket prewarm, then one wave of sleep pods
+        # through the whole path (the kernel libraries load, the device
+        # buffers grow to the fleet), then wipe the SLO windows so the
+        # measured phase starts clean ----
         t0 = time.time()
         warm_n = max(32, min(meta["max_wave"], 4096))
-        timings["prewarm"] = "not ported (ROADMAP item 15)"
+        timings["prewarm"] = None
+        if not args.no_prewarm:
+            # the production deployment's --prewarm: trace waves land at
+            # arbitrary bucket sizes, and the first touch of a bucket's
+            # shapes on the card (allocator segments, each kernel module's
+            # lazy load) must not land inside the measured window. Capped
+            # at the trace's TOTAL pods, not its peak wave: overlapping
+            # waves accumulate pending asks across cycle boundaries
+            from yunikorn_tpu_torch.utils.torchtools import prewarm_buckets
+
+            cap = 1 << max(meta["pods_total"] - 1, 31).bit_length()
+            buckets, b = [], 32
+            while b <= cap:
+                buckets.append(b)
+                b *= 2
+            warm_nodes = [args.nodes]
+            if args.shards > 1:
+                # each shard solves over its own partition: warm the
+                # per-shard node scale too
+                warm_nodes.append(max(1, args.nodes // args.shards))
+            spec = ",".join(f"{m}x{n}" for m in warm_nodes for n in buckets)
+            print(f"[replay] prewarming buckets {spec}", file=sys.stderr,
+                  flush=True)
+            results = []
+            t = prewarm_buckets(spec, results=results,
+                                core=getattr(stack.core, "primary",
+                                             stack.core))
+            t.join(timeout=args.warmup_timeout)
+            if t.is_alive():
+                print("[replay] WARNING: bucket prewarm still running; "
+                      "continuing unwarmed", file=sys.stderr, flush=True)
+            failed = [f"{n}x{p}" for n, p, ok, _ in results if not ok]
+            if failed:
+                raise RuntimeError(f"bucket prewarm failed at {failed}")
+            timings["prewarm"] = round(time.time() - t0, 2)
         for i in range(warm_n):
             tn = meta["tenants"][i % len(meta["tenants"])]
             server.add("pods", _pod_doc(f"warm-{i}", f"warm-{tn}",
@@ -898,6 +956,7 @@ def run_replay(args, policy: str, device=None) -> dict:
                           flush=True)
                     stack.restart(takeover={
                         "window": args.takeover_window,
+                        "aot_store": args.aot_store,
                         "timeout": max(600.0, 4 * args.takeover_window)})
                 else:
                     print("[replay] scheduler restart mid-storm",
@@ -1118,7 +1177,8 @@ def run_replay(args, policy: str, device=None) -> dict:
                 k: tr.get(k) for k in (
                     "first_cycle_ms", "cold_budget_ms", "window_s",
                     "bound_at_boot", "bound_at_exit",
-                    "restored_allocations")}
+                    "restored_allocations", "aot_hits", "aot_builds",
+                    "cold_split")}
         timings["bound_e2e_observations"] = (
             e2e.child_state()[0] if e2e is not None else 0)
 
@@ -1397,8 +1457,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nodes-per-domain", type=int, default=16,
                     help="nodes per synthesized ICI domain")
     ap.add_argument("--aot-store", default=os.environ.get("YK_AOT_STORE", ""),
-                    help="prebuilt executable store directory (default "
-                         "$YK_AOT_STORE): not ported yet (ROADMAP item 15)")
+                    help="kernel-library store directory (default "
+                         "$YK_AOT_STORE): the replay and its takeover child "
+                         "load their kernel libraries from it")
     ap.add_argument("--slo-e2e", type=float, default=40.0,
                     help="pod e2e p99 target seconds (the JAX package's "
                          "default, kept so both replays answer to one "
@@ -1413,9 +1474,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(the hang fault sleeps 3x past it)")
     ap.add_argument("--warmup-timeout", type=float, default=600.0)
     ap.add_argument("--no-prewarm", action="store_true",
-                    help="accepted for the JAX replay's command lines; the "
-                         "bucket prewarm is not ported yet (ROADMAP item "
-                         "15), so the replay never runs one")
+                    help="skip the bucket prewarm before the warm-up wave "
+                         "(timings.prewarm is then null)")
     ap.add_argument("--drain-timeout", type=float, default=180.0)
     ap.add_argument("--report", default="",
                     help="write the replay report JSON here")
@@ -1442,8 +1502,6 @@ def main(argv=None, device=None) -> int:
 
     device = resolve_device(device if device is not None
                             else args.takeover_device or None)
-    if args.aot_store:
-        not_ported("--aot-store", 15, "warm-start layer")
     if args.takeover:
         return child_takeover(args, device)
 

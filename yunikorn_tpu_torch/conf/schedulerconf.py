@@ -9,9 +9,11 @@ keys (:210-265). The solver-specific knobs (`solver.*`) are new: they size the
 device-array buckets and the assignment loop.
 
 The JAX package's conf/schedulerconf.py, copied with its imports rewritten.
-Keys whose feature the port lacks (solver.shardSolve=true,
-solver.aotStore) still parse here; the core and the scheduler binary raise
-NotImplementedError naming their ROADMAP item when one asks for them.
+Keys whose feature the port lacks (solver.shardSolve=true) still parse here;
+the core raises NotImplementedError naming its ROADMAP item when one asks
+for it. solver.aotStore names the kernel-library store (aot/);
+solver.aotBackground=true is refused like an unknown value (the port has no
+background build: aot/runtime.BACKGROUND_REFUSED).
 """
 from __future__ import annotations
 
@@ -232,14 +234,13 @@ class SchedulerConf:
     # learned-policy checkpoint prefix (solver.policyCheckpoint): the
     # .npz+manifest pair a policy_train run emits; "" = none
     solver_policy_checkpoint: str = ""
-    # AOT executable store (aot/): directory holding serialized compiled
-    # solver executables per fingerprint; "" = disabled. A fresh process
-    # with a prebuilt store serves its first cycle without compiles.
+    # AOT kernel-library store (aot/): directory holding the built kernel
+    # libraries per fingerprint; "" = disabled. A fresh process with a
+    # prebuilt store runs no nvcc before its first cycle.
     solver_aot_store: str = ""
-    # on a store miss in a supervised device dispatch: "auto"/"true" =
-    # raise CompilePending and compile in the background (the ladder serves
-    # from cpu/host until the half-open probe reclaims the tier); "false" =
-    # compile inline (the legacy first-cycle stall)
+    # on a store miss: "auto" / "false" = build inline. "true" (a background
+    # build serving the cycle from a lower tier) is refused: the port has
+    # one tier
     solver_aot_background: str = "auto"
     # topology-aware placement (topology/): ICI-domain contention penalty +
     # gang-contiguous steering in the batched score, topology-ordered
@@ -519,12 +520,14 @@ def parse_config_map(data: Dict[str, str], base: Optional[SchedulerConf] = None)
             (CM_SOLVER_GATE, "solver_gate", TRI_STATE),
             (CM_SOLVER_GATE_DEVICE, "solver_gate_device", TRI_STATE),
             (CM_SOLVER_GATE_VERIFY, "solver_gate_verify", ("true", "false")),
-            (CM_SOLVER_AOT_BACKGROUND, "solver_aot_background", TRI_STATE),
             (CM_SOLVER_TOPOLOGY, "solver_topology", TRI_STATE),
             (CM_SOLVER_POLICY, "solver_policy", SOLVER_POLICIES),
             (CM_SOLVER_PACK, "solver_pack", SOLVER_PACK_ARMS)):
         if key in data:
             setattr(conf, attr, _parse_choice(key, data[key], allowed))
+    if CM_SOLVER_AOT_BACKGROUND in data:
+        conf.solver_aot_background = _parse_aot_background(
+            data[CM_SOLVER_AOT_BACKGROUND])
     if CM_SOLVER_SHARDS in data:
         conf.solver_shards = _parse_shards(data[CM_SOLVER_SHARDS])
     if CM_SOLVER_DELIVERY_HIGH_WATER in data:
@@ -547,6 +550,17 @@ def parse_config_map(data: Dict[str, str], base: Optional[SchedulerConf] = None)
             data[CM_ROBUST_LEDGER_LEASE_TTL],
             conf.robustness_ledger_lease_ttl_s)
     return conf
+
+
+def _parse_aot_background(v: str) -> str:
+    """solver.aotBackground: auto or false (both build a store miss
+    inline); true is refused, with the reason, as an invalid value is."""
+    s = _parse_choice(CM_SOLVER_AOT_BACKGROUND, v, TRI_STATE)
+    if s == "true":
+        from yunikorn_tpu_torch.aot.runtime import BACKGROUND_REFUSED
+
+        raise ValueError(BACKGROUND_REFUSED)
+    return s
 
 
 def _parse_shards(v: str) -> str:

@@ -23,8 +23,7 @@ at the same protocol seams the reference uses.
 
 The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
-  - solver.shard=True (multi-GPU node-dim sharding, item 14) and an AOT
-    namespace (the warm-start layer, item 15)
+  - solver.shard=True (multi-GPU node-dim sharding, item 14)
   - any fallback below the device tier: a gate scan, row-store sync,
     mirror refresh or solve that fails after its retries fails the cycle;
     nothing re-runs the card's work on the CPU. A device preemption
@@ -75,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import statistics
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -82,6 +82,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from yunikorn_tpu_torch.aot import runtime as aot_runtime
 from yunikorn_tpu_torch.locking import locking
 from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
 from yunikorn_tpu_torch.common import constants
@@ -310,6 +311,9 @@ class _PipelineCycle:
     result: Optional["_SolveHandle"] = None
     # row→name mapping snapshotted at dispatch (commit-time remap guard)
     node_names: Optional[Dict[int, str]] = None
+    # the process's cold-start marks at prepare time (until the first
+    # cycle with pods is recorded: CoreScheduler._cold_marks)
+    cold0: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -364,7 +368,12 @@ class CoreScheduler(SchedulerAPI):
                  flightrec=None, flightrec_options=None, device=None):
         self.device = resolve_device(device)
         self.solver = solver_options or SolverOptions()
-        _check_options(self.solver, aot_namespace)
+        _check_options(self.solver)
+        # the AOT runtime's accounting label of this core's kernel loads
+        # (core/shard.py gives each shard its own): it changes no key, the
+        # libraries are per process, so a kernel is accounted to the first
+        # core that loads it
+        self.aot_namespace = aot_namespace
         self._lock = locking.RMutex()
         self.cache = cache
         # ---- control-plane sharding hooks (core/shard.py)
@@ -766,6 +775,9 @@ class CoreScheduler(SchedulerAPI):
         # wall of the first cycle with admitted pods (the AOT cold-start
         # objective's measured value); stamped once per process lifetime
         self._first_cycle_ms: Optional[float] = None
+        # the first cycle's cold split (see _cold_marks)
+        self._cold_split: Optional[dict] = None
+        self._aot_hits_seen = 0.0
         self.slo = SloEngine(slo_options, registry=m)
         self.slo.attach_core(self)
         # ---- journey ledger + flight recorder (round 20) ----
@@ -1405,8 +1417,10 @@ class CoreScheduler(SchedulerAPI):
         if self.device.type == "cuda":
             # outside the supervisor: a kernel that fails to build or load
             # fails the cycle — it is never served by another path, and the
-            # build never runs inside a dispatch deadline
-            load_kernels()
+            # build never runs inside a dispatch deadline. With an AOT
+            # runtime installed the libraries come from its store
+            with aot_runtime.namespace(self.aot_namespace):
+                load_kernels()
         logger.info("solver runtime: device=%s kernel mode=%s", self.device,
                     "quantized" if self._use_pallas else "exact")
         self._solver_resolved = True
@@ -1491,6 +1505,16 @@ class CoreScheduler(SchedulerAPI):
             fr.add_source("ledger_audit",
                           lambda: self.quota_ledger.audit())
 
+    def _aot_outcome(self) -> str:
+        """Journey solved-mark attr: did THIS cycle's kernel loads come from
+        the AOT store ('hit'), or were the libraries already loaded or built
+        ('warm')? Delta-based on the store's counter so it costs one
+        registry read per cycle."""
+        c = self.obs.get("aot_store_hits_total")
+        hits = float(c.value()) if c is not None else 0.0
+        prev, self._aot_hits_seen = self._aot_hits_seen, hits
+        return "hit" if hits > prev else "warm"
+
     def _journey_cycle_marks(self, keys: List[str], t_gate: float,
                              t_solve: float, gate_stats: dict,
                              solve_ms: float) -> None:
@@ -1506,7 +1530,8 @@ class CoreScheduler(SchedulerAPI):
         self.journey.mark(keys, "gated", t_gate, **jattrs)
         self.journey.mark(keys, "solved", t_solve,
                           arm=self._last_pack_stats.get("policy", "greedy"),
-                          solve_ms=round(solve_ms, 2), aot="warm")
+                          solve_ms=round(solve_ms, 2),
+                          aot=self._aot_outcome())
 
     def _dispatch_solve(self, batch, policy, overlay, node_mask,
                         inflight_ports, mirror_epoch=None):
@@ -2427,6 +2452,7 @@ class CoreScheduler(SchedulerAPI):
         """One SEQUENTIAL cycle for the ACTIVE partition (core lock held);
         returns (allocation count, publish payload for _publish_cycle)."""
         t0 = time.time()
+        cold0 = self._cold_marks()
         self._cycle_seq += 1
         cid = self._cycle_seq
         self.supervisor.cycle_id = cid
@@ -2536,6 +2562,7 @@ class CoreScheduler(SchedulerAPI):
             if fb_rounds:
                 entry["fallback_rounds"] = fb_rounds
                 entry["fallback_placed"] = len(fallback_keys)
+            self._stamp_cold_split(entry, cold0)
             self._record_cycle_entry(self.partition.name, entry)
             tr = self.tracer
             pname = self.partition.name
@@ -2640,6 +2667,7 @@ class CoreScheduler(SchedulerAPI):
         the in-flight device solve; the port's solve has finished by
         now)."""
         t0 = time.time()
+        cold0 = self._cold_marks()
         with self._lock:
             self._use_partition("default")
             if getattr(self.partition, "draining", False):
@@ -2669,7 +2697,8 @@ class CoreScheduler(SchedulerAPI):
                 encode_rows=self.encoder.last_encode_rows,
                 encode_reencoded=self.encoder.last_encode_rows_reencoded,
                 encode_device=dict(self._last_encode_device),
-                t_prepare_start=t0, t_gate=t_gate, t_encode_end=time.time())
+                t_prepare_start=t0, t_gate=t_gate, t_encode_end=time.time(),
+                cold0=cold0)
             self.tracer.add("gate", cyc.cycle_id, t0, t_gate,
                             pods=len(admitted), **_gate_extras(cyc.gate_stats))
             self.tracer.add("encode", cyc.cycle_id, t_gate, cyc.t_encode_end,
@@ -2803,7 +2832,7 @@ class CoreScheduler(SchedulerAPI):
             [a.allocation_key for a in cyc.admitted], "solved", t_mat1,
             arm=self._last_pack_stats.get("policy", "greedy"),
             solve_ms=round((t_mat1 - cyc.t_dispatched) * 1000, 2),
-            aot="warm")
+            aot=self._aot_outcome())
         with self._lock:
             self._use_partition("default")
             self._inflight_ask_keys = set()
@@ -2862,6 +2891,7 @@ class CoreScheduler(SchedulerAPI):
             if fb_rounds:
                 entry["fallback_rounds"] = fb_rounds
                 entry["fallback_placed"] = len(fallback_keys)
+            self._stamp_cold_split(entry, cyc.cold0)
             self._record_cycle_entry(self.partition.name, entry)
             self._m_pipeline_cycles.inc()
             for k, g in self._g_pipeline.items():
@@ -3717,6 +3747,9 @@ class CoreScheduler(SchedulerAPI):
         snap = self.obs.snapshot()
         if last:
             snap["last_cycle"] = last
+        cold = self.cold_split()
+        if cold is not None:
+            snap["cold_split"] = cold
         return snap
 
     def _note_cycle_success(self) -> None:
@@ -3787,6 +3820,70 @@ class CoreScheduler(SchedulerAPI):
         # must not read as staleness the restarted loop never caused
         return {pname: now - max(done.get(pname, base), base)
                 for pname in list(self.partitions)}
+
+    def _cold_marks(self) -> Optional[dict]:
+        """What the first cycle's cold split is measured against, taken at a
+        cycle's start until the first cycle with pods is recorded (None
+        after): the process's kernel-library builds and loads
+        and the AOT store's hits (utils/torchtools.kernel_stats), and on a
+        CUDA device the caching allocator's counters."""
+        if self._first_cycle_ms is not None:
+            return None
+        from yunikorn_tpu_torch.utils import torchtools
+
+        marks = {"kernels": dict(torchtools.kernel_stats), "mem": None}
+        if self.device.type == "cuda":
+            ms = torch.cuda.memory_stats(self.device)
+            marks["mem"] = {k: ms.get(k, 0) for k in _COLD_MEM_KEYS}
+        return marks
+
+    def _cold_delta(self, cold0: dict, entry: dict) -> dict:
+        """The first cycle's split: the kernel builds (nvcc) and loads and
+        the store hits it paid for, the device allocations (cudaMalloc
+        segments and allocation requests) and reserved-bytes growth, and
+        its stage ms, with `unstaged_ms` what its total holds outside them
+        (a pipelined cycle's dispatch, where the port's solve runs)."""
+        now = self._cold_marks()
+        k0, k1 = cold0["kernels"], now["kernels"]
+        out = {"at": entry.get("at"), "pods": entry.get("pods"),
+               "build_ms": round(k1["build_ms"] - k0["build_ms"], 2),
+               "builds": k1["builds"] - k0["builds"],
+               "load_ms": round(k1["load_ms"] - k0["load_ms"], 3),
+               "loads": k1["loads"] - k0["loads"],
+               "store_hits": k1["hits"] - k0["hits"]}
+        m0, m1 = cold0["mem"], now["mem"]
+        for name, key in _COLD_MEM_KEYS.items():
+            out[key] = (None if m0 is None or m1 is None
+                        else m1[name] - m0[name])
+        for k in _COLD_STAGES:
+            out[k] = entry.get(k)
+        out["unstaged_ms"] = round(entry.get("total_ms", 0.0) - sum(
+            entry.get(k) or 0.0 for k in _COLD_STAGES[:-1]), 2)
+        return out
+
+    def cold_split(self) -> Optional[dict]:
+        """The first cycle's cold split (None until one with pods ran), with
+        the same stages' median over the cycles recorded after it in the
+        cycle log (`warm_median`, `warm_cycles`), where the caller ran
+        any."""
+        with self._lock:
+            cold = self._cold_split
+            if cold is None:
+                return None
+            warm = [e for e in self._cycle_log
+                    if e.get("pods") and e.get("at", 0) > (cold["at"] or 0)]
+        out = dict(cold, warm_cycles=len(warm))
+        out["warm_median"] = ({k: statistics.median(e[k] for e in warm)
+                               for k in _COLD_STAGES} if warm else None)
+        return out
+
+    def _stamp_cold_split(self, entry: dict, cold0: Optional[dict]) -> None:
+        """Give the process's first cycle with pods its cold split
+        (`cold_split`, against the marks `cold0` taken at its start)."""
+        if (self._first_cycle_ms is None and entry.get("pods")
+                and cold0 is not None):
+            self._cold_split = self._cold_delta(cold0, entry)
+            entry["cold_split"] = self._cold_split
 
     def _record_cycle_entry(self, pname: str, entry: dict) -> None:
         """Publish one cycle's stage breakdown (core lock held): the
@@ -3962,15 +4059,22 @@ class CoreScheduler(SchedulerAPI):
         return json.dumps(self.get_partition_dao(), default=str)
 
 
-def _check_options(so: SolverOptions, aot_namespace) -> None:
+# the caching allocator's counters of the cold split: cudaMalloc'd segments,
+# allocation requests, reserved bytes (torch.cuda.memory_stats key -> split
+# key)
+_COLD_MEM_KEYS = {"segment.all.allocated": "device_mallocs",
+                  "allocation.all.allocated": "alloc_requests",
+                  "reserved_bytes.all.current": "reserved_growth_bytes"}
+_COLD_STAGES = ("gate_ms", "encode_ms", "solve_ms", "commit_ms", "post_ms",
+                "total_ms")
+
+
+def _check_options(so: SolverOptions) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for each option
     whose feature the port does not have yet."""
     if so.shard:
         not_ported("node-dim sharding (solver.shard=True)", 14,
                    "multi-GPU node-dim sharding")
-    if aot_namespace:
-        not_ported("an AOT executable namespace (aot_namespace)", 15,
-                   "warm-start layer")
 
 
 def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:

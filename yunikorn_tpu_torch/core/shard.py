@@ -63,8 +63,9 @@ without a card), and the usage mirror's tensor lives there too. All shards
 share that one card: each shard's cycle thread issues its device work on
 the thread's current stream (the legacy default stream unless a caller
 sets another), so the shards' kernels serialize on the card in the order
-the threads issue them. Per-shard AOT namespaces are the warm-start layer
-(ROADMAP item 15): aot_namespace=True raises in the shard cores.
+the threads issue them. aot_namespace=True labels each shard core's kernel
+loads `shard{k}` in the AOT runtime's accounting (aot/runtime.namespace);
+the libraries themselves are per process and shared by every shard.
 """
 from __future__ import annotations
 
@@ -885,12 +886,10 @@ class ShardedCoreScheduler(SchedulerAPI):
                  ledger_endpoint: str = "",
                  ledger_serve: bool = False, ledger_client_options=None,
                  host_id: str = "", device=None):
-        # aot_namespace=True gives each shard its own executable namespace
-        # in the AOT store (corruption/variant isolation for multi-process
-        # deployments) at the cost of N compiles per program AND of the
-        # bucket prewarm: warm_bucket runs outside any namespace, so
-        # namespaced shards would miss every prewarmed entry. Default off:
-        # in-process shards share executables — same program, same avals.
+        # aot_namespace=True labels each shard's kernel loads shard{k} in
+        # the AOT runtime's accounting. Unlike the JAX package's executable
+        # namespaces it changes no store key: the kernel libraries are per
+        # process, so the shards (and the bucket prewarm) share them.
         if n_shards < 2:
             raise ValueError("ShardedCoreScheduler needs >= 2 shards; "
                              "use make_core_scheduler for the 1-shard case")
