@@ -6,10 +6,12 @@ admission gate with the device-resident node, victim and request state,
 the pack and cvx duel arms of solver.policy=optimal, the learned policy's
 serving path (solver.policy=learned and all) and its trainer, the shim,
 mock scheduler and scheduler binary that bring a cluster's pods to the
-core, the real-cluster client (--kubeconfig) and the trace-replay driver,
-and the sharded control plane (solver.shards >= 2).
+core, the real-cluster client (--kubeconfig), the admission webhook in
+front of it, the trace-replay driver, and the sharded control plane
+(solver.shards >= 2).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only admit --repeat 8   # one phase, 8 runs
 
 Phases, each printing one JSON line (the script exits non-zero when any
 phase fails, and when no CUDA device is present):
@@ -175,8 +177,9 @@ phase fails, and when no CUDA device is present):
           kernel's launches counted from 0 around the measured cycle, its
           stage split, learned_ms, winner and learned_util, no node over
           its allocatable, and then the untrained checkpoint's learned plan
-          equal to the greedy plan; solver.policy=all at the pressure cut on
-          the card and on the CPU (the same winner, every arm's units within
+          equal to the greedy plan; solver.policy=all on the pressure mix at
+          ALL_CUT_NODES x ALL_CUT_PODS (1,000 x 6,000) on the card and on
+          the CPU (the same winner, every arm's units within
           0.5%, the cvx arm's learned duals); and a device profile of one
           full-width learned solve
   train   the learned policy's trainer: scripts/policy_bench.py --train
@@ -204,7 +207,8 @@ phase fails, and when no CUDA device is present):
           bound count, the wall time, first-to-last-bind pods/s
           (BindStats.throughput, as bench.py reports it), the warm cycles'
           stage split, the host threads' sampled split; then the pressure
-          mix at the cut (2,000 x 10,000) through a hand-run harness (the
+          mix at SHIM_CUT_NODES x SHIM_CUT_PODS (1,000 x 5,000) through a
+          hand-run harness (the
           core not started: the shim's pump delivers every ask, then
           schedule_once until a cycle places nothing) on `cuda` and on
           `cpu`: identical allocations by pod name, the JAX package's count
@@ -232,6 +236,39 @@ phase fails, and when no CUDA device is present):
           every KUBE_POLL_S until the first allocation), the server its
           first binding, and the dispatcher's backlog between the two
           (/ws/v1/health, every KUBE_POLL_S)
+  admit   the admission webhook in front of the scheduler: the port's
+          admission controller binary (`python -m
+          yunikorn_tpu_torch.cmd.admission_controller --kubeconfig`, over
+          TLS when `cryptography` imports, else --no-tls, printed as "tls"
+          with the import error) and scheduler binary (--kubeconfig, on the
+          card) against tests/fake_apiserver.py's server in this process,
+          which holds CMD_NODES nodes, the yunikorn-configs configmap
+          (admissionController.filtering.processNamespaces ADMIT_PROCESS)
+          and a priority class annotated allow-preemption "false". With
+          TLS both webhook configurations are installed at the server with
+          one caBundle, and every call verifies the webhook's certificate
+          against it as the only CA. This process plays the API server's
+          admission step for ADMIT_PODS bare pods (no schedulerName, no
+          applicationId) over ADMIT_NAMESPACES from ADMIT_THREADS threads:
+          POST /mutate, apply the JSON patch, create the pod. Each patch
+          must equal what the reference's controller writes (the port's
+          constants: schedulerName, the applicationId and queue labels, the
+          user-info annotation, the allow-preemption annotation from the
+          priority class); the excluded namespace's pods get no scheduler
+          name and no labels. The configmap is then updated at the server
+          to process the excluded namespace, and ADMIT_RELOAD_PODS more
+          there must come back patched (the informers' hot reload). A port
+          AdmissionController whose validate_conf_fn POSTs queues.yaml to
+          the scheduler's /ws/v1/validate-conf denies an invalid
+          configuration and allows a valid one; the binary's own
+          /validate-conf allows both (no validator, as the reference's).
+          Every patched pod is bound exactly once, under the applicationId
+          its patch gave it (/ws/v1/apps), and no excluded pod; the port's
+          webapp/webtest proxies /ws/v1/apps and /ws/v1/nodes equal to a
+          direct read; SIGTERM exits both binaries 0 within 30 s; the
+          /mutate round trip's p50 / p99 ms, pods/s from the first
+          admission to the last bind, and the first bind after the first
+          admission
   replay  yunikorn_tpu_torch.cmd.trace_replay's run_replay on the card,
           every best_nodes and learned_propose call captured and held
           against its plain version afterwards (best_nodes bit-equal;
@@ -330,6 +367,15 @@ MAIN_NODES, MAIN_PODS = 10_000, 50_000
 # the solve's padded shape at MAIN_NODES x MAIN_PODS (pods N, nodes M)
 FULL_SHAPE = (65_536, 16_384)
 CUT_NODES, CUT_PODS = 2_000, 10_000
+# the learned phase's solver.policy=all cycle, on the card and on the CPU:
+# a quarter of CUT_NODES x CUT_PODS's padded cells (8,192 x 1,024). At the
+# full cut its CPU cycle (every arm on the host's cores) took 87.4 s of the
+# script's 757.7 on the H100 machine's host, at this shape 24.6 s. Its
+# decision is the full cut's: pack and cvx place every pod and tie on
+# units, cvx wins the incumbent fold, learned places fewer, card = CPU. (At
+# 1,000 x 7,000 the cvx arm placed 7,000 on the card and 6,993 on the CPU,
+# which flipped the winner: the relaxations' float noise, ROADMAP §3.)
+ALL_CUT_NODES, ALL_CUT_PODS = 1_000, 6_000
 # the JAX package's result on the same workloads (rounds, pods placed)
 EXPECTED = {(MAIN_NODES, MAIN_PODS): (16, 45_977),
             (CUT_NODES, CUT_PODS): (16, 9_455)}
@@ -422,11 +468,15 @@ DUEL_MOCK_PODS, DUEL_MOCK_NODES = 1_024, 128
 # the shim phase: bench.py's shim run (10,000 kwok nodes x 50,000 sleep
 # pods in 5 queues) must bind every pod within SHIM_DEADLINE_S
 SHIM_DEADLINE_S = 240.0
-# the JAX package's MockScheduler (CPU) on the pressure mix at the cut,
-# driven by the same hand-run harness as shim_harness drives the port's
-# (tests/test_torch_shim.py --cut prints it): pods placed, and the pods
-# each schedule_once placed until one placed none
-EXPECTED_SHIM_CUT = (10_000, [9_455, 534, 11, 0])
+# the JAX package's MockScheduler (CPU) on the pressure mix at
+# SHIM_CUT_NODES x SHIM_CUT_PODS, driven by the same hand-run harness as
+# shim_harness drives the port's (tests/test_torch_shim.py --cut prints
+# it): pods placed, and the pods each schedule_once placed until one
+# placed none. The harness ran at CUT_NODES x CUT_PODS (10,000 in cycles
+# 9,455 / 534 / 11 / 0) until its card and CPU runs were cut to half the
+# pods for the script's time; the odd rounds are still reached
+SHIM_CUT_NODES, SHIM_CUT_PODS = 1_000, 5_000
+EXPECTED_SHIM_CUT = (5_000, [4_940, 60, 0])
 # the cmd phase: the scheduler binary with 1,000 synthetic nodes and a
 # stream of 5,000 sleep pods (its --pods: 200 a second), profiled over
 # CMD_PROFILE_S seconds of the stream
@@ -545,6 +595,25 @@ REPLAY_CONTENTION = ["--trace", "gang-storm", "--nodes", "1024", "--pods",
 WARM_BUCKET = "1024x10240"
 WARM_MAX_RATIO = 3.0
 WARM_KUBE_BUCKET = f"{CMD_NODES}x{KUBE_WAVE}"
+# the admit phase: the port's admission controller binary (--kubeconfig)
+# and scheduler binary against the fake API server. ADMIT_PODS pods created
+# bare (no schedulerName, no applicationId) go through /mutate from
+# ADMIT_THREADS threads, spread over ADMIT_NAMESPACES; the last one is left
+# out by admissionController.filtering.processNamespaces until the configmap
+# at the server is updated, after which ADMIT_RELOAD_PODS more there must
+# come back patched. Every ADMIT_PC_EVERY-th pod of the processed
+# namespaces names ADMIT_PRIORITY_CLASS, annotated allow-preemption "false"
+ADMIT_PODS, ADMIT_RELOAD_PODS, ADMIT_THREADS = 2_000, 200, 8
+ADMIT_NAMESPACES = ("team-a", "team-b", "team-c", "excluded")
+ADMIT_PROCESS, ADMIT_PROCESS_RELOADED = "^team-", "^team-,^excluded$"
+ADMIT_PRIORITY_CLASS, ADMIT_PC_EVERY = "no-preempt", 10
+ADMIT_USER = {"username": "alice", "groups": ["dev"]}
+# the scheduler's /ws/v1/validate-conf behind the admission controller's
+# validate_conf_fn seam: a partition with no root queue is refused
+ADMIT_INVALID_QUEUES = ("partitions:\n  - name: default\n    queues:\n"
+                        "      - name: notroot\n")
+ADMIT_VALID_QUEUES = ("partitions:\n  - name: default\n    queues:\n"
+                      "      - name: root\n        submitacl: '*'\n")
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -2980,10 +3049,10 @@ def learned_core_full(dev, stats):
 
 
 def learned_all_cut(dev):
-    """solver.policy=all through the core at the pressure cut (2,000 x
-    10,000; every arm: pack, cvx with the learned duals, learned), on the
-    card and on the CPU: the same winner, each arm's placed count and
-    units within the duel bar (DUEL_UNITS_RTOL), no node over its
+    """solver.policy=all through the core on the pressure mix at
+    ALL_CUT_NODES x ALL_CUT_PODS (every arm: pack, cvx with the learned
+    duals, learned), on the card and on the CPU: the same winner, each
+    arm's units within the duel bar (DUEL_UNITS_RTOL), no node over its
     allocatable."""
     from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
                                                      make_pressure_nodes,
@@ -2993,11 +3062,12 @@ def learned_all_cut(dev):
     apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
     out = {}
     for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        cache, core, cb = make_core(where, make_pressure_nodes(CUT_NODES),
+        cache, core, cb = make_core(where,
+                                    make_pressure_nodes(ALL_CUT_NODES),
                                     apps, SolverOptions(
                                         policy="all",
                                         policy_checkpoint=LEARNED_CKPT))
-        asks = asks_of(make_pressure_pods(CUT_PODS))
+        asks = asks_of(make_pressure_pods(ALL_CUT_PODS))
         n, cycle_s = core_cycle(core, asks)
         check_bindings(cache, cb.bound, asks)
         entry = core.metrics["last_cycle"]["default"]
@@ -3013,6 +3083,7 @@ def learned_all_cut(dev):
                               "cvx": entry.get("cvx_placed"),
                               "learned": entry.get("learned_placed")},
             "duel_wins": core.metrics.get("duel_wins_total")}
+    out["shape"] = (ALL_CUT_NODES, ALL_CUT_PODS)
     card, cpu = out["card"], out["cpu"]
     if card["winner"] != cpu["winner"]:
         raise AssertionError(f"winner {card['winner']} on the card, "
@@ -3066,8 +3137,8 @@ def phase_learned(dev, stats, clock_hz):
     """The learned policy's serving path (solver.policy=learned and all):
     both kernels of the path against their plain versions at full width,
     policy_bench's evaluation with the committed checkpoint, the core at
-    full width with its launch counts, solver.policy=all at the cut on the
-    card and the CPU, and one full-width learned solve: learned_propose's
+    full width with its launch counts, solver.policy=all at ALL_CUT_NODES x
+    ALL_CUT_PODS on the card and the CPU, and one full-width learned solve: learned_propose's
     calls at their own inputs, warm ms against greedy's and a device
     profile."""
     from yunikorn_tpu_torch.ops.assign import solve_batch
@@ -3575,12 +3646,12 @@ def phase_shim(dev, stats):
     bench = shim_bench_shape(dev)
     t0 = time.perf_counter()
     best_nodes.launches = 0
-    on_card, cycles = shim_harness(dev, CUT_NODES, CUT_PODS)
+    on_card, cycles = shim_harness(dev, SHIM_CUT_NODES, SHIM_CUT_PODS)
     launches = best_nodes.launches
     card_s = time.perf_counter() - t0
     stats.setdefault("best_nodes", {})["launches_shim"] = launches
-    on_cpu, cpu_cycles = shim_harness(torch.device("cpu"), CUT_NODES,
-                                      CUT_PODS)
+    on_cpu, cpu_cycles = shim_harness(torch.device("cpu"), SHIM_CUT_NODES,
+                                      SHIM_CUT_PODS)
     if on_card != on_cpu:
         diff = sum(a != b for a, b in zip(on_card, on_cpu))
         raise AssertionError(f"cuda and cpu shims allocate differently "
@@ -3593,7 +3664,7 @@ def phase_shim(dev, stats):
         raise AssertionError("the shim's pressure run launched no "
                              "best_nodes kernel")
     return {"bench_shape": bench,
-            "pressure_cut": {"nodes": CUT_NODES, "pods": CUT_PODS,
+            "pressure_cut": {"nodes": SHIM_CUT_NODES, "pods": SHIM_CUT_PODS,
                              "placed": len(on_card), "cycles": cycles,
                              "identical_cuda_cpu": True,
                              "expected": list(EXPECTED_SHIM_CUT),
@@ -3957,6 +4028,404 @@ def phase_kube():
                 "pods_per_s_first_to_last_bind": (
                     CMD_PODS / (t_bound - first_bind[0])
                     if first_bind and t_bound > first_bind[0] else None)})
+    return out
+
+
+def admission_argv(*flags):
+    """The command that starts the admission controller binary, as a user
+    runs it (host code: no device)."""
+    return [sys.executable, "-m", "yunikorn_tpu_torch.cmd.admission_controller",
+            *flags]
+
+
+def apply_json_patch(doc, patch):
+    """Apply an admission response's JSON patch (add / replace of object
+    members, RFC 6902) to doc in place, as the API server does."""
+    import copy
+
+    for op in patch:
+        if op["op"] not in ("add", "replace"):
+            raise AssertionError(f"unexpected patch op {op}")
+        keys = [k.replace("~1", "/").replace("~0", "~")
+                for k in op["path"].lstrip("/").split("/")]
+        target = doc
+        for key in keys[:-1]:
+            target = target.setdefault(key, {})
+        if op["op"] == "replace" and keys[-1] not in target:
+            raise AssertionError(f"replace of a missing member: {op}")
+        target[keys[-1]] = copy.deepcopy(op["value"])
+
+
+def admit_pod_doc(name, ns, priority_class=""):
+    """A sleep pod as a user creates it: no schedulerName, no labels."""
+    doc = {"metadata": {"name": name, "namespace": ns,
+                        "creationTimestamp": "2026-01-01T00:00:00Z"},
+           "spec": {"containers": [{"name": "sleep", "resources": {
+               "requests": {"cpu": "500m", "memory": "128Mi"}}}]},
+           "status": {"phase": "Pending"}}
+    if priority_class:
+        doc["spec"]["priorityClassName"] = priority_class
+    return doc
+
+
+def admit_review(doc, uid):
+    """The AdmissionReview the API server sends for a pod's CREATE."""
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": uid, "kind": {"kind": "Pod"},
+                        "namespace": doc["metadata"]["namespace"],
+                        "operation": "CREATE", "userInfo": ADMIT_USER,
+                        "object": doc}}
+
+
+def admit_expected(ns, priority_class):
+    """The (path, value) ops, in order, of the JSON patch the reference's
+    controller writes for a bare pod of ADMIT_USER in a processed namespace
+    ns (the port's own constants and default queue). With a priority class
+    the allow-preemption annotation comes
+    as a second op on /metadata/annotations that holds only it, after the
+    user-info op: applied in order, it drops the user info (a fault of the
+    reference kept by the port, ROADMAP §3)."""
+    from yunikorn_tpu_torch.admission.conf import DEFAULT_QUEUE
+    from yunikorn_tpu_torch.common import constants as c
+
+    user_info = json.dumps({"user": ADMIT_USER["username"],
+                            "groups": ADMIT_USER["groups"]})
+    ops = [("/metadata/annotations", {c.ANNOTATION_USER_INFO: user_info}),
+           ("/spec/schedulerName", c.SCHEDULER_NAME),
+           ("/metadata/labels", {
+               c.LABEL_APPLICATION_ID: f"yunikorn-{ns}-autogen",
+               c.LABEL_QUEUE_NAME: DEFAULT_QUEUE})]
+    if priority_class:
+        ops.append(("/metadata/annotations",
+                    {c.ANNOTATION_ALLOW_PREEMPTION: c.FALSE}))
+    return ops
+
+
+def admit_client(tls, bundle, port):
+    """(base URL, SSL context) of the webhook: over TLS the context trusts
+    the caBundle of the installed configurations and nothing else."""
+    import ssl
+
+    if not tls:
+        return f"http://127.0.0.1:{port}", None
+    return (f"https://localhost:{port}",
+            ssl.create_default_context(cadata=bundle))
+
+
+def admit_call(base, ctx, path, doc=None, timeout=30):
+    """GET path of the webhook, or POST doc there; the decoded reply."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if doc is None else json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout, context=ctx) as r:
+        return json.loads(r.read())
+
+
+def phase_admit():
+    """The admission webhook in front of the scheduler on the card: the
+    port's admission controller binary and scheduler binary, both with
+    --kubeconfig against the fake API server in this process; this process
+    plays the API server's admission step (POST /mutate, apply the patch,
+    create the pod). Bare pods are patched, bound once by the scheduler
+    under the applicationId their patch gave them; the excluded namespace
+    is patched only after the configmap's hot reload; a configmap is
+    validated through the controller's seam to the scheduler's REST;
+    webtest proxies the REST; both binaries exit 0 on SIGTERM."""
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from yunikorn_tpu_torch.admission.admission_controller import (
+        AdmissionController, decode_patch)
+    from yunikorn_tpu_torch.admission.conf import AdmissionConf
+    from yunikorn_tpu_torch.common import constants as c
+    from yunikorn_tpu_torch.webapp.webtest import WebTestServer
+
+    try:
+        import cryptography  # noqa: F401
+        tls, tls_error = True, None
+    except ImportError as e:
+        tls, tls_error = False, f"{type(e).__name__}: {e}"
+    out = {"tls": tls, **({"tls_error": tls_error} if not tls else {})}
+    server, api_port = fake_apiserver()
+    tmp = tempfile.mkdtemp(prefix="yk-admit-")
+    kubeconfig = write_kubeconfig(tmp, api_port)
+    for ns in ("yunikorn",) + ADMIT_NAMESPACES:
+        server.add("namespaces", {"metadata": {"name": ns}})
+    configmap = {"metadata": {"name": c.CONFIGMAP_NAME,
+                              "namespace": "yunikorn"},
+                 "data": {"admissionController.filtering.processNamespaces":
+                          ADMIT_PROCESS}}
+    server.add("configmaps", configmap)
+    server.add("priorityclasses", {
+        "metadata": {"name": ADMIT_PRIORITY_CLASS, "annotations": {
+            c.ANNOTATION_ALLOW_PREEMPTION: c.FALSE}}, "value": 100})
+    for i in range(CMD_NODES):
+        server.add_node_doc(f"an-{i}")
+    hook_port, rest = free_port(), free_port()
+    procs = {}
+    logs = {name: os.path.join(tmp, f"{name}.log")
+            for name in ("admission", "scheduler")}
+    argvs = {"admission": admission_argv(
+                 "--kubeconfig", kubeconfig, "--host", "localhost",
+                 "--port", str(hook_port), *(() if tls else ("--no-tls",))),
+             "scheduler": scheduler_argv("--kubeconfig", kubeconfig,
+                                         "--rest-port", str(rest))}
+    out["argv"] = {k: [a if a != kubeconfig else "<kubeconfig>"
+                       for a in v[2:]] for k, v in argvs.items()}
+    webhook_name = "yunikorn-admission-controller-cfg"
+    patches = {}
+    ms = []
+    bound_at = []
+
+    def note_binds():
+        if not bound_at and server.bindings:
+            bound_at.append(time.perf_counter())
+
+    def wait(cond, what, timeout):
+        deadline = time.perf_counter() + timeout
+        last = None
+        while time.perf_counter() < deadline:
+            note_binds()
+            for name, proc in procs.items():
+                if proc.poll() is not None:
+                    raise AssertionError(f"the {name} binary exited "
+                                         f"{proc.returncode} waiting for "
+                                         f"{what}")
+            try:
+                if cond():
+                    return time.perf_counter()
+            except OSError as e:
+                last = e
+            time.sleep(0.05)
+        raise AssertionError(f"timed out waiting for {what}" + (
+            f" (last error: {type(last).__name__}: {last})" if last else ""))
+
+    def admit(name, ns, priority_class, base, ctx):
+        doc = admit_pod_doc(name, ns, priority_class)
+        t0 = time.perf_counter()
+        resp = admit_call(base, ctx, "/mutate",
+                          admit_review(doc, f"uid-{name}"))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if resp["response"]["uid"] != f"uid-{name}" or \
+                not resp["response"]["allowed"]:
+            raise AssertionError(f"{name}: not allowed: {resp['response']}")
+        patch = decode_patch(resp)
+        patches[name] = (ns, priority_class, patch)
+        apply_json_patch(doc, patch)
+        server.add("pods", doc)
+
+    def wave(names, base, ctx):
+        with ThreadPoolExecutor(ADMIT_THREADS) as pool:
+            futures = [pool.submit(admit, name, ns, pc, base, ctx)
+                       for name, ns, pc in names]
+            while not all(f.done() for f in futures):
+                note_binds()
+                time.sleep(0.01)
+            for f in futures:
+                f.result()
+
+    def probe(ns, base, ctx, priority_class=""):
+        """{path: value} of a probe pod's patch (the pod is not created)."""
+        resp = admit_call(base, ctx, "/mutate", admit_review(
+            admit_pod_doc("probe", ns, priority_class), "uid-probe"))
+        return {p["path"]: p["value"] for p in decode_patch(resp)}
+
+    try:
+        for name in ("admission", "scheduler"):
+            with open(logs[name], "w") as log:
+                procs[name] = subprocess.Popen(
+                    argvs[name], cwd=ROOT, stdout=subprocess.DEVNULL,
+                    stderr=log)
+        t0 = time.perf_counter()
+        try:
+            bundle = None
+            if tls:
+                wait(lambda: all(webhook_name in server.store[k] for k in (
+                    "mutatingwebhookconfigurations",
+                    "validatingwebhookconfigurations")),
+                    "the webhook configurations", 60)
+                hooks = {k: server.store[k][webhook_name]["webhooks"][0]
+                         for k in ("mutatingwebhookconfigurations",
+                                   "validatingwebhookconfigurations")}
+                bundles = {h["clientConfig"]["caBundle"]
+                           for h in hooks.values()}
+                if len(bundles) != 1:
+                    raise AssertionError("the two configurations carry "
+                                         "different caBundles")
+                bundle = bundles.pop()
+                out["webhooks"] = {
+                    k: {"path": h["clientConfig"]["service"]["path"],
+                        "failurePolicy": h["failurePolicy"]}
+                    for k, h in hooks.items()}
+                out["ca_bundle_certs"] = bundle.count("BEGIN CERTIFICATE")
+            base, ctx = admit_client(tls, bundle, hook_port)
+            # over TLS this read verifies the server certificate against
+            # the installed caBundle, the context's only CA
+            wait(lambda: admit_call(base, ctx, "/health", timeout=5)
+                 == {"status": "ok"}, "the webhook's /health", 60)
+            # the controller's informers have the configmap (the excluded
+            # namespace is not processed) and the priority class
+            wait(lambda: "/spec/schedulerName" not in probe(
+                ADMIT_NAMESPACES[-1], base, ctx)
+                and c.ANNOTATION_ALLOW_PREEMPTION in probe(
+                    ADMIT_NAMESPACES[0], base, ctx, ADMIT_PRIORITY_CLASS).get(
+                    "/metadata/annotations", {}),
+                "the admission informers", 60)
+            out["webhook_ready_s"] = time.perf_counter() - t0
+            wait(lambda: len(json.loads(rest_call(
+                rest, "/ws/v1/nodes")[1])) == CMD_NODES,
+                f"{CMD_NODES} nodes at the scheduler", 180)
+            out["scheduler_ready_s"] = time.perf_counter() - t0
+            first = [(f"ad-{i}", ns,
+                      ADMIT_PRIORITY_CLASS if i % ADMIT_PC_EVERY == 1
+                      and ns != ADMIT_NAMESPACES[-1] else "")
+                     for i in range(ADMIT_PODS)
+                     for ns in [ADMIT_NAMESPACES[i % len(ADMIT_NAMESPACES)]]]
+            t_admit = time.perf_counter()
+            wave(first, base, ctx)
+            out["wave_s"] = time.perf_counter() - t_admit
+            # hot reload: the configmap at the server now processes the
+            # excluded namespace; the controller's informer feeds its conf
+            configmap["data"] = {
+                "admissionController.filtering.processNamespaces":
+                    ADMIT_PROCESS_RELOADED}
+            t_cm = time.perf_counter()
+            server.add("configmaps", configmap)
+            wait(lambda: "/spec/schedulerName" in probe(
+                ADMIT_NAMESPACES[-1], base, ctx), "the conf's hot reload", 60)
+            out["reload_s"] = time.perf_counter() - t_cm
+            wave([(f"ad-r{i}", ADMIT_NAMESPACES[-1], "")
+                  for i in range(ADMIT_RELOAD_PODS)], base, ctx)
+            # the patch of every pod against what the reference writes
+            patched, excluded = set(), set()
+            for name, (ns, pc, patch) in patches.items():
+                got = [(p["path"], p["value"]) for p in patch]
+                if ns == ADMIT_NAMESPACES[-1] and not name.startswith("ad-r"):
+                    if got != admit_expected(ns, "")[:1]:
+                        raise AssertionError(f"{name} (excluded) patched: "
+                                             f"{got}")
+                    excluded.add(name)
+                    continue
+                if got != admit_expected(ns, pc):
+                    raise AssertionError(f"{name}: patch {got}")
+                patched.add(name)
+            # the seam: validate_conf_fn POSTs queues.yaml to the
+            # scheduler's /ws/v1/validate-conf
+            def via_rest(queues_yaml):
+                status, body = rest_call(rest, "/ws/v1/validate-conf",
+                                         queues_yaml)
+                if status != 200:
+                    raise AssertionError(f"validate-conf: {status} {body}")
+                answer = json.loads(body)
+                return answer["allowed"], answer["reason"]
+
+            seam = AdmissionController(AdmissionConf(),
+                                       validate_conf_fn=via_rest)
+            answers = {}
+            for which, text in (("invalid", ADMIT_INVALID_QUEUES),
+                                ("valid", ADMIT_VALID_QUEUES)):
+                review = {"apiVersion": "admission.k8s.io/v1",
+                          "kind": "AdmissionReview",
+                          "request": {"uid": f"cm-{which}",
+                                      "kind": {"kind": "ConfigMap"},
+                                      "operation": "UPDATE",
+                                      "object": {"metadata": {
+                                          "name": c.CONFIGMAP_NAME,
+                                          "namespace": "yunikorn"},
+                                          "data": {"queues.yaml": text}}}}
+                for where, resp in (
+                        ("seam", seam.validate_conf(review)),
+                        ("binary", admit_call(base, ctx, "/validate-conf",
+                                              review))):
+                    r = resp["response"]
+                    answers[f"{where}_{which}"] = {
+                        "allowed": r["allowed"],
+                        "message": (r.get("result") or {}).get("message")}
+            out["validate_conf"] = answers
+            if answers["seam_invalid"]["allowed"] or \
+                    not answers["seam_valid"]["allowed"]:
+                raise AssertionError(f"the seam's answers: {answers}")
+            if not (answers["binary_invalid"]["allowed"]
+                    and answers["binary_valid"]["allowed"]):
+                raise AssertionError(f"the binary's /validate-conf (no "
+                                     f"validator, as the reference's): "
+                                     f"{answers}")
+            t_bound = wait(lambda: len(server.bindings) >= len(patched),
+                           f"{len(patched)} binds", 240)
+            time.sleep(1.0)  # a late duplicate or excluded bind lands here
+            names = [n for n, _ in list(server.bindings)]
+            if sorted(names) != sorted(patched):
+                raise AssertionError(
+                    f"{len(names)} bindings of {len(set(names))} pods, want "
+                    f"each of {len(patched)} patched pods once; excluded "
+                    f"bound: {sorted(set(names) & excluded)[:5]}")
+            # each allocation under the applicationId its patch gave it
+            uid_name = {doc["metadata"]["uid"]: doc["metadata"]["name"]
+                        for doc in list(server.store["pods"].values())}
+            status, body = rest_call(rest, "/ws/v1/apps")
+            app_of = {}
+            for app_id, app in json.loads(body).items():
+                for key in app["allocations"]:
+                    app_of[uid_name.get(key, key)] = app_id
+            wrong = [n for n in patched if app_of.get(n) !=
+                     f"yunikorn-{patches[n][0]}-autogen"]
+            if wrong:
+                raise AssertionError(f"{len(wrong)} pods not allocated under "
+                                     f"their patched applicationId, e.g. "
+                                     f"{wrong[:3]} -> "
+                                     f"{[app_of.get(n) for n in wrong[:3]]}")
+            # webtest in front of the scheduler's REST
+            web = WebTestServer(tmp, f"http://127.0.0.1:{rest}", port=0)
+            web_port = web.start()
+            try:
+                for path in ("/ws/v1/apps", "/ws/v1/nodes"):
+                    direct = json.loads(rest_call(rest, path)[1])
+                    status, proxied = rest_call(web_port, path)
+                    if status != 200 or json.loads(proxied) != direct:
+                        raise AssertionError(f"webtest {path}: {status}")
+            finally:
+                web.stop()
+            exits = {}
+            for name in ("admission", "scheduler"):
+                procs[name].send_signal(signal.SIGTERM)
+                t_term = time.perf_counter()
+                exits[name] = {"exit_code": procs[name].wait(timeout=30),
+                               "exit_s": time.perf_counter() - t_term}
+            out["exits"] = exits
+            bad = {k: v for k, v in exits.items() if v["exit_code"] != 0}
+            if bad:
+                raise AssertionError(f"exit codes {bad}")
+        except Exception as e:
+            tails = {name: open(path).read()[-1200:]
+                     for name, path in logs.items() if os.path.exists(path)}
+            raise AssertionError(f"{type(e).__name__}: {e}; the logs end: "
+                                 f"{tails}") from e
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=10)
+    finally:
+        server.stop()
+    log_text = open(logs["scheduler"]).read()
+    if "device=cuda" not in log_text:
+        raise AssertionError("the scheduler's log does not name device=cuda")
+    ms.sort()
+    out.update({
+        "pods": len(patches), "patched": len(patched),
+        "excluded_unpatched": len(excluded),
+        "priority_class_pods": sum(1 for _, pc, _ in patches.values() if pc),
+        "bound": len(patched), "apps": sorted(set(app_of.values())),
+        "mutate_ms_p50": ms[len(ms) // 2],
+        "mutate_ms_p99": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+        "mutate_ms_max": ms[-1],
+        "first_bind_after_first_admission_s": bound_at[0] - t_admit,
+        "pods_per_s_first_admission_to_last_bind":
+            len(patched) / (t_bound - t_admit),
+        "webtest": "proxied /ws/v1/apps and /ws/v1/nodes equal"})
     return out
 
 
@@ -4857,7 +5326,17 @@ def profile_solve(fn, top: int = 15):
         return {"error": f"{type(e).__name__}: {e}"}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases to run after build, "
+                             "to look into one phase; such a run prints no "
+                             "kernels line and no ok line")
+    parser.add_argument("--repeat", type=int, default=1,
+                        help="runs of each --only phase in one process")
+    args = parser.parse_args([] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4896,8 +5375,17 @@ def main() -> int:
               ("shim", lambda: phase_shim(dev, stats)),
               ("cmd", lambda: phase_cmd()),
               ("kube", lambda: phase_kube()),
+              ("admit", lambda: phase_admit()),
               ("replay", lambda: phase_replay(dev, stats)),
               ("shard", lambda: phase_shard(dev, stats))]
+    only = [name for name in args.only.split(",") if name]
+    if only:
+        unknown = set(only) - {name for name, _ in phases}
+        if unknown:
+            parser.error(f"unknown phases {sorted(unknown)}")
+        by_name = dict(phases)
+        phases = [phases[0]] + [(name, by_name[name]) for name in only
+                                for _ in range(args.repeat)]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -4908,10 +5396,18 @@ def main() -> int:
             out = {"error": f"{type(e).__name__}: {e}"}
             ok = False
             failed.append(name)
+            # stderr too: a reader of the run's stderr alone sees why
+            print(f"chip_smoke: phase {name} failed: {out['error']}",
+                  file=sys.stderr, flush=True)
         emit({"phase": name, "ok": ok, "seconds": time.perf_counter() - t0,
               **out})
         if name == "build" and not ok:
             break
+    if only:
+        emit({"only": only, "repeat": args.repeat, "failed": failed,
+              "seconds": time.perf_counter() - t_all})
+        print(card, flush=True)
+        return 1 if failed else 0
     kernels = [dict(k, **stats.get(k["name"], {})) for k in KERNELS]
     emit({"seconds": time.perf_counter() - t_all})
     emit({"kernels": kernels})
@@ -4926,4 +5422,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -23,8 +23,8 @@ jax.experimental.enable_x64, which the installed JAX lacks), as
 tests/test_torch_core.py runs it.
 
 Run as a script, the file prints the JAX package's placed count under the
-harness at chip_smoke.py's pressure cut (2,000 nodes x 10,000 pods), the
-value chip_smoke.py pins:
+harness at chip_smoke.py's shim cut of the pressure mix (1,000 nodes x
+5,000 pods), the value chip_smoke.py pins:
 
     JAX_PLATFORMS=cpu python tests/test_torch_shim.py --cut
 """
@@ -576,9 +576,9 @@ def test_predicate_probe_without_a_device_raises(monkeypatch):
         AsyncRMCallback(Ctx())._device()
 
 
-def cut_count(nodes=2_000, pods=10_000):
-    """The JAX package's placed count and cycles under the harness at the
-    pressure cut."""
+def cut_count(nodes=1_000, pods=5_000):
+    """The JAX package's placed count and cycles under the harness at
+    chip_smoke.py's shim cut of the pressure mix."""
     h = Harness(REF)
     try:
         pressure_cut(h, nodes, pods)

@@ -9,9 +9,10 @@ keys (:210-265). The solver-specific knobs (`solver.*`) are new: they size the
 device-array buckets and the assignment loop.
 
 The JAX package's conf/schedulerconf.py, copied with its imports rewritten.
-Keys whose feature the port lacks (solver.shardSolve=true) still parse here;
-the core raises NotImplementedError naming its ROADMAP item when one asks
-for it. solver.aotStore names the kernel-library store (aot/);
+Keys whose feature the port lacks (solver.shardSolve=true: multi-GPU
+node-dim sharding, ROADMAP item 14, the last module left to port) still
+parse here; the core raises NotImplementedError naming its ROADMAP item
+when one asks for it. solver.aotStore names the kernel-library store (aot/);
 solver.aotBackground=true is refused like an unknown value (the port has no
 background build: aot/runtime.BACKGROUND_REFUSED).
 """

@@ -23,7 +23,8 @@ at the same protocol seams the reference uses.
 
 The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
-  - solver.shard=True (multi-GPU node-dim sharding, item 14)
+  - solver.shard=True (multi-GPU node-dim sharding, item 14: the last
+    module of the JAX package left to port)
   - any fallback below the device tier: a gate scan, row-store sync,
     mirror refresh or solve that fails after its retries fails the cycle;
     nothing re-runs the card's work on the CPU. A device preemption
