@@ -7,8 +7,9 @@ the pack and cvx duel arms of solver.policy=optimal, the learned policy's
 serving path (solver.policy=learned and all) and its trainer, the shim,
 mock scheduler and scheduler binary that bring a cluster's pods to the
 core, the real-cluster client (--kubeconfig), the admission webhook in
-front of it, the trace-replay driver, and the sharded control plane
-(solver.shards >= 2).
+front of it, the trace-replay driver, the sharded control plane
+(solver.shards >= 2), and node-dim sharding over a device mesh
+(solver.shard).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only admit --repeat 8   # one phase, 8 runs
@@ -313,22 +314,53 @@ phase fails, and when no CUDA device is present):
           binary with --shards 2 --ledger-serve: every
           pod bound (/ws/v1/shards), yunikorn_shard_count 2 at /metrics,
           SIGTERM exits 0
+  mesh    node-dim sharding (parallel/mesh) on MESH_SHARDS node shards of
+          the card (set_mesh_devices([cuda:0] * MESH_SHARDS), restored
+          after), every result held against the single-device one computed
+          in the phase on the card: the pressure solve (MAIN_NODES x
+          MAIN_PODS) through solve_sharded with assigned / accept_round /
+          free_after / rounds equal, the
+          JAX package's 16 rounds / 45,977 placed, best_nodes launched once
+          a shard in each odd round (32, counted from 0 around that run) and
+          every call held against the plain version with its keys; the
+          kernel at the first odd round's inputs cut into the shards
+          (node_offset / m_total / keys_out): each shard's keys equal to the
+          plain version's, the merged keys equal to the unsharded call, each
+          shard call's ms, plain ms and bound; the warm median of 3 of both
+          solves; the chained form at max_batch MESH_CHUNK_BATCH; the
+          locality solve at the cut and the steered gang wave (TOPO_*) with
+          their JAX package's counts; the preemption planner at
+          PREEMPT_NODES x PREEMPT_ASKS plan for plan; the usage mirror with
+          mesh= (sharded_fold, divergence 0, fleet totals equal to a mirror
+          on the card); pack_solve_sharded at the largest PACK_SHAPES bit
+          equal to pack_solve(partitioner="topo", n_shards=MESH_SHARDS); a
+          CoreScheduler(shard=True) against shard=False at bench.py's core
+          shape (cold and warm cycle: the warm mirror clean, 0 node bytes)
+          and at the pressure cut, pod for pod, the mesh circuit closed with
+          0 failures and replicated_bytes in last_cycle. "cards" is the
+          card count; with more than one card every check runs again over
+          the real cards ("real_cards": peer copies between them)
   kernels one line per kernel: launches (the wrapper's count of calls in
           the main path's run; launches_locality, launches_topology,
           launches_duel (launches_duel_repair of them in the pack arm's
           repair), launches_learned (launches_learned_arm of them in the
           learned solve), launches_shim, launches_train,
-          launches_replay_*, launches_shard and launches_warm: in the
+          launches_replay_*, launches_shard, launches_warm and
+          launches_mesh: in the
           locality and topology paths' full-width runs, the optimal and the
           learned core's full-width cycles, the shim's pressure run, the
           trained checkpoint's learned cycle, each replay run, the 4-shard
-          wave and the warm phase's prewarm child on the card; for
+          wave, the warm phase's prewarm child on the card and the mesh
+          phase's sharded pressure solve; for
           learned_propose the learned core's cycle, the trained
           checkpoint's and the replay's learned arm), error against the
           plain version (max_abs_err_shard / max_abs_err_replay /
-          max_abs_err_warm: over the shard wave's / the replays' / the
-          prewarm's calls, held_shard_calls / held_replay_calls /
-          held_warm_calls of them; null when no call was held), kernel /
+          max_abs_err_warm / max_abs_err_mesh: over the shard wave's / the
+          replays' / the prewarm's / the sharded solve's calls,
+          held_shard_calls / held_replay_calls / held_warm_calls /
+          held_mesh_calls of them; null when no call was held;
+          mesh_shard_ms / mesh_shard_bound_ms: each node shard's call at the
+          first odd round's inputs), kernel /
           plain /
           bound milliseconds (best_nodes at the first odd round's inputs,
           as the main path calls it; learned_propose at full-width random
@@ -614,6 +646,9 @@ ADMIT_INVALID_QUEUES = ("partitions:\n  - name: default\n    queues:\n"
                         "      - name: notroot\n")
 ADMIT_VALID_QUEUES = ("partitions:\n  - name: default\n    queues:\n"
                       "      - name: root\n        submitacl: '*'\n")
+# the mesh phase: node shards on the one card, and the chained form's slice
+MESH_SHARDS = 4
+MESH_CHUNK_BATCH = 16_384
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -5288,6 +5323,357 @@ def phase_shard(dev, stats):
             "failover": shard_failover(dev), "cmd": shard_cmd()}
 
 
+def hold_shard_calls(captured, where):
+    """Each captured best_nodes call of a sharded solve (node_offset /
+    m_total / keys_out) again through the kernel and through
+    best_nodes_reference, each with keys of its own: raises unless best,
+    feasible and the keys are bit-equal. Returns (the largest |best -
+    best_ref|, the shard offsets held)."""
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference)
+
+    err, offsets = 0, set()
+    for args, kwargs in captured:
+        outs = []
+        for fn in (best_nodes, best_nodes_reference):
+            keys = torch.empty_like(kwargs["keys_out"])
+            outs.append(fn(*args, **dict(kwargs, keys_out=keys)) + (keys,))
+        (b, f, k), (b_ref, f_ref, k_ref) = outs
+        err = max(err, int((b.long() - b_ref.long()).abs().max()))
+        if not (torch.equal(b, b_ref) and torch.equal(f, f_ref)
+                and torch.equal(k, k_ref)):
+            raise AssertionError(f"kernel differs from plain at {where}, "
+                                 f"shard offset {kwargs['node_offset']}")
+        offsets.add(kwargs["node_offset"])
+    return err, sorted(offsets)
+
+
+def mesh_kernel(args, kwargs, mesh, clock_hz):
+    """best_nodes at one call's inputs cut into the mesh's node shards
+    (node_offset / m_total / keys_out): each shard's keys and best equal
+    the plain version's, the merged keys equal the unsharded kernel call;
+    each shard call's CUDA-event ms beside its bound."""
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference,
+                                                   merge_keys)
+
+    req, gid, feas, soft, free, base = args
+    M = free.shape[0]
+    want = best_nodes(*args, **kwargs)
+    keys, shards = [], []
+    for lo, hi in mesh.bounds(M):
+        part = (req, gid, feas[:, lo:hi].contiguous(),
+                soft[:, lo:hi].contiguous(), free[lo:hi], base[lo:hi])
+        kw = dict(kwargs, node_offset=lo, m_total=M)
+        k, k_ref = (torch.empty((req.shape[0],), dtype=torch.int64,
+                                device=req.device) for _ in range(2))
+        got = best_nodes(*part, keys_out=k, **kw)
+        ref = best_nodes_reference(*part, keys_out=k_ref, **kw)
+        if not (torch.equal(k, k_ref) and torch.equal(got[0], ref[0])
+                and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"shard at {lo}: kernel != plain")
+        keys.append(k)
+        b = best_nodes_bound_ms(req, gid, part[2], part[4],
+                                kw.get("has_soft", True), clock_hz,
+                                rows=kw.get("rows"))
+        shards.append({
+            "offset": lo, "nodes": hi - lo, "rows": b["rows"],
+            "ms": cuda_ms(lambda: best_nodes(*part, keys_out=k, **kw), 10),
+            "plain_ms": cuda_ms(
+                lambda: best_nodes_reference(*part, keys_out=k_ref, **kw), 3),
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+    merged = merge_keys(keys, M)
+    if not (torch.equal(merged[0], want[0])
+            and torch.equal(merged[1], want[1])):
+        raise AssertionError("the merged shard keys differ from the "
+                             "unsharded kernel call")
+    return {"shape": [req.shape[0], M], "shards": shards,
+            "merged_equal_unsharded": True}
+
+
+def same_result(a, b, fields=("assigned", "accept_round", "free_after")):
+    """The fields (and rounds) of two SolveResults equal, bit for bit."""
+    same = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
+            for f in fields}
+    same["rounds"] = a.rounds == b.rounds
+    return same
+
+
+def mesh_solve(dev, mesh, stats, clock_hz):
+    """The pressure solve (MAIN_NODES x MAIN_PODS) over the mesh against
+    the single-device solve on the card: assigned, accept_round,
+    free_after and rounds equal, the JAX
+    package's 16 rounds / 45,977 placed, best_nodes launched once a shard
+    in each odd round (counted from 0 around the sharded run) and every
+    call held against the plain version; the shard kernel at the first odd
+    round's inputs; the warm medians of both; then the chained form at
+    max_batch MESH_CHUNK_BATCH."""
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+    from yunikorn_tpu_torch.ops.best_nodes import best_nodes
+    from yunikorn_tpu_torch.parallel.mesh import solve_sharded
+
+    enc, batch, pods, _ = build_workload(MAIN_NODES, MAIN_PODS)
+    n = len(pods)
+    single, captured_single, _, _ = solve_capturing(batch, enc, dev)
+    with capturing_best_nodes() as captured:
+        best_nodes.launches = 0
+        torch.cuda.synchronize()
+        sharded = solve_sharded(batch, enc.nodes, mesh, **SOLVE_KW)
+        torch.cuda.synchronize()
+        launches = best_nodes.launches
+    same = same_result(single, sharded)
+    if not all(same.values()):
+        raise AssertionError(f"sharded and single-device solves differ: "
+                             f"{same}")
+    placed = int((sharded.assigned[:n] >= 0).sum())
+    if (sharded.rounds, placed) != EXPECTED[(MAIN_NODES, MAIN_PODS)]:
+        raise AssertionError(f"rounds/placed {(sharded.rounds, placed)}")
+    want_launches = mesh.size * (sharded.rounds // 2)
+    if launches != want_launches:
+        raise AssertionError(f"{launches} best_nodes launches, expected "
+                             f"{want_launches}")
+    err, offsets = hold_shard_calls(captured, "the sharded pressure solve")
+    if len(offsets) != mesh.size:
+        raise AssertionError(f"calls held at shard offsets {offsets}")
+    kernel = mesh_kernel(*captured_single[0], mesh, clock_hz)
+    stats.setdefault("best_nodes", {}).update(
+        launches_mesh=launches, held_mesh_calls=len(captured),
+        max_abs_err_mesh=err,
+        mesh_shard_ms=[s["ms"] for s in kernel["shards"]],
+        mesh_shard_bound_ms=[s["bound_ms"] for s in kernel["shards"]])
+    warm_single = warm_median_ms(lambda: solve_batch(
+        batch, enc.nodes, device=dev, **SOLVE_KW), runs=3)[0]
+    warm_mesh = warm_median_ms(lambda: solve_sharded(
+        batch, enc.nodes, mesh, **SOLVE_KW), runs=3)[0]
+    chunk_kw = dict(SOLVE_KW, max_batch=MESH_CHUNK_BATCH)
+    chained = same_result(
+        solve_batch(batch, enc.nodes, device=dev, **chunk_kw),
+        solve_sharded(batch, enc.nodes, mesh, **chunk_kw))
+    if not all(chained.values()):
+        raise AssertionError(f"chained solves differ: {chained}")
+    return {"nodes": MAIN_NODES, "pods": MAIN_PODS, "identical": same,
+            "rounds": sharded.rounds, "placed": placed,
+            "best_nodes_launches": launches, "held_calls": len(captured),
+            "held_offsets": offsets, "max_abs_err": err, "kernel": kernel,
+            "warm_ms": {"single": warm_single, "mesh": warm_mesh},
+            "chained": {"max_batch": MESH_CHUNK_BATCH, "identical": chained}}
+
+
+def mesh_locality_topology(dev, mesh):
+    """The locality mix at the cut and the steered gang wave (TOPO_*) over
+    the mesh against the single-device solve on the card: every output
+    equal, the JAX package's counts."""
+    from yunikorn_tpu_torch.client.synthetic import make_locality_pods
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+    from yunikorn_tpu_torch.parallel.mesh import solve_sharded
+
+    enc, batch, pods, _ = build_workload(CUT_NODES, CUT_PODS,
+                                         make_locality_pods)
+    single = solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
+    sharded = solve_sharded(batch, enc.nodes, mesh, **SOLVE_KW)
+    loc = same_result(single, sharded, ("assigned", "accept_round",
+                                        "free_after", "cnt_final"))
+    placed = int((sharded.assigned[:len(pods)] >= 0).sum())
+    if (not all(loc.values()) or (sharded.rounds, placed)
+            != EXPECTED_LOCALITY[(CUT_NODES, CUT_PODS)]):
+        raise AssertionError(f"locality: {loc}, {(sharded.rounds, placed)}")
+    shape = (TOPO_PODS, TOPO_NODES, TOPO_DOMAINS)
+    enc, batch, asks, gangs, _, _ = topology_workload(*shape)
+    fold_topology(batch, asks, enc)
+    single = solve_batch(batch, enc.nodes, device=dev, **SOLVE_KW)
+    sharded = solve_sharded(batch, enc.nodes, mesh, **SOLVE_KW)
+    topo = same_result(single, sharded)
+    got = topology_result(batch, asks, gangs, enc, sharded)
+    if not all(topo.values()):
+        raise AssertionError(f"steered solves differ: {topo}")
+    check_expected_topology(shape, got)
+    return {"locality": {"nodes": CUT_NODES, "pods": CUT_PODS,
+                         "identical": loc, "rounds": sharded.rounds,
+                         "placed": placed},
+            "topology": {"shape": shape, "identical": topo, **got}}
+
+
+def mesh_preempt_fold_pack(dev, mesh):
+    """Preemption (PREEMPT_ASKS asks on PREEMPT_NODES nodes of victims),
+    the usage mirror's fold and the pack arm over the mesh against the
+    single device on the card."""
+    import random
+
+    from yunikorn_tpu_torch.core.preemption import plan_preemptions_batched
+    from yunikorn_tpu_torch.core.shard import GlobalQuotaLedger
+    from yunikorn_tpu_torch.ops import assign, pack_solve
+    from yunikorn_tpu_torch.ops.ledger_mirror import DeviceUsageMirror
+    from yunikorn_tpu_torch.parallel.mesh import pack_solve_sharded
+
+    cache, enc, asks, app_of_pod = preempt_cluster(0, PREEMPT_NODES,
+                                                   PREEMPT_ASKS)
+    cands = list(cache.node_names())
+    single, _, s1 = plan_preemptions_batched(cache, enc, asks, app_of_pod,
+                                             candidate_nodes=cands,
+                                             device=dev)
+    sharded, _, s4 = plan_preemptions_batched(cache, enc, asks, app_of_pod,
+                                              candidate_nodes=cands,
+                                              mesh=mesh)
+    if (plans_key(single) != plans_key(sharded) or not s4["sharded"]
+            or len(sharded) != EXPECTED_PREEMPT[0]):
+        raise AssertionError(f"sharded plans differ ({len(sharded)} plans, "
+                             f"stats {s4})")
+    # the fold: the same ledger operations into a mirror on the card and
+    # one over the mesh
+    ledger = GlobalQuotaLedger()
+    ledger.enable_journal()
+    mirrors = [DeviceUsageMirror(SHARD_COUNT, device=dev),
+               DeviceUsageMirror(SHARD_COUNT, mesh=mesh)]
+    pyrng = random.Random(1)
+    for i in range(512):
+        tid = f"q|root.t{pyrng.randrange(16)}"
+        ch = [(tid, [(f"r{k}", 10**15) for k in range(4)],
+               [(f"r{k}", pyrng.randrange(1, 10**9)) for k in range(4)])]
+        if ledger.reserve(f"k{i}", ch):
+            ledger.commit(f"k{i}", ch)
+        if i % 64 == 63:
+            deltas = ledger.drain_deltas()
+            for m in mirrors:
+                ledger.requeue_deltas(deltas)
+                m.refresh(i // 64, ledger)
+    fold = {"sharded_fold": mirrors[1].stats()["sharded_fold"],
+            "divergence": mirrors[1].divergence(ledger),
+            "fleet_equal": bool(np.array_equal(mirrors[0]._fleet,
+                                               mirrors[1]._fleet))}
+    if fold != {"sharded_fold": True, "divergence": 0, "fleet_equal": True}:
+        raise AssertionError(f"sharded fold: {fold}")
+    n_pods, n_nodes = PACK_SHAPES[-1]
+    enc, batch, _ = duel_fleet(n_pods, n_nodes)
+    got = pack_solve_sharded(batch, enc.nodes, mesh, seed=DUEL_SEED)
+    np_args, static = assign.prepare_solve_args(batch, enc.nodes)
+    args, _ = assign.solve_args_from_numpy(np_args, static, dev)
+    want = pack_solve.pack_solve(
+        *args, DUEL_SEED, n_parts=got.n_parts, partitioner="topo",
+        n_shards=mesh.size, score_cols=static["score_cols"], device=dev)
+    if not (torch.equal(got.assigned, want[0])
+            and torch.equal(got.free_after, want[1]) and bool(got.feasible)):
+        raise AssertionError("sharded pack differs from the single-device "
+                             "pack with the same shards")
+    return {"preempt": {"nodes": PREEMPT_NODES, "asks": PREEMPT_ASKS,
+                        "plans": len(sharded), "equal": True,
+                        "mirror_upload_bytes": s4.get("mirror_upload_bytes")},
+            "fold": fold,
+            "pack": {"pods": n_pods, "nodes": n_nodes, "parts": got.n_parts,
+                     "placed": int((got.assigned[:batch.num_pods] >= 0)
+                                   .sum()), "equal": True}}
+
+
+def mesh_cores(dev, mesh):
+    """CoreScheduler(SolverOptions(shard=True)) against shard=False on the
+    card, pod for pod: bench.py's core shape (the mesh core's cold cycle, a
+    release and a warm one: the mirror clean, 0 node bytes) and the
+    pressure cut. The mesh circuit closed with 0 failures."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_kwok_nodes,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods,
+                                                     make_sleep_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+
+    queues = [(f"bench-app-{q}", f"root.q{q}") for q in range(5)]
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    out = {}
+    for label, nodes_of, pods_of, apps_of in (
+            ("core_shape", lambda: make_kwok_nodes(MAIN_NODES),
+             lambda: [p for app, q in queues for p in make_sleep_pods(
+                 MAIN_PODS // 5, app, queue=q, name_prefix=q.split(".")[-1])],
+             queues),
+            ("pressure_cut", lambda: make_pressure_nodes(CUT_NODES),
+             lambda: make_pressure_pods(CUT_PODS), apps)):
+        binds, runs = {}, {}
+        # the mesh core first: its warm cycle runs before the other core's
+        # objects exist
+        for shard in (True, False):
+            _, core, cb = make_core(dev, nodes_of(), apps_of,
+                                    solver=SolverOptions(shard=shard))
+            pods = pods_of()
+            names = {p.uid: p.metadata.name for p in pods}
+            asks = asks_of(pods)
+            n, cold_s = core_cycle(core, asks)
+            cold = cycle_split(core)
+            run = {"placed": n, "cycle_ms": cold_s * 1e3, "split": cold,
+                   "node_upload_bytes": cold.get("node_upload_bytes"),
+                   "replicated_bytes": core.metrics["last_cycle"]["default"]
+                   .get("replicated_bytes")}
+            binds[shard] = {names[k]: v for k, v in cb.bound.items()}
+            if shard and label == "core_shape":
+                release_all(core, asks)
+                n_warm, warm_s = core_cycle(core, asks)
+                warm = core.metrics["last_cycle"]["default"]
+                run.update(warm_placed=n_warm, warm_cycle_ms=warm_s * 1e3,
+                           warm_split=cycle_split(core),
+                           warm_node_refresh=warm.get("node_refresh"),
+                           warm_node_upload_bytes=warm.get(
+                               "node_upload_bytes"),
+                           warm_replicated_bytes=warm.get(
+                               "replicated_bytes"))
+                if (warm.get("node_refresh"),
+                        warm.get("node_upload_bytes")) != ("clean", 0):
+                    raise AssertionError(f"a clean warm mesh cycle uploaded "
+                                         f"{warm.get('node_upload_bytes')}")
+            check_tiers(core, f"{label} shard={shard}")
+            if shard:
+                if core._mesh is None or core._mesh.size != mesh.size:
+                    raise AssertionError(f"the core's mesh is {core._mesh}")
+                circuit = core.supervisor.snapshot()["mesh"]["circuits"]
+                fallbacks = core.metrics.get("solve_mesh_fallbacks_total")
+                if (circuit != {"device": {"state": "closed", "failures": 0}}
+                        or fallbacks or not run["replicated_bytes"]):
+                    raise AssertionError(f"{label}: mesh circuit {circuit}, "
+                                         f"fallbacks {fallbacks}, {run}")
+                run["mesh_failures"] = 0
+            runs["mesh" if shard else "single"] = run
+        if binds[True] != binds[False]:
+            diff = sum(binds[True].get(k) != v for k, v in binds[False].items())
+            raise AssertionError(f"{label}: the mesh core binds {diff} pods "
+                                 "differently")
+        out[label] = {"identical": True, "bound": len(binds[True]), **runs}
+    return out
+
+
+def mesh_checks(dev, mesh, stats, clock_hz):
+    """Every check of the mesh phase over `mesh`, against the single device
+    `dev`, with each part's seconds."""
+    out = {"shards": mesh.size, "devices": [str(d) for d in mesh.devices]}
+    seconds = {}
+    for name, fn in (
+            ("solve", lambda: {"solve": mesh_solve(dev, mesh, stats,
+                                                   clock_hz)}),
+            ("locality_topology", lambda: mesh_locality_topology(dev, mesh)),
+            ("preempt_fold_pack", lambda: mesh_preempt_fold_pack(dev, mesh)),
+            ("core", lambda: {"core": mesh_cores(dev, mesh)})):
+        t0 = time.perf_counter()
+        out.update(fn())
+        seconds[name] = time.perf_counter() - t0
+    out["part_seconds"] = seconds
+    return out
+
+
+def phase_mesh(dev, stats, clock_hz):
+    """Node-dim sharding (parallel/mesh) on MESH_SHARDS shards of the card
+    (set_mesh_devices([cuda:0] * MESH_SHARDS), restored after), every
+    result held against the single-device one computed here on the card;
+    with more than one card, every check again over the real cards (peer
+    copies between them), the kernel's counts kept from the first run."""
+    from yunikorn_tpu_torch.parallel.mesh import make_mesh
+    from yunikorn_tpu_torch.utils import torchtools
+
+    torchtools.set_mesh_devices([torch.device("cuda", 0)] * MESH_SHARDS)
+    try:
+        out = mesh_checks(dev, make_mesh(), stats, clock_hz)
+    finally:
+        torchtools.set_mesh_devices(None)
+    out["cards"] = torch.cuda.device_count()
+    if out["cards"] > 1:
+        out["real_cards"] = mesh_checks(dev, make_mesh(), {}, clock_hz)
+    return out
+
+
 def profile_solve(fn, top: int = 15):
     """Device time by kernel over one run of fn, such as one warm solve
     (torch.profiler), the device-busy sum and the idle share of the
@@ -5377,7 +5763,8 @@ def main(argv=None) -> int:
               ("kube", lambda: phase_kube()),
               ("admit", lambda: phase_admit()),
               ("replay", lambda: phase_replay(dev, stats)),
-              ("shard", lambda: phase_shard(dev, stats))]
+              ("shard", lambda: phase_shard(dev, stats)),
+              ("mesh", lambda: phase_mesh(dev, stats, max_sm_clock_hz()))]
     only = [name for name in args.only.split(",") if name]
     if only:
         unknown = set(only) - {name for name, _ in phases}

@@ -136,3 +136,94 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError):
         tbn.best_nodes(*torch_args(req, gid, feas, soft, free, base),
                        mode="approximate")
+
+
+def shard_split(args, n):
+    """problem()'s torch args cut into n node shards: each shard's
+    (group_feas, group_soft, free, base_scores) columns and its offset."""
+    req, gid, feas, soft, free, base = args
+    M = free.shape[0]
+    m = M // n
+    return [(lo, feas[:, lo:lo + m].contiguous(),
+             soft[:, lo:lo + m].contiguous(), free[lo:lo + m],
+             base[lo:lo + m]) for lo in range(0, M, m)]
+
+
+def sharded_best(args, n, rows=None, **kw):
+    """The exact best node over n shards: one call a shard with node_offset
+    / m_total / keys_out, the keys max-merged (merge_keys), with the shards
+    visited in reverse to show the merge ignores their order."""
+    req, gid = args[0], args[1]
+    M = args[4].shape[0]
+    keys = []
+    for lo, feas, soft, free, base in reversed(shard_split(args, n)):
+        k = torch.empty((req.shape[0],), dtype=torch.int64)
+        tbn.best_nodes(req, gid, feas, soft, free, base, rows=rows,
+                       node_offset=lo, m_total=M, keys_out=k, **kw)
+        keys.append(k)
+    return tbn.merge_keys(keys, M)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("variant", ["random", "tie", "infeasible"])
+@pytest.mark.parametrize("mask", [None, "some", "empty"])
+def test_node_shards_merge_to_the_unsharded_call(n, variant, mask):
+    """2, 4 and 8 node shards of the plain version, their keys max-merged:
+    the unsharded call's (best, feasible) exactly, and the JAX package's
+    argmax on the requested rows."""
+    args = torch_args(*problem(3, variant))
+    rows = (None if mask is None
+            else torch.from_numpy(row_mask(mask, args[0].shape[0], seed=n)))
+    want = tbn.best_nodes(*args, rows=rows)
+    got = sharded_best(args, n, rows=rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    j_best, j_feas = jax_best(3, variant, "exact")
+    sel = np.ones(j_best.shape[0], bool) if rows is None else rows.numpy()
+    np.testing.assert_array_equal(np.where(sel, j_best, 0), got[0].numpy())
+    np.testing.assert_array_equal(sel & j_feas, got[1].numpy())
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_node_shard_ties_go_to_the_lowest_node(n):
+    """Equal scores on both sides of every shard boundary, and -0.0 against
+    +0.0 (they tie, as argmax compares values): the lowest node wins across
+    shards as within one."""
+    M = 16
+    req = torch.ones((3, 1), dtype=torch.int32)
+    gid = torch.tensor([0, 1, 2], dtype=torch.int32)
+    feas = torch.ones((3, M), dtype=torch.bool)
+    feas[1, : M // 2] = False               # row 1: only the upper half
+    feas[2, :] = False                      # row 2: no node at all
+    soft = torch.zeros((3, M), dtype=torch.float32)
+    free = torch.full((M, 1), 5, dtype=torch.int32)
+    base = torch.full((M,), 0.5, dtype=torch.float32)
+    base[M // n - 1] = -0.0                 # the last node of shard 0 and
+    base[M // n] = 0.0                      # the first of shard 1 tie at 0
+    base[: M // n - 1] = -1.0
+    base[M // n + 1:] = -1.0
+    args = (req, gid, feas, soft, free, base)
+    want = tbn.best_nodes(*args)
+    got = sharded_best(args, n)
+    assert want[0].tolist() == [M // n - 1, M // 2, 0]
+    assert want[1].tolist() == [True, True, False]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_node_shard_keys_are_ordered_and_checked():
+    """keys_out holds exact_key of each row's best (KEY_NONE where no node
+    fits); node shards and keys_out refuse the quantized mode and a shard
+    past m_total."""
+    args = torch_args(*problem(5, "random"))
+    M = args[4].shape[0]
+    keys = torch.empty((args[0].shape[0],), dtype=torch.int64)
+    best, feasible = tbn.best_nodes(*args, keys_out=keys)
+    assert (keys[~feasible] == tbn.KEY_NONE).all()
+    assert (keys[feasible] > tbn.KEY_NONE).all()
+    assert torch.equal(tbn.merge_keys([keys], M)[0], best)
+    s = torch.tensor([-1.0, -0.0, 0.0, 1.0])
+    k = tbn.exact_key(s, torch.zeros(4, dtype=torch.int64), 1)
+    assert k[0] < k[1] == k[2] < k[3]
+    with pytest.raises(ValueError, match="exact mode"):
+        tbn.best_nodes(*args, mode="quantized", keys_out=keys)
+    with pytest.raises(ValueError, match="does not fit"):
+        tbn.best_nodes(*args, node_offset=1, m_total=M)

@@ -114,3 +114,51 @@ def test_kernel_rows_and_slices_on_card(mode, has_soft):
         # the boundary cases were exercised: winners on both sides of S
         won = set(edge_best[0][edge_best[1]].tolist())
         assert won & {S - 2, S - 1} and won & {S, S + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_node_shards_on_card(n):
+    """The kernel on n node shards of one card (node_offset / m_total /
+    keys_out, a row mask, the planned-domain bonus): each shard's keys and
+    local best equal the plain version's, and the merged keys equal the
+    unsharded kernel call, ties across shard boundaries included."""
+    needs_card()
+    rng = np.random.default_rng(20 + n)
+    S = tbn.slice_nodes()
+    M = 8 * S
+    m = M // n
+    inp = card_problem(30 + n, 1024, M, 8, 8, "cuda")
+    # equal scores straddling every shard boundary
+    inp["base_scores"] = torch.full_like(inp["base_scores"], 0.5)
+    inp["group_soft"] = torch.zeros_like(inp["group_soft"])
+    rows = torch.from_numpy(rng.random(1024) < 0.4).cuda()
+    steer = dict(node_dom=torch.from_numpy(
+        rng.integers(-1, 6, M).astype(np.int32)).cuda(),
+        pref=torch.from_numpy(rng.integers(-1, 6, 1024).astype(np.int32))
+        .cuda())
+    for extra in ({}, steer):
+        want = tbn.best_nodes(**inp, rows=rows, **extra)
+        keys = []
+        for lo in range(0, M, m):
+            part = dict(inp, group_feas=inp["group_feas"][:, lo:lo + m]
+                        .contiguous(),
+                        group_soft=inp["group_soft"][:, lo:lo + m]
+                        .contiguous(),
+                        free=inp["free"][lo:lo + m],
+                        base_scores=inp["base_scores"][lo:lo + m])
+            if extra:
+                part.update(node_dom=extra["node_dom"][lo:lo + m],
+                            pref=extra["pref"])
+            k = torch.empty((1024,), dtype=torch.int64, device="cuda")
+            k_ref = torch.empty_like(k)
+            got = tbn.best_nodes(**part, rows=rows, node_offset=lo,
+                                 m_total=M, keys_out=k)
+            ref = tbn.best_nodes_reference(**part, rows=rows, node_offset=lo,
+                                           m_total=M, keys_out=k_ref)
+            torch.cuda.synchronize()
+            assert torch.equal(k, k_ref) and torch.equal(got[0], ref[0])
+            keys.append(k)
+        merged = tbn.merge_keys(keys, M)
+        assert torch.equal(merged[0], want[0])
+        assert torch.equal(merged[1], want[1])

@@ -663,7 +663,8 @@ def test_pipelined_cycles_publish_their_overlap():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, item", [
-    ({"shard": True}, 14),
+    ({"shard": True, "policy": "learned"}, 24),
+    ({"shard": True, "policy": "optimal", "pack": "cvx"}, 24),
 ])
 def test_unported_option_raises_naming_its_item(option, item):
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache

@@ -217,8 +217,14 @@ def test_mirror_epoch_fence_requeues_and_divergence_zero():
 
 
 def test_mirror_device_rule(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        DeviceUsageMirror(2, device="cpu", mesh=object())
+    from yunikorn_tpu_torch.parallel.mesh import NodeMesh
+
+    # a mesh whose size divides the shard count folds per shard; another
+    # keeps the one tensor
+    assert DeviceUsageMirror(2, device="cpu", mesh=NodeMesh(["cpu"] * 2)) \
+        .stats()["sharded_fold"]
+    assert not DeviceUsageMirror(2, device="cpu", mesh=NodeMesh(["cpu"] * 3)) \
+        .stats()["sharded_fold"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceUsageMirror(2)

@@ -9,10 +9,10 @@ keys (:210-265). The solver-specific knobs (`solver.*`) are new: they size the
 device-array buckets and the assignment loop.
 
 The JAX package's conf/schedulerconf.py, copied with its imports rewritten.
-Keys whose feature the port lacks (solver.shardSolve=true: multi-GPU
-node-dim sharding, ROADMAP item 14, the last module left to port) still
-parse here; the core raises NotImplementedError naming its ROADMAP item
-when one asks for it. solver.aotStore names the kernel-library store (aot/);
+Keys whose feature the port lacks (solver.shardSolve=true together with
+solver.policy=learned|all or solver.pack=cvx: the learned and cvx arms
+under the node mesh, ROADMAP item 24) still parse here; the core raises
+NotImplementedError naming its ROADMAP item when one asks for it. solver.aotStore names the kernel-library store (aot/);
 solver.aotBackground=true is refused like an unknown value (the port has no
 background build: aot/runtime.BACKGROUND_REFUSED).
 """
@@ -194,7 +194,8 @@ class SchedulerConf:
     # is chosen by its caller (device=...), never by this key
     solver_platform: str = ""
     # tri-state device-path gates: "auto" resolves against the live backend
-    # at first solve (shard: item 14, not ported; pallas: the kernel's mode)
+    # at first solve (shard: the node mesh, parallel/mesh; pallas: the
+    # kernel's mode)
     solver_use_pallas: str = "auto"
     solver_shard: str = "auto"
     # intra-cycle drain rounds for locality groups that overflow the tensor

@@ -272,6 +272,7 @@ def dispatch_preemption_solve(
     candidate_nodes: Optional[List[str]] = None,
     device=None,
     mirror_epoch: Optional[int] = None,
+    mesh=None,
 ) -> Optional[PreemptSolveHandle]:
     """Encode + dispatch the batched victim-selection solve on `device`
     (default `cuda`), its node-side inputs from the encoder's persistent
@@ -287,7 +288,11 @@ def dispatch_preemption_solve(
     thread before a supervised dispatch; a call that outlived a
     discard_device_mirror raises MirrorDiscarded instead of touching the
     replacement mirror. A failed mirror refresh raises: there is no
-    per-call upload to fall back to."""
+    per-call upload to fall back to.
+
+    mesh: a parallel/mesh.NodeMesh to shard the node axis over (the victim
+    mirror kept per shard, the plans equal to the single device's);
+    stats["sharded"] says whether one was used."""
     import numpy as np
 
     from yunikorn_tpu_torch.ops import preempt_solve as ps_mod
@@ -329,7 +334,8 @@ def dispatch_preemption_solve(
                 row = encoder.quantize_request(res)
                 free_delta[idx, : row.shape[0]] += row
 
-    device_state = encoder.victim_arrays(device=device, epoch=mirror_epoch)
+    device_state = encoder.victim_arrays(device=device, epoch=mirror_epoch,
+                                         mesh=mesh)
     np_args = ps_mod.prepare_preempt_args(
         batch, len(asks), [(a.priority or 0) for a in asks], na, node_order,
         free_delta=free_delta, device_state=device_state)
@@ -341,11 +347,13 @@ def dispatch_preemption_solve(
             a_valid[i] = False
     np_args = np_args[:3] + (a_valid,) + np_args[4:]
     node_idx, victim_mask = ps_mod.preempt_solve(
-        *np_args, max_candidates=MAX_CANDIDATE_NODES, device=device)
+        *np_args, max_candidates=MAX_CANDIDATE_NODES, device=device,
+        mesh=mesh)
     stats = {
         "asks": len(asks),
         "device_asks": sum(device_rows),
         "victim_nodes_synced": synced,
+        "sharded": mesh is not None,
     }
     mirror = encoder.device   # None once a discard orphaned this dispatch
     if mirror is not None:
@@ -432,6 +440,7 @@ def plan_preemptions_batched(
     inflight_by_node: Optional[Dict[str, object]] = None,
     candidate_nodes: Optional[List[str]] = None,
     device=None,
+    mesh=None,
 ) -> Tuple[List[PreemptionPlan], List[str], Dict[str, object]]:
     """Dispatch + finish in one call (tests, scripts); the core splits the
     two so the device solve overlaps its commit. A declined dispatch
@@ -440,7 +449,7 @@ def plan_preemptions_batched(
     handle = dispatch_preemption_solve(
         cache, encoder, unplaced_asks, app_of_pod,
         inflight_by_node=inflight_by_node, candidate_nodes=candidate_nodes,
-        device=device)
+        device=device, mesh=mesh)
     if handle is None:
         plans, attempted = plan_preemptions(
             cache, unplaced_asks, app_of_pod,

@@ -23,8 +23,9 @@ at the same protocol seams the reference uses.
 
 The JAX package's core/scheduler.py, ported. What the port does not have yet
 is absent, or raises NotImplementedError naming its ROADMAP item:
-  - solver.shard=True (multi-GPU node-dim sharding, item 14: the last
-    module of the JAX package left to port)
+  - solver.shard=True with solver.policy=learned|all or solver.pack=cvx
+    (the learned and cvx arms under the node mesh, item 24); a mesh that
+    auto resolves skips those arms with outcome "mesh"
   - any fallback below the device tier: a gate scan, row-store sync,
     mirror refresh or solve that fails after its retries fails the cycle;
     nothing re-runs the card's work on the CPU. A device preemption
@@ -58,6 +59,16 @@ greedy plan; a challenger that is out of scope, fails or returns an
 infeasible plan leaves the greedy plan standing for the cycle
 (pack_plans_total / cvx_plans_total by outcome). Nothing re-runs an arm
 on the CPU.
+
+Node-dim sharding (solver.shard; parallel/mesh): auto means a mesh only
+with more than one card, True a mesh over utils/torchtools.mesh_devices()
+(which set_mesh_devices can point at several shards of one card). A mesh
+cycle refreshes the encoder's mirror per shard and solves through
+parallel/mesh.solve_sharded on the supervised path "mesh", placement for
+placement equal to the single-device solve; an open "mesh" circuit or a
+failed mesh dispatch drops the cycle to the core's device (counted in
+solve_mesh_fallbacks_total). The pack arm follows a mesh cycle onto
+pack_solve_sharded and the preemption planner plans over the mesh.
 
 solver.policy=learned runs the JAX package's learned arm: with a validated
 checkpoint (solver.policyCheckpoint, set_policy_checkpoint) the core
@@ -150,8 +161,10 @@ from yunikorn_tpu_torch.robustness.supervisor import (
     SupervisedExecutor,
     SupervisorOptions,
 )
-from yunikorn_tpu_torch.snapshot.encoder import SnapshotEncoder
-from yunikorn_tpu_torch.utils.torchtools import resolve_device
+from yunikorn_tpu_torch.snapshot.encoder import MirrorDiscarded, SnapshotEncoder
+from yunikorn_tpu_torch.parallel import mesh as mesh_mod
+from yunikorn_tpu_torch.parallel.mesh import make_mesh
+from yunikorn_tpu_torch.utils.torchtools import mesh_devices, resolve_device
 
 logger = log("core.scheduler")
 
@@ -348,6 +361,10 @@ class _SolveHandle:
     # the persistent device mirror the greedy dispatch used: the arms reuse
     # it read-only
     device_state: Optional[dict] = None
+    # the mirror over the node mesh, and whether the greedy solve ran on
+    # the mesh this cycle (the pack arm follows it there)
+    mesh_state: Optional[dict] = None
+    used_mesh: bool = False
 
 
 class CoreScheduler(SchedulerAPI):
@@ -398,6 +415,8 @@ class CoreScheduler(SchedulerAPI):
         self.encoder = SnapshotEncoder(cache)
         self._solver_resolved = False
         self._use_pallas = False
+        # the node mesh (parallel/mesh.NodeMesh), resolved at first solve
+        self._mesh = None
         # Multi-partition: self.partition / self.queues are the ACTIVE
         # pointers (set per request/cycle under the core lock); the dicts hold
         # every partition the config or node attributes named. The single
@@ -678,8 +697,11 @@ class CoreScheduler(SchedulerAPI):
         self.policy_recorder = None
         if self.solver.policy_checkpoint:
             self.set_policy_checkpoint(self.solver.policy_checkpoint)
-        # the device mirror of the last greedy dispatch (the arms reuse it)
+        # the device mirror of the last greedy dispatch (the arms reuse it),
+        # the mirror over the mesh and whether the mesh solved it
         self._last_solve_device_state = None
+        self._last_solve_mesh_state = None
+        self._last_solve_used_mesh = False
         # stats of the most recent gate pass (path, passes, sub-stage ms);
         # ride the cycle entry and the gate tracer span
         self._last_gate_stats: dict = {}
@@ -759,6 +781,14 @@ class CoreScheduler(SchedulerAPI):
         self._m_transfer_bytes = m.counter(
             "device_transfer_bytes_total",
             "host->device bytes of the persistent node-mirror uploads")
+        self._m_replicated_bytes = m.counter(
+            "solve_replicated_bytes_total",
+            "host->device bytes of the pod-side args mesh solves ship to "
+            "the lead device")
+        self._m_mesh_fallbacks = m.counter(
+            "solve_mesh_fallbacks_total",
+            "mesh cycles solved on the core's device instead (an open mesh "
+            "circuit or a failed mesh dispatch)")
         # recent preemption plans (operator surface: /ws/v1/preemptions)
         from collections import deque
 
@@ -1415,6 +1445,20 @@ class CoreScheduler(SchedulerAPI):
         # use_pallas: auto = the kernel's exact mode, as the JAX package's
         # auto resolves off the TPU; True = its quantized mode
         self._use_pallas = bool(self.solver.use_pallas)
+        so = self.solver
+        # the node mesh: auto only with more than one card (one card's
+        # cycles stay unsharded), True over mesh_devices(); a mesh needs
+        # more than one shard
+        want = (self.device.type == "cuda" and torch.cuda.device_count() > 1
+                if so.shard is None else so.shard)
+        devices = mesh_devices() if want else []
+        if len(devices) > 1:
+            self._mesh = make_mesh(devices)
+            # the mesh runs the exact mode, as the JAX package's mesh runs
+            # its plain argmax
+            self._use_pallas = False
+        else:
+            self._mesh = None
         if self.device.type == "cuda":
             # outside the supervisor: a kernel that fails to build or load
             # fails the cycle — it is never served by another path, and the
@@ -1422,8 +1466,9 @@ class CoreScheduler(SchedulerAPI):
             # runtime installed the libraries come from its store
             with aot_runtime.namespace(self.aot_namespace):
                 load_kernels()
-        logger.info("solver runtime: device=%s kernel mode=%s", self.device,
-                    "quantized" if self._use_pallas else "exact")
+        logger.info("solver runtime: device=%s kernel mode=%s mesh=%s",
+                    self.device, "quantized" if self._use_pallas else "exact",
+                    self._mesh if self._mesh is not None else "off")
         self._solver_resolved = True
 
     def _partition_node_mask(self):
@@ -1544,29 +1589,67 @@ class CoreScheduler(SchedulerAPI):
         thread: the device is made current there explicitly. A failed
         refresh fails the dispatch like a failed solve.
 
+        With a node mesh the mirror refreshes per shard and the batch
+        solves through parallel/mesh.solve_sharded on the supervised path
+        "mesh"; an open mesh circuit drops the cycle to the core's device up
+        front (the mirror then refreshes unsharded), and a failed mesh
+        dispatch solves it there (both counted in
+        solve_mesh_fallbacks_total).
+
         mirror_epoch: captured on the scheduler thread before the supervised
         call (a direct caller captures it here); a dispatch abandoned
         mid-wedge then finds it stale and bails (MirrorDiscarded).
 
         Side channel: fills self._last_solve_stats (tier, rounds, the
-        mirror's refresh mode and upload bytes) for the cycle's trace span
-        and entry."""
+        mirror's refresh mode and upload bytes, the replicated pod bytes of
+        a mesh solve) for the cycle's trace span and entry."""
         so = self.solver
         epoch = (mirror_epoch if mirror_epoch is not None
                  else self.encoder.mirror_epoch)
+        mesh = self._mesh
+        use_mesh = (mesh is not None
+                    and self.encoder.nodes.capacity % mesh.size == 0)
+        if use_mesh and not self.supervisor.allow("mesh"):
+            use_mesh = False
+            self._m_mesh_fallbacks.inc()
+        result = device_state = None
         with self._device_scope():
-            device_state = self.encoder.device_arrays(device=self.device,
-                                                      epoch=epoch)
-            result = solve_batch(batch, self.encoder.nodes, policy=policy,
-                                 max_rounds=so.max_rounds, chunk=so.chunk,
-                                 use_pallas=self._use_pallas,
-                                 free_delta=overlay, node_mask=node_mask,
-                                 ports_delta=inflight_ports,
-                                 max_batch=so.max_batch,
-                                 device_state=device_state,
-                                 device=self.device)
-        # the cycle's duel arms reuse the mirror read-only
-        self._last_solve_device_state = device_state
+            if use_mesh:
+                def mesh_fn():
+                    state = self.encoder.device_arrays(epoch=epoch, mesh=mesh)
+                    return state, mesh_mod.solve_sharded(
+                        batch, self.encoder.nodes, mesh,
+                        max_rounds=so.max_rounds, chunk=so.chunk,
+                        policy=policy, free_delta=overlay,
+                        node_mask=node_mask, ports_delta=inflight_ports,
+                        max_batch=so.max_batch, device_state=state)
+                try:
+                    device_state, result = self.supervisor.run("mesh",
+                                                               mesh_fn)
+                except (AbandonedDispatch, MirrorDiscarded):
+                    raise  # zombie thread: stop, don't run a pointless solve
+                except Exception:
+                    logger.exception("sharded-mesh dispatch failed; this "
+                                     "cycle solves on the core's device")
+                    self._m_mesh_fallbacks.inc()
+                    use_mesh = False
+            if result is None:
+                device_state = self.encoder.device_arrays(
+                    device=self.device, epoch=epoch)
+                result = solve_batch(batch, self.encoder.nodes,
+                                     policy=policy, max_rounds=so.max_rounds,
+                                     chunk=so.chunk,
+                                     use_pallas=self._use_pallas,
+                                     free_delta=overlay, node_mask=node_mask,
+                                     ports_delta=inflight_ports,
+                                     max_batch=so.max_batch,
+                                     device_state=device_state,
+                                     device=self.device)
+        # the cycle's duel arms reuse the mirror read-only: the unsharded
+        # one, or the one over the mesh the greedy solve ran on
+        self._last_solve_device_state = None if use_mesh else device_state
+        self._last_solve_mesh_state = device_state if use_mesh else None
+        self._last_solve_used_mesh = use_mesh
         self._m_batch_pods.observe(batch.num_pods)
         stats = {"pods": int(batch.num_pods), "tier": "device",
                  "rounds": result.rounds}
@@ -1577,6 +1660,11 @@ class CoreScheduler(SchedulerAPI):
             stats["node_refresh"] = mirror.last_refresh
             if uploaded:
                 self._m_transfer_bytes.inc(uploaded)
+        if mesh is not None:
+            stats["mesh"] = mesh.size if use_mesh else 1
+        if use_mesh:
+            stats["replicated_bytes"] = result.replicated_bytes
+            self._m_replicated_bytes.inc(result.replicated_bytes)
         self._last_solve_stats = stats
         return result
 
@@ -1615,12 +1703,16 @@ class CoreScheduler(SchedulerAPI):
             self._last_cvx_stats = {}
             self._last_policy_stats = {}
         self._last_solve_device_state = None
+        self._last_solve_mesh_state = None
+        self._last_solve_used_mesh = False
         h.result, h.tier = self.supervisor.execute(
             "assign", [(ASSIGN_LADDER[0], lambda: self._dispatch_solve(
                 batch, policy, overlay, node_mask, inflight_ports,
                 mirror_epoch=h.mirror_epoch))],
             commit_success=False)
         h.device_state = self._last_solve_device_state
+        h.mesh_state = self._last_solve_mesh_state
+        h.used_mesh = self._last_solve_used_mesh
         if duel:
             self._pack_dispatch(h)
             self._cvx_dispatch(h)
@@ -1701,6 +1793,9 @@ class CoreScheduler(SchedulerAPI):
             # learned override would fight the accept caps: these cycles
             # keep the greedy plan
             return "locality"
+        if self._mesh is not None and not mesh_mod.LEARNED_SHARDED_SUPPORTED:
+            # ROADMAP item 24: the learned solve does not run over the mesh
+            return "mesh"
         return None
 
     def _learned_dispatch(self, h: "_SolveHandle") -> None:
@@ -1752,22 +1847,40 @@ class CoreScheduler(SchedulerAPI):
             return "shape"
         return None
 
-    def _pack_eligible(self, batch) -> Optional[str]:
-        """None when the pack arm models this batch; else the skip
-        reason."""
-        return self._arm_scope(batch, pack_mod.shape_supported)
+    def _pack_eligible(self, h: "_SolveHandle") -> Optional[str]:
+        """None when the pack arm models this cycle; else the skip reason.
+        Under a mesh the arm follows the greedy solve onto it
+        (pack_solve_sharded), so a mesh cycle whose greedy solve dropped to
+        the core's device skips it, and the shape must split into whole
+        parts per shard ("mesh-shape" when only that fails)."""
+        if self._mesh is None:
+            return self._arm_scope(h.batch, pack_mod.shape_supported)
+        if not mesh_mod.PACK_SHARDED_SUPPORTED or not h.used_mesh:
+            return "mesh"
+        n_shards = self._mesh.size
+        reason = self._arm_scope(h.batch, lambda n, m: pack_mod.shape_supported(
+            n, m, n_shards=n_shards))
+        if reason == "shape" and pack_mod.shape_supported(
+                h.batch.req.shape[0], self.encoder.nodes.capacity):
+            return "mesh-shape"
+        return reason
 
     def _cvx_eligible(self, h: "_SolveHandle") -> Optional[str]:
         """None when the cvx arm models this cycle; else the skip reason
-        (over the cell budget: the shapes the pack arm exists for)."""
-        return self._arm_scope(h.batch, cvx_mod.cvx_shape_supported)
+        (over the cell budget: the shapes the pack arm exists for; "mesh"
+        under a node mesh, ROADMAP item 24)."""
+        reason = self._arm_scope(h.batch, cvx_mod.cvx_shape_supported)
+        if (reason is None and self._mesh is not None
+                and not mesh_mod.CVX_SHARDED_SUPPORTED):
+            return "mesh"
+        return reason
 
     def _pack_dispatch(self, h: "_SolveHandle") -> None:
         """Dispatch the pack solve of an eligible optimal cycle; failures
         leave h.pack None (greedy stays authoritative)."""
         if not self._pack_on():
             return
-        reason = self._pack_eligible(h.batch)
+        reason = self._pack_eligible(h)
         if reason is not None:
             self._m_pack.inc(outcome="skipped")
             self._last_pack_stats = {"policy": "greedy", "skip": reason}
@@ -1777,12 +1890,20 @@ class CoreScheduler(SchedulerAPI):
             self._last_pack_stats = {"policy": "greedy", "skip": "circuit"}
             return
         h.pack_t0 = time.perf_counter()
-        # the ICI-domain partitioner whenever topology steering is on
-        mode = ("topo" if getattr(h.batch, "topo", None) is not None
-                else "random")
+        # the ICI-domain partitioner whenever topology steering is on, and
+        # the mesh-aligned one on a mesh cycle
+        mode = ("topo" if h.used_mesh
+                or getattr(h.batch, "topo", None) is not None else "random")
 
         def pack_fn():
             with self._device_scope():
+                if h.used_mesh:
+                    return mesh_mod.pack_solve_sharded(
+                        h.batch, self.encoder.nodes, self._mesh,
+                        policy=h.policy, free_delta=h.overlay,
+                        node_mask=h.node_mask, ports_delta=h.inflight_ports,
+                        seed=self._cycle_seq, chunk=self.solver.chunk,
+                        device_state=h.mesh_state)
                 return pack_mod.pack_solve_batch(
                     h.batch, self.encoder.nodes, policy=h.policy,
                     free_delta=h.overlay, node_mask=h.node_mask,
@@ -2286,6 +2407,11 @@ class CoreScheduler(SchedulerAPI):
         from yunikorn_tpu_torch.core.preemption import dispatch_preemption_solve
 
         epoch = self.encoder.mirror_epoch
+        # over the node mesh when the cycle has one (its victim mirror per
+        # shard; the plans are the single device's)
+        mesh = (self._mesh if self._mesh is not None
+                and self.encoder.nodes.capacity % self._mesh.size == 0
+                else None)
 
         def fn():
             with self._device_scope():
@@ -2293,7 +2419,7 @@ class CoreScheduler(SchedulerAPI):
                     self.cache, self.encoder, prospective, self._app_of_pod(),
                     inflight_by_node=self._inflight_by_node(),
                     candidate_nodes=self._preempt_candidate_nodes(),
-                    device=self.device, mirror_epoch=epoch)
+                    device=self.device, mirror_epoch=epoch, mesh=mesh)
 
         t0 = time.time()
         try:
@@ -4073,9 +4199,10 @@ _COLD_STAGES = ("gate_ms", "encode_ms", "solve_ms", "commit_ms", "post_ms",
 def _check_options(so: SolverOptions) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for each option
     whose feature the port does not have yet."""
-    if so.shard:
-        not_ported("node-dim sharding (solver.shard=True)", 14,
-                   "multi-GPU node-dim sharding")
+    if so.shard and (so.policy in ("learned", "all") or so.pack == "cvx"):
+        not_ported("solver.shard=True with solver.policy=learned|all or "
+                   "solver.pack=cvx", 24,
+                   "the learned and cvx arms under the mesh")
 
 
 def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:
@@ -4149,7 +4276,8 @@ def _mirror_extras(stats: dict) -> dict:
     """The node mirror's refresh for the cycle entry, as the cycle's last
     solve dispatch found it (clean / fields / full, and the bytes it
     uploaded: 0 when clean)."""
-    return {k: stats[k] for k in ("node_refresh", "node_upload_bytes")
+    return {k: stats[k] for k in ("node_refresh", "node_upload_bytes",
+                                  "replicated_bytes", "mesh")
             if k in stats}
 
 

@@ -48,6 +48,16 @@
 //              best = M - (packed mod index_span).
 // Keys are unique per node, so the max is the same in any order.
 //
+// A node shard (parallel/mesh: the solve's node axis cut into slices, one
+// call per slice): given node_offset and m_total (the slice's first global
+// node and the whole node count; 0 and n_nodes otherwise), the exact key's
+// low word is m_total-1-(node_offset+j), the node's GLOBAL reverse index,
+// and keys_out [n_rows] int64 receives each row's key with its top bit
+// flipped (0 -> INT64_MIN for a row with no feasible node or not requested),
+// so the signed max over the shards' keys is the key of the whole call: the
+// same best node, bit for bit, in any shard order. best stays the slice's
+// local index. Exact mode only.
+//
 // What bounds it on an H100: compares. Each (pod, admitted node) pair costs
 // R integer compares, each ANDing the running fit predicate in the same
 // instruction (ISETP takes a predicate input), and each pair that fits one
@@ -183,6 +193,7 @@ __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
             const float* __restrict__ base, const uint8_t* __restrict__ mask,
             int n_nodes, int n_groups, int n_words, int index_span,
+            int node_offset, int m_total,
             int n_rows, typename Key<kQuantized>::T* keys,
             typename Key<kQuantized>::T* bonus_keys, uint32_t* words,
             typename Key<kQuantized>::T* row_best, int32_t* row_list,
@@ -230,11 +241,11 @@ prep_kernel(const uint8_t* __restrict__ feas, const float* __restrict__ soft,
                                        (uint32_t)(n_nodes - j));
       key = max(packed, kPackedMin);
     } else {
-      key = ((T)ordered_bits(s) << 32) | (T)(uint32_t)(n_nodes - 1 - j);
+      const T low = (T)(uint32_t)(m_total - 1 - (node_offset + j));
+      key = ((T)ordered_bits(s) << 32) | low;
       if constexpr (kBonus) {
         // the rounded sum, as the plain argmax sees it
-        bkey = ((T)ordered_bits(__fadd_rn(s, kPrefBonus)) << 32) |
-               (T)(uint32_t)(n_nodes - 1 - j);
+        bkey = ((T)ordered_bits(__fadd_rn(s, kPrefBonus)) << 32) | low;
       }
     }
   }
@@ -415,8 +426,10 @@ best_nodes_kernel(const int32_t* __restrict__ req,
 template <bool kQuantized>
 __global__ void finish_kernel(const typename Key<kQuantized>::T* row_best,
                               int n_rows, int n_nodes, int index_span,
+                              int node_offset, int m_total,
                               int32_t* __restrict__ best,
-                              uint8_t* __restrict__ feasible) {
+                              uint8_t* __restrict__ feasible,
+                              long long* __restrict__ keys_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows) return;
   const auto k = row_best[i];
@@ -427,7 +440,10 @@ __global__ void finish_kernel(const typename Key<kQuantized>::T* row_best,
     b = n_nodes - (k & (index_span - 1));
   } else {
     found = k != 0ull;
-    b = n_nodes - 1 - (int32_t)(uint32_t)(k & 0xffffffffull);
+    b = m_total - 1 - node_offset - (int32_t)(uint32_t)(k & 0xffffffffull);
+    if (keys_out != nullptr) {
+      keys_out[i] = (long long)(k ^ 0x8000000000000000ull);
+    }
   }
   best[i] = found ? b : 0;
   feasible[i] = found ? 1 : 0;
@@ -436,9 +452,9 @@ __global__ void finish_kernel(const typename Key<kQuantized>::T* row_best,
 struct Args {
   const void *req, *group_id, *feas, *soft, *free_, *base, *mask, *node_dom,
       *pref, *pod_emb, *node_emb;
-  int n_rows, n_nodes, n_groups, n_res, index_span;
+  int n_rows, n_nodes, n_groups, n_res, index_span, node_offset, m_total;
   void *keys, *bonus_keys, *words, *row_best, *row_list, *row_count, *best,
-      *feasible;
+      *feasible, *keys_out;
 };
 
 template <int kMaxR, bool kSoft, bool kQuantized, bool kBonus, int kE = 0>
@@ -460,7 +476,8 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
           static_cast<const uint8_t*>(a.feas),
           static_cast<const float*>(a.soft), static_cast<const float*>(a.base),
           static_cast<const uint8_t*>(a.mask), a.n_nodes, a.n_groups, n_words,
-          a.index_span, a.n_rows, static_cast<T*>(a.keys),
+          a.index_span, a.node_offset, a.m_total, a.n_rows,
+          static_cast<T*>(a.keys),
           static_cast<T*>(a.bonus_keys), static_cast<uint32_t*>(a.words),
           static_cast<T*>(a.row_best),
           static_cast<int32_t*>(a.row_list),
@@ -493,7 +510,9 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
   }
   finish_kernel<kQuantized><<<(a.n_rows + 255) / 256, 256, 0, stream>>>(
       static_cast<const T*>(a.row_best), a.n_rows, a.n_nodes, a.index_span,
-      static_cast<int32_t*>(a.best), static_cast<uint8_t*>(a.feasible));
+      a.node_offset, a.m_total, static_cast<int32_t*>(a.best),
+      static_cast<uint8_t*>(a.feasible),
+      static_cast<long long*>(a.keys_out));
   return cudaGetLastError();
 }
 
@@ -541,6 +560,9 @@ int yk_best_nodes_slice_nodes() { return kSlice; }
 // keys and bonus_keys [G, 32 * ceil(M / 32)]
 // and row_best [n_rows] are int64 (exact) or int32 (quantized) scratch,
 // words [G, ceil(M / 32)] uint32, row_list [n_rows] and row_count [1] int32.
+// node_offset / m_total: the node shard's first global node and the global
+// node count (0 and n_nodes for a whole call); keys_out [n_rows] int64 (or
+// nullptr): each row's key, top bit flipped. Both exact mode only.
 // Returns the first CUDA error of the launches (0 = launched).
 int yk_best_nodes(const void* req, const void* group_id, const void* feas,
                   const void* soft, const void* free_, const void* base,
@@ -550,20 +572,25 @@ int yk_best_nodes(const void* req, const void* group_id, const void* feas,
                   int has_soft, int quantized, int index_span, void* keys,
                   void* bonus_keys, void* words, void* row_best,
                   void* row_list, void* row_count, void* best,
-                  void* feasible, void* stream) {
+                  void* feasible, int node_offset, int m_total,
+                  void* keys_out, void* stream) {
   if (n_rows <= 0) return 0;
-  if ((pref == nullptr) != (node_dom == nullptr) ||
+  if (node_offset < 0 || m_total < node_offset + n_nodes ||
+      (quantized && (node_offset != 0 || m_total != n_nodes ||
+                     keys_out != nullptr)) ||
+      (pref == nullptr) != (node_dom == nullptr) ||
       (pref != nullptr && (quantized || bonus_keys == nullptr)) ||
       (emb != 0 && (emb != 16 && emb != 32)) ||
       (emb != 0 && (quantized || !has_soft || pod_emb == nullptr ||
                     node_emb == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{req,      group_id,   feas,       soft,     free_,
-               base,     mask,       node_dom,   pref,     pod_emb,
-               node_emb, n_rows,     n_nodes,    n_groups, n_res,
-               index_span, keys,     bonus_keys, words,    row_best,
-               row_list, row_count,  best,       feasible};
+  const Args a{req,        group_id,    feas,       soft,     free_,
+               base,       mask,        node_dom,   pref,     pod_emb,
+               node_emb,   n_rows,      n_nodes,    n_groups, n_res,
+               index_span, node_offset, m_total,    keys,     bonus_keys,
+               words,      row_best,    row_list,   row_count, best,
+               feasible,   keys_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_res <= 8) return (int)dispatch<8>(has_soft, quantized, emb, a, s);
   return (int)dispatch<64>(has_soft, quantized, emb, a, s);

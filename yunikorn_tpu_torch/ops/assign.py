@@ -45,6 +45,15 @@ from the encoder's persistent device mirror (snapshot/encoder.
 DeviceNodeState), and the pod requests from the row store's gather
 (`batch.req_device`) when the batch is solved in one piece.
 
+Under a node mesh (`mesh=`, parallel/mesh.NodeMesh; solve_sharded) the
+node-side tensors are Shards, one piece per shard on its device: the group
+state, the base scores, the locality rules, the odd rounds' best node (one
+kernel call a shard, merged by ops/best_nodes.merge_keys) and the scatter
+into free capacity run per shard, the stages that order nodes globally read
+the rows gathered onto the lead device, and every output is bit-identical to
+the single-device solve's. A solve without a mesh runs the same code over
+the mesh of one on its device.
+
 The learned policy (`learned` = (params, seed), solver.policy=learned; see
 ops/learned) embeds each pod slice's asks once and the nodes' current free
 capacity every round: the gated learned proposals (the learned_propose
@@ -64,7 +73,7 @@ import torch
 from yunikorn_tpu_torch.models.policies import alignment_scores, node_base_scores
 from yunikorn_tpu_torch.ops.best_nodes import (LIBRARY, NEG_INF, TOPO_GANG_W,
                                                best_nodes, learned_dot,
-                                               pref_bonus)
+                                               merge_keys, pref_bonus)
 from yunikorn_tpu_torch.ops.learned import LIBRARY as LEARNED_LIBRARY
 from yunikorn_tpu_torch.ops.learned import (learned_prep, learned_propose,
                                             node_embedding)
@@ -73,6 +82,7 @@ from yunikorn_tpu_torch.ops.predicates import (
     group_preferred_bonus,
     group_soft_penalty,
 )
+from yunikorn_tpu_torch.parallel.mesh import NodeMesh, Shards, one_piece
 from yunikorn_tpu_torch.snapshot.locality import (
     KIND_AFFINITY,
     KIND_ANTI_AFFINITY,
@@ -116,6 +126,9 @@ class SolveResult:
     # [L, D] int32: the locality domain counts after the solve (None when
     # the batch has no locality)
     cnt_final: Optional[torch.Tensor] = None
+    # host bytes of the pod-side args a sharded solve ships to its lead
+    # device (parallel/mesh.solve_sharded; None on the single device)
+    replicated_bytes: Optional[int] = None
 
 
 def not_ported(what: str, item: int, name: str):
@@ -781,10 +794,31 @@ def _hoist_group_state(g_term_req, g_term_forb, g_term_valid, g_anyof,
     return group_feas, group_soft
 
 
+def _best_nodes_sharded(nm, bounds, M, req, group_id, feas_p, soft_p, free_p,
+                        base_p, chunk, rows, node_dom_p=None, pref=None):
+    """The exact best node over every shard: one best_nodes call a shard on
+    its device and slice, with node_offset / m_total / keys_out, the keys
+    merged on the lead device (ops/best_nodes.merge_keys). Returns (best
+    [N] int32 global node, feasible [N] bool), equal to one call over all
+    M nodes."""
+    keys = []
+    for i, (lo, _hi) in enumerate(bounds):
+        k = torch.empty((req.shape[0],), dtype=torch.int64,
+                        device=nm.devices[i])
+        steer = ({} if node_dom_p is None else
+                 dict(node_dom=node_dom_p[i], pref=nm.put(pref, i)))
+        best_nodes(nm.put(req, i), nm.put(group_id, i), feas_p[i], soft_p[i],
+                   free_p[i], base_p[i], mode="exact", has_soft=True,
+                   chunk=chunk, rows=nm.put(rows, i), node_offset=lo,
+                   m_total=M, keys_out=k, **steer)
+        keys.append(k)
+    return merge_keys(nm.to_lead(keys), M)
+
+
 def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                   cnt0, capacity, loc, loc_hoist, *, max_rounds, chunk,
                   policy, use_pallas, has_loc_soft, pallas_soft, score_cols,
-                  loc_plan=None, topo_rt=None, learned_rt=None):
+                  loc_plan=None, topo_rt=None, learned_rt=None, mesh=None):
     """The round loop for one pod slice against hoisted group state. free0
     [M, R] and the locality counts cnt0 [L, D] carry across chained slices;
     loc is None, or this slice's loc tuple with loc_hoist from
@@ -799,12 +833,31 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
     gang proposals still win over them), and the odd rounds' best node
     carries the learned term in the exact mode. Returns (assigned [N]
     int32, accept_round [N] int32, free [M, R] int32, rounds, cnt [L, D]
-    int32)."""
+    int32).
+
+    mesh (a NodeMesh; default the mesh of one on req's device):
+    group_feas / group_soft [G, M], free0 / capacity [M, R] and topo_rt's
+    node_dom may come as Shards (whole tensors are cut); the node-local
+    stages run per shard, the global ones on the rows gathered onto the
+    lead device, and free comes back as Shards (for the next chained slice)
+    when a mesh was given, else as one tensor. A mesh of several shards
+    takes no learned_rt and no use_pallas."""
     N, R = req.shape
-    M = free0.shape[0]
     dev = req.device
+    nm = mesh if mesh is not None else NodeMesh((dev,))
+    free_p = Shards([f.clone() for f in nm.split(free0)])
+    cap_p = nm.split(capacity)
+    feas_p = nm.split(group_feas, 1)
+    soft_p = nm.split(group_soft, 1)
+    M = free_p.shape[0]
+    bounds = nm.bounds(M)
+    group_feas, group_soft = nm.gather(feas_p), nm.gather(soft_p)
+    capacity = nm.gather(cap_p)
+    node_dom_p = None
+    if topo_rt is not None:
+        node_dom_p = nm.split(topo_rt[0])
+        topo_rt = (nm.gather(node_dom_p), topo_rt[1])
     sc = score_cols if score_cols > 0 else R
-    cur_free = free0.clone()
     cnt = cnt0
     done = ~valid
     assigned = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -820,23 +873,44 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
         gidx = torch.arange(group_feas.shape[0], device=dev)
         loc_sorted = loc[3][rank_order]
         gid_sorted = group_id[rank_order]
+        # each shard's locality tables: its columns of the domain rows, the
+        # rest replicated
+        dom_p = nm.split(loc[0], 1)
+        loc_p = [(dom_p[i],) + tuple(nm.put(a, i) for a in loc[1:])
+                 for i in range(nm.size)]
+        gidx_p = [nm.put(gidx, i) for i in range(nm.size)]
+        contrib_p = [nm.put(group_contrib, i) for i in range(nm.size)]
     rnd, stalls = 0, 0
     all_done = bool(done.all())
     while stalls < 2 and rnd < max_rounds and not all_done:
-        base_scores = node_base_scores(cur_free[:, :sc], capacity[:, :sc],
-                                       policy)
+        base_p = [node_base_scores(f[:, :sc], c[:, :sc], policy)
+                  for f, c in zip(free_p, cap_p)]
+        base_scores = nm.gather(base_p)
+        cur_free = nm.gather(free_p)
         active = ~done
         feas_round, soft_round = group_feas, group_soft
+        feas_rp, soft_rp = feas_p, soft_p
         if loc is not None:
             # the round's locality rules and scores, one [G, M] row per
             # group, folded into what every later stage reads
             minc, total = _loc_round_stats(loc, cnt)
-            loc_mask = _loc_rules_mask(gidx, None, loc, cnt, minc, total,
-                                       group_contrib, slots)
-            feas_round = group_feas & loc_mask
+            mask_p, feas_rp, soft_l = [], [], []
+            for i in range(nm.size):
+                cnt_i, minc_i, total_i = (nm.put(x, i)
+                                          for x in (cnt, minc, total))
+                mask_i = _loc_rules_mask(gidx_p[i], None, loc_p[i], cnt_i,
+                                         minc_i, total_i, contrib_p[i], slots)
+                mask_p.append(mask_i)
+                feas_rp.append(feas_p[i] & mask_i)
+                if has_loc_soft:
+                    soft_l.append(soft_p[i] + _loc_soft_scores(
+                        gidx_p[i], None, loc_p[i], cnt_i, minc_i,
+                        contrib_p[i], slots))
+            loc_mask = nm.gather(mask_p, 1)
+            feas_round = nm.gather(feas_rp, 1)
             if has_loc_soft:
-                soft_round = group_soft + _loc_soft_scores(
-                    gidx, None, loc, cnt, minc, group_contrib, slots)
+                soft_rp = soft_l
+                soft_round = nm.gather(soft_rp, 1)
         proposals = _water_fill_proposals(req, group_id, rank_order, active,
                                           feas_round, cur_free, base_scores,
                                           soft_round, g_rr_dom, g_capped)
@@ -876,6 +950,13 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                     req, group_id, feas_round, soft_round, cur_free, capacity,
                     base_scores, chunk, policy, score_cols,
                     learned_emb=learned_emb, **steer)
+            elif nm.size > 1:
+                # one kernel call a shard, the exact mode (the reference's
+                # mesh runs its plain argmax), with the bonus when steered
+                best, feasible = _best_nodes_sharded(
+                    nm, bounds, M, req, group_id, feas_rp, soft_rp, free_p,
+                    base_p, chunk, active & ~prop_fits, node_dom_p,
+                    None if topo_rt is None else topo_rt[1])
             elif topo_rt is not None or learned_emb is not None:
                 # the steered and the learned argmax are the reference's
                 # plain one whatever use_pallas says: the exact mode with
@@ -917,7 +998,15 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                 loc, M, cnt, total, spread_l, aff_l, anti_l, min_skew_l,
                 allowance_l, g_ref_masks, loc[9], g_capped, loc_plan)
         delta = torch.where(accept_sorted[:, None], sreq, 0)
-        cur_free = cur_free.index_add(0, snode.clamp(0, M - 1), -delta)
+        # each shard subtracts the accepts on its own rows (integer adds:
+        # the same in any order)
+        parts = []
+        for i, (lo, hi) in enumerate(bounds):
+            own = (snode >= lo) & (snode < hi)
+            parts.append(free_p[i].index_add(
+                0, nm.put(torch.where(own, snode - lo, 0), i),
+                nm.put(torch.where(own[:, None], -delta, 0), i)))
+        free_p = Shards(parts)
         accepted = torch.zeros((N,), dtype=torch.bool, device=dev)
         accepted[order] = accept_sorted
         assigned = torch.where(accepted, merged.to(torch.int32), assigned)
@@ -929,24 +1018,48 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
             [accept_sorted.any(), done.all()]).tolist()
         stalls = 0 if progress else stalls + 1
         rnd += 1
-    return assigned, around, cur_free, rnd, cnt
+    return (assigned, around, free_p if mesh is not None else free_p[0],
+            rnd, cnt)
 
 
-def _prepare(args, loc, device, topo=None):
+def _prepare(args, loc, device, topo=None, mesh=None):
     """The solve's arguments (SOLVE_ARG_NAMES up to host_soft, then loc and
     topo) as tensors on `device`, with the hoisted [G, M] group state; with
     topo the node-level topology term is folded into every soft row and
-    topo_rt = (node_dom, pref_pod) comes back last (None without)."""
-    (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
-     g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
-     g_pref_weight, node_labels, node_taints, node_taints_soft, node_ports,
-     node_ok, free, capacity, host_group_mask, host_group_soft) = [
-        _tensor(a, device) for a in args]
-    group_feas, group_soft = _hoist_group_state(
-        g_term_req, g_term_forb, g_term_valid, g_anyof, g_anyof_valid,
-        g_tol, g_ports, g_pref_req, g_pref_forb, g_pref_weight,
-        node_labels, node_taints, node_taints_soft, node_ports, node_ok,
-        host_group_mask, host_group_soft)
+    topo_rt = (node_dom, pref_pod) comes back last (None without).
+
+    mesh (a NodeMesh; default the mesh of one on `device`, its lead device
+    replacing `device`): the pod-side arguments and loc go to the lead
+    device, the node-side ones are cut into Shards (pieces already Shards
+    stay where they are) and the group state is hoisted per shard on its
+    device. free, capacity, the group state and topo_rt's node_dom come
+    back as Shards over several shards, as tensors over one."""
+    nm = mesh if mesh is not None else NodeMesh((device,))
+    device = nm.lead
+    pod = [_tensor(a, device) for a in args[:14]]
+    req, group_id, rank, valid = pod[:4]
+    node = [nm.split(a) for a in args[14:21]]
+    host_mask, host_soft = (nm.split(a, 1) for a in args[21:23])
+    if topo is not None:
+        node_dom = nm.split(topo[0])
+        topo_pod = tuple(_tensor(a, device) for a in topo[1:])
+    feas_l, soft_l = [], []
+    for i in range(nm.size):
+        feas_i, soft_i = _hoist_group_state(
+            *(nm.put(a, i) for a in pod[4:14]), *(a[i] for a in node[:5]),
+            None if host_mask is None else host_mask[i],
+            None if host_soft is None else host_soft[i])
+        if topo is not None:
+            # group-independent: one [M] fold shared by every group row
+            # (and, chained, by every slice)
+            soft_i = soft_i + _topo_node_adj(
+                (node_dom[i], None) + tuple(nm.put(a, i)
+                                            for a in topo_pod[1:]))[None, :]
+        feas_l.append(feas_i)
+        soft_l.append(soft_i)
+    group_feas = one_piece(Shards(feas_l, 1))
+    group_soft = one_piece(Shards(soft_l, 1))
+    free, capacity = one_piece(node[5]), one_piece(node[6])
     loc_hoist = loc_plan = None
     if loc is not None:
         loc = tuple(_tensor(a, device) for a in loc)
@@ -955,15 +1068,25 @@ def _prepare(args, loc, device, topo=None):
         cnt0 = loc[1]
     else:
         cnt0 = torch.zeros((1, 1), dtype=torch.int32, device=device)
-    topo_rt = None
-    if topo is not None:
-        # group-independent: one [M] fold shared by every group row (and,
-        # chained, by every slice)
-        topo = tuple(_tensor(a, device) for a in topo)
-        group_soft = group_soft + _topo_node_adj(topo)[None, :]
-        topo_rt = (topo[0], topo[1])
+    topo_rt = None if topo is None else (one_piece(node_dom), topo_pod[0])
     return (req, group_id, rank, valid, free, capacity, group_feas,
             group_soft, loc, loc_hoist, loc_plan, cnt0, topo_rt)
+
+
+def _solve_mesh(device, mesh, learned=None, use_pallas=False) -> NodeMesh:
+    """The mesh a solve runs over: `mesh`, or the mesh of one on `device`
+    resolved. A mesh of several shards takes neither the learned policy nor
+    the quantized mode."""
+    if mesh is None:
+        return NodeMesh((resolve_device(device),))
+    if mesh.size > 1 and learned is not None:
+        not_ported("the learned policy under a node mesh", 24,
+                   "the learned and cvx arms under the mesh")
+    if mesh.size > 1 and use_pallas:
+        raise ValueError("a sharded solve runs the exact mode "
+                         "(use_pallas=False), as the reference's mesh runs "
+                         "its plain argmax")
+    return mesh
 
 
 def solve(
@@ -982,6 +1105,7 @@ def solve(
     pallas_has_soft: bool = True,
     score_cols: int = 0,
     device=None,
+    mesh=None,
 ):
     """One batched solve. Arguments are numpy arrays or tensors (bitsets as
     uint32 or their int32 views) and move to `device` (default `cuda`); loc
@@ -997,15 +1121,18 @@ def solve(
     kernel; the default exact mode is bit-equal to its XLA argmax.
     has_loc_soft=False skips the soft locality scores (all slot weights 0).
     learned is None, or (params, seed) of the learned policy (see
-    ops/learned; params in host or device form)."""
-    device = resolve_device(device)
+    ops/learned; params in host or device form). mesh: a NodeMesh to shard
+    the node axis over (its lead device replaces `device`; node-side
+    arguments may come as Shards); the outputs are the single-device
+    solve's, free_after gathered on the lead device."""
+    mesh = _solve_mesh(device, mesh, learned, use_pallas)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
      loc_hoist, loc_plan, cnt0, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), loc, device, topo)
+         host_group_soft), loc, mesh.lead, topo, mesh)
     N = req.shape[0]
     chunk = min(chunk, N)
     if N % chunk:
@@ -1013,12 +1140,13 @@ def solve(
                          f"size {chunk}")
     learned_rt = (None if learned is None else
                   learned_prep(learned, req, capacity, score_cols))
-    return _solve_rounds(
+    assigned, around, free, rounds, cnt = _solve_rounds(
         req, group_id, rank, valid, group_feas, group_soft, free, cnt0,
         capacity, loc, loc_hoist, max_rounds=max_rounds, chunk=chunk,
         policy=policy, use_pallas=use_pallas, has_loc_soft=has_loc_soft,
         pallas_soft=pallas_has_soft or has_loc_soft, score_cols=score_cols,
-        loc_plan=loc_plan, topo_rt=topo_rt, learned_rt=learned_rt)
+        loc_plan=loc_plan, topo_rt=topo_rt, learned_rt=learned_rt, mesh=mesh)
+    return assigned, around, mesh.gather(free), rounds, cnt
 
 
 def solve_chunked(
@@ -1038,24 +1166,26 @@ def solve_chunked(
     pallas_has_soft: bool = True,
     score_cols: int = 0,
     device=None,
+    mesh=None,
 ):
     """Chained fixed-shape solves over rank-ordered [chunk_pods]-pod slices,
     carrying free capacity and the locality counts from slice to slice; the
     [G, M] group state, the topology fold and the locality hoist are
     computed once for the whole batch, and each slice takes its rows of
     contrib and pref_pod. With learned, each slice embeds its own asks and
-    folds its index into the exploration key. Returns what `solve` returns.
+    folds its index into the exploration key. Returns what `solve` returns;
+    mesh as in `solve` (free carries from slice to slice as Shards).
 
     PRECONDITION: pod rows are sorted by rank (solve_batch sorts and unsorts
     around this call) — slice boundaries supersede rank priority."""
-    device = resolve_device(device)
+    mesh = _solve_mesh(device, mesh, learned, use_pallas)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
      loc_hoist, loc_plan, cnt, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), loc, device, topo)
+         host_group_soft), loc, mesh.lead, topo, mesh)
     N = req.shape[0]
     mb = chunk_pods
     chunk = min(chunk, mb)
@@ -1077,12 +1207,13 @@ def solve_chunked(
             use_pallas=use_pallas, has_loc_soft=has_loc_soft,
             pallas_soft=pallas_has_soft or has_loc_soft,
             score_cols=score_cols, loc_plan=loc_plan, topo_rt=topo_k,
-            learned_rt=learned_k)
+            learned_rt=learned_k, mesh=mesh)
         # offset accept rounds so the chain's order is globally monotone
         around.append(torch.where(ar_k >= 0, ar_k + round_base, -1).to(torch.int32))
         assigned.append(a_k)
         round_base += r_k
-    return torch.cat(assigned), torch.cat(around), free, round_base, cnt
+    return (torch.cat(assigned), torch.cat(around), mesh.gather(free),
+            round_base, cnt)
 
 
 def _unsort(order, *arrays):
@@ -1111,10 +1242,26 @@ def _sort_pods_by_rank(np_args):
     return tuple(out), order
 
 
+def _by_rows(x, host, fn):
+    """fn(x, host) for a tensor x; for Shards (cut along rows), fn of each
+    piece and its rows of the host array, as Shards."""
+    if not isinstance(x, Shards):
+        return fn(x, host)
+    out, lo = [], 0
+    for p in x:
+        out.append(fn(p, host[lo:lo + p.shape[0]]))
+        lo += p.shape[0]
+    return Shards(out)
+
+
+def _host_to(h: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(h)).to(like.device)
+
+
 def apply_free_delta(free_i, free_delta):
     """Subtract the core's in-flight overlay (ceil to device units, clipped
     to the possibly-differing shapes) from integer free capacity, a numpy
-    array or a tensor."""
+    array, a tensor or Shards of one."""
     M, R = free_i.shape
     d = np.zeros((M, R), np.int32)
     rows = min(M, free_delta.shape[0])
@@ -1122,7 +1269,7 @@ def apply_free_delta(free_i, free_delta):
     d[:rows, :cols] = np.ceil(free_delta[:rows, :cols]).astype(np.int32)
     if isinstance(free_i, np.ndarray):
         return free_i - d
-    return free_i - torch.from_numpy(d).to(free_i.device)
+    return _by_rows(free_i, d, lambda f, h: f - _host_to(h, f))
 
 
 def pad2d(arr, width, fill):
@@ -1196,7 +1343,8 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
     (SnapshotEncoder.device_arrays, refreshed to match node_arrays): the
     node-side inputs then come from the mirror, the overlays apply as device
     ops, and the node→domain column of topology steering rides its topo
-    field. Batches requesting host ports bypass it (the synthetic port
+    field. A mesh's mirror holds Shards: the overlays then apply to each
+    shard's rows on its device, and the node-side args stay Shards. Batches requesting host ports bypass it (the synthetic port
     columns reshape free/capacity per batch). With it, batch.req_device
     (the row store's gather, equal to req.astype(int32)) replaces the host
     req when allow_req_device holds."""
@@ -1225,13 +1373,12 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
             rows = min(pd.shape[0], ports_delta.shape[0])
             cols = min(pd.shape[1], ports_delta.shape[1])
             pd[:rows, :cols] = ports_delta[:rows, :cols]
-            node_ports = node_ports | torch.from_numpy(pd.view(np.int32)).to(
-                node_ports.device)
+            node_ports = _by_rows(node_ports, pd.view(np.int32),
+                                  lambda p, h: p | _host_to(h, p))
         node_ok = dev["node_ok"]
         if node_mask is not None:
-            node_ok = node_ok & torch.from_numpy(
-                np.ascontiguousarray(node_mask[: node_ok.shape[0]])).to(
-                    node_ok.device)
+            node_ok = _by_rows(node_ok, node_mask[: node_ok.shape[0]],
+                               lambda p, h: p & _host_to(h, p))
         labels, taints_hard, taints_soft = (
             dev["labels"], dev["taints_hard"], dev["taints_soft"])
         topo_mirror = dev.get("topo")
@@ -1261,7 +1408,9 @@ def prepare_solve_args(batch, node_arrays, *, free_delta=None, node_mask=None,
         M_ = free_i.shape[0]
         if topo_mirror is not None and topo_mirror.shape[0] == M_:
             # device path: the node→domain column is already resident
-            node_dom = topo_mirror[:, 2]
+            node_dom = (Shards([p[:, 2] for p in topo_mirror])
+                        if isinstance(topo_mirror, Shards)
+                        else topo_mirror[:, 2])
         else:
             node_dom = topo_args.node_dom
             if node_dom.shape[0] != M_:

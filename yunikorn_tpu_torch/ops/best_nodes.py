@@ -35,6 +35,17 @@ dot product with e in order and each product and sum rounded, as the
 reference's learned argmax adds its [C, E] x [E, M] term. Exact mode with
 the soft matrix only (the reference's learned argmax never takes the
 Pallas kernel).
+
+A node shard (parallel/mesh cuts the node axis into slices and calls this
+once a slice): node_offset and m_total name the slice's first global node
+and the global node count, and keys_out [N] int64 receives each row's exact
+key (`exact_key`): the order-preserving bits of its best score high, the
+best node's global reverse index m_total-1-(node_offset+j) low, top bit
+flipped so that a signed max orders it; KEY_NONE for a row with no feasible
+node or not requested. `merge_keys` takes the max over the slices' keys:
+the best node of the whole call, bit for bit, in any shard order (-0.0 and
++0.0 tie, ties go to the lowest node). best stays the slice's local index.
+Exact mode only.
 """
 from __future__ import annotations
 
@@ -63,6 +74,43 @@ def index_span(m: int) -> int:
     of two strictly greater than m, at least 2^10 (the Pallas kernel's
     `_index_span`)."""
     return 1 << max(10, m.bit_length())
+
+
+# keys_out's value for a row with no feasible node (or not requested)
+KEY_NONE = -(1 << 63)
+
+
+def exact_key(score, node, m_total: int):
+    """[C] int64: the exact mode's key of (score [C] float32, global node
+    [C]) with its top bit flipped, so that the signed order of the keys is
+    the kernel's unsigned order: high word the order-preserving bits of
+    score + 0.0 (-0.0 becomes +0.0), low word m_total - 1 - node."""
+    bits = (score + 0.0).view(torch.int32).long() & 0xFFFFFFFF
+    ordered = torch.where(bits >= 2**31, ~bits & 0xFFFFFFFF,
+                          bits | 0x80000000)
+    return (ordered - 2**31) * 2**32 + (m_total - 1 - node.long())
+
+
+def merge_keys(keys, m_total: int):
+    """The node shards' keys_out [N] int64 (one per shard, on one device)
+    merged into the whole call's (best [N] int32 global node, feasible [N]
+    bool), best 0 where no shard has a feasible node."""
+    key = torch.stack(list(keys)).amax(dim=0)
+    feasible = key > KEY_NONE
+    best = torch.where(feasible, m_total - 1 - (key & 0xFFFFFFFF), 0)
+    return best.to(torch.int32), feasible
+
+
+def _check_shard(mode, node_offset, m_total, M, keys_out):
+    """m_total (default M) after checking the node-shard arguments."""
+    m_total = M if m_total is None else int(m_total)
+    if node_offset < 0 or m_total < node_offset + M:
+        raise ValueError(f"a node shard at offset {node_offset} of {M} "
+                         f"nodes does not fit m_total {m_total}")
+    if mode != "exact" and (node_offset or m_total != M
+                            or keys_out is not None):
+        raise ValueError("node shards and keys_out run in the exact mode")
+    return m_total
 
 
 def pref_bonus(node_dom, pref):
@@ -113,30 +161,41 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
                          node_dom: Optional[torch.Tensor] = None,
                          pref: Optional[torch.Tensor] = None,
                          pod_emb: Optional[torch.Tensor] = None,
-                         node_emb: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of both modes, the bonus and the learned term,
-    chunked over pods so no [N, M] tensor is built. Returns (best [N]
-    int32, feasible [N] bool)."""
+                         node_emb: Optional[torch.Tensor] = None,
+                         node_offset: int = 0,
+                         m_total: Optional[int] = None,
+                         keys_out: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of both modes, the bonus, the learned term and
+    the node shard, chunked over pods so no [N, M] tensor is built. Returns
+    (best [N] int32, feasible [N] bool) and fills keys_out when given."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     bonus = _check_bonus(mode, node_dom, pref)
     learned = _check_learned(mode, has_soft, pod_emb, node_emb)
+    m_total = _check_shard(mode, node_offset, m_total, free.shape[0],
+                           keys_out)
     if rows is not None:
         # the requested rows at their places, 0 / False elsewhere
         best = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
         feasible = torch.zeros(rows.shape, dtype=torch.bool,
                                device=rows.device)
+        sub_keys = (None if keys_out is None else torch.empty(
+            (int(rows.sum()),), dtype=torch.int64, device=rows.device))
         best[rows], feasible[rows] = best_nodes_reference(
             req[rows], group_id[rows], group_feas, group_soft, free,
             base_scores, mode=mode, has_soft=has_soft, chunk=chunk,
             node_dom=node_dom, pref=pref[rows] if bonus else None,
-            pod_emb=pod_emb[rows] if learned else None, node_emb=node_emb)
+            pod_emb=pod_emb[rows] if learned else None, node_emb=node_emb,
+            node_offset=node_offset, m_total=m_total, keys_out=sub_keys)
+        if keys_out is not None:
+            keys_out.fill_(KEY_NONE)
+            keys_out[rows] = sub_keys
         return best, feasible
     N, R = req.shape
     M = free.shape[0]
     span = index_span(M)
     col = torch.arange(M, device=req.device, dtype=torch.int64)
-    best_parts, feas_parts = [], []
+    best_parts, feas_parts, key_parts = [], [], []
     for start in range(0, N, chunk):
         creq = req[start:start + chunk]
         cgid = group_id[start:start + chunk].long()
@@ -156,6 +215,11 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
             masked = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
             best = torch.argmax(masked, dim=1)
             feasible = ok.any(dim=1)
+            if keys_out is not None:
+                top = masked.gather(1, best[:, None])[:, 0]
+                key_parts.append(torch.where(
+                    feasible, exact_key(top, best + node_offset, m_total),
+                    KEY_NONE))
         else:
             q = torch.round(scores * SCORE_SCALE).to(torch.int32).long()
             packed = q * span + (M - col)[None, :]
@@ -173,6 +237,8 @@ def best_nodes_reference(req, group_id, group_feas, group_soft, free,
     if not best_parts:
         return (torch.zeros((0,), dtype=torch.int32, device=req.device),
                 torch.zeros((0,), dtype=torch.bool, device=req.device))
+    if keys_out is not None:
+        keys_out.copy_(torch.cat(key_parts))
     return torch.cat(best_parts), torch.cat(feas_parts)
 
 
@@ -196,7 +262,7 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.yk_best_nodes.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
                                       i, i, i, i, i, i, p, p, p, p, p, p, p,
-                                      p, p]
+                                      p, i, i, p, p]
         lib.yk_best_nodes.restype = i
         lib.yk_best_nodes_max_res.restype = i
         lib.yk_best_nodes_slice_nodes.restype = i
@@ -240,7 +306,9 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
                node_dom: Optional[torch.Tensor] = None,
                pref: Optional[torch.Tensor] = None,
                pod_emb: Optional[torch.Tensor] = None,
-               node_emb: Optional[torch.Tensor] = None):
+               node_emb: Optional[torch.Tensor] = None,
+               node_offset: int = 0, m_total: Optional[int] = None,
+               keys_out: Optional[torch.Tensor] = None):
     """Best node per pod. Shapes: req [N, R] int32, group_id [N] int32,
     group_feas [G, M] bool, group_soft [G, M] float32 (ignored when
     has_soft=False), free [M, R] int32, base_scores [M] float32; rows
@@ -249,6 +317,10 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     (optional, both or neither, exact mode): the planned-domain bonus;
     pod_emb [N, E] and node_emb [M, E] float32 (optional, both or neither,
     exact mode with the soft matrix, E at most 32): the learned term.
+    node_offset / m_total (exact mode): this call is the node shard
+    [node_offset, node_offset + M) of m_total nodes; keys_out [N] int64
+    (optional, exact mode) receives each row's key (see the module
+    docstring).
 
     Returns (best [N] int32, feasible [N] bool), best = 0 where no node is
     feasible or the row was not requested. CPU tensors take the plain
@@ -259,12 +331,16 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     bonus = _check_bonus(mode, node_dom, pref)
     learned = _check_learned(mode, has_soft, pod_emb, node_emb)
     device = req.device
+    m_total = _check_shard(mode, node_offset, m_total, free.shape[0],
+                           keys_out)
     if device.type == "cpu":
         return best_nodes_reference(req, group_id, group_feas, group_soft,
                                     free, base_scores, mode=mode,
                                     has_soft=has_soft, chunk=chunk,
                                     rows=rows, node_dom=node_dom, pref=pref,
-                                    pod_emb=pod_emb, node_emb=node_emb)
+                                    pod_emb=pod_emb, node_emb=node_emb,
+                                    node_offset=node_offset, m_total=m_total,
+                                    keys_out=keys_out)
     if device.type != "cuda":
         raise ValueError(f"best_nodes runs on cuda or cpu tensors, not "
                          f"{device.type}")
@@ -282,6 +358,8 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
     if bonus:
         _check("node_dom", node_dom, torch.int32, (M,), device)
         _check("pref", pref, torch.int32, (N,), device)
+    if keys_out is not None:
+        _check("keys_out", keys_out, torch.int64, (N,), device)
     emb = 0
     if learned:
         E = pod_emb.shape[1] if pod_emb.dim() == 2 else -1
@@ -313,16 +391,20 @@ def best_nodes(req, group_id, group_feas, group_soft, free, base_scores, *,
                            dtype=torch.int32, device=device)
     row_count = torch.empty((1,), dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.yk_best_nodes(
-        req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
-        group_soft.data_ptr() if has_soft else None, free.data_ptr(),
-        base_scores.data_ptr(), ptr(rows), ptr(node_dom), ptr(pref),
-        ptr(pod_emb), ptr(node_emb), emb,
-        N, M, G, R, int(has_soft), int(mode == "quantized"),
-        index_span(M), keys.data_ptr(), ptr(bonus_keys), words.data_ptr(),
-        row_best.data_ptr(), row_list.data_ptr(), row_count.data_ptr(),
-        best.data_ptr(), feasible.data_ptr(),
-        torchtools.current_stream_handle(device))
+    # the launch goes to the calling thread's current card: make it the
+    # tensors' (a node shard may live on another card than the caller's)
+    with torch.cuda.device(device):
+        rc = lib.yk_best_nodes(
+            req.data_ptr(), group_id.data_ptr(), group_feas.data_ptr(),
+            group_soft.data_ptr() if has_soft else None, free.data_ptr(),
+            base_scores.data_ptr(), ptr(rows), ptr(node_dom), ptr(pref),
+            ptr(pod_emb), ptr(node_emb), emb,
+            N, M, G, R, int(has_soft), int(mode == "quantized"),
+            index_span(M), keys.data_ptr(), ptr(bonus_keys),
+            words.data_ptr(), row_best.data_ptr(), row_list.data_ptr(),
+            row_count.data_ptr(), best.data_ptr(), feasible.data_ptr(),
+            int(node_offset), m_total, ptr(keys_out),
+            torchtools.current_stream_handle(device))
     if rc != 0:
         raise RuntimeError("best_nodes kernel launch failed: "
                            + lib.yk_cuda_error_string(rc).decode())

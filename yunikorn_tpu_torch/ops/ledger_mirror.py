@@ -46,8 +46,14 @@ per-shard rows exist so drains scatter into disjoint rows.
 The JAX package's ops/ledger_mirror.py, ported. The tensor lives on the
 front's device (`device`, default `cuda`, raising without a card); the
 scatter and the fold run under the mirror's lock, and the host view is read
-back once per drain and published only after the read-back. A mesh fold
-(`mesh=`) is multi-GPU sharding, ROADMAP item 14, and raises.
+back once per drain and published only after the read-back.
+
+With a node mesh (`mesh=`, parallel/mesh.NodeMesh) whose size divides the
+shard count, the [S, T, K] tensor is cut along S into one piece per mesh
+device, a drain scatters into the piece holding its row, and the fold is
+parallel/mesh.usage_fold_sharded: each piece summed on its device, then one
+sum of the partial totals (integer sums: the same totals in any order).
+`sharded_fold` in stats() says whether the mirror folds that way.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ import numpy as np
 import torch
 
 from yunikorn_tpu_torch.ops.gate_solve import usage_apply, usage_fold
+from yunikorn_tpu_torch.parallel.mesh import Shards, usage_fold_sharded
 from yunikorn_tpu_torch.snapshot.vocab import _next_pow2
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
@@ -69,13 +76,12 @@ class DeviceUsageMirror:
 
     def __init__(self, n_shards: int, device=None, divergence_gauge=None,
                  mesh=None):
-        if mesh is not None:
-            from yunikorn_tpu_torch.ops.assign import not_ported
-
-            not_ported("a mesh-sharded usage fold (mesh=)", 14,
-                       "multi-GPU node-dim sharding")
         self.n = int(n_shards)
-        self.device = resolve_device(device)
+        self.device = (mesh.lead if mesh is not None and device is None
+                       else resolve_device(device))
+        # the mesh the tensor is cut over (None: one tensor on self.device)
+        self._mesh = (mesh if mesh is not None and self.n % mesh.size == 0
+                      else None)
         self._gauge = divergence_gauge
         # serializes device updates (drains from different shard cycle
         # threads); NEVER on the precheck read path — provably_exceeds
@@ -88,7 +94,9 @@ class DeviceUsageMirror:
         self._k_names: List[str] = []
         self._t_cap = 8
         self._k_cap = 4
-        self._dev: Optional[torch.Tensor] = None   # [S, T_cap, K_cap] int64
+        # [S, T_cap, K_cap] int64; Shards of [S / mesh size, ...] pieces
+        # under a mesh
+        self._dev = None
         # published fleet view: fleet [T_cap, K_cap] np.int64, swapped
         # atomically — readers never see a half-update
         self._fleet: Optional[np.ndarray] = None
@@ -106,10 +114,17 @@ class DeviceUsageMirror:
     def bind_ledger(self, ledger) -> None:
         self._ledger = ledger
 
-    def _ensure_dev_locked(self) -> torch.Tensor:
+    def _zeros_locked(self, t_cap: int, k_cap: int):
+        if self._mesh is None:
+            return torch.zeros((self.n, t_cap, k_cap), dtype=torch.int64,
+                               device=self.device)
+        rows = self.n // self._mesh.size
+        return Shards([torch.zeros((rows, t_cap, k_cap), dtype=torch.int64,
+                                   device=d) for d in self._mesh.devices])
+
+    def _ensure_dev_locked(self):
         if self._dev is None:
-            self._dev = torch.zeros((self.n, self._t_cap, self._k_cap),
-                                    dtype=torch.int64, device=self.device)
+            self._dev = self._zeros_locked(self._t_cap, self._k_cap)
         return self._dev
 
     def _grow_locked(self, t_need: int, k_need: int) -> None:
@@ -119,10 +134,11 @@ class DeviceUsageMirror:
         new_k = _next_pow2(max(k_need, self._k_cap), 4)
         if new_t == self._t_cap and new_k == self._k_cap:
             return
-        grown = torch.zeros((self.n, new_t, new_k), dtype=torch.int64,
-                            device=self.device)
+        grown = self._zeros_locked(new_t, new_k)
         if self._dev is not None:
-            grown[:, :self._t_cap, :self._k_cap] = self._dev
+            for g, old in zip(grown if self._mesh else (grown,),
+                              self._dev if self._mesh else (self._dev,)):
+                g[:, :self._t_cap, :self._k_cap] = old
         self._t_cap, self._k_cap = new_t, new_k
         self._dev = grown
 
@@ -195,12 +211,18 @@ class DeviceUsageMirror:
             if b:
                 t_idx[:b], k_idx[:b], vals[:b] = np.asarray(rows,
                                                             np.int64).T
-            usage_apply(dev, shard % self.n,
-                        torch.from_numpy(t_idx).to(self.device),
-                        torch.from_numpy(k_idx).to(self.device),
-                        torch.from_numpy(vals).to(self.device))
+            row = shard % self.n
+            if self._mesh is not None:
+                # the piece holding the row, on its device
+                piece, row = divmod(row, self.n // self._mesh.size)
+                dev = dev[piece]
+            usage_apply(dev, row, torch.from_numpy(t_idx).to(dev.device),
+                        torch.from_numpy(k_idx).to(dev.device),
+                        torch.from_numpy(vals).to(dev.device))
             # the one read-back of the drain; published after it lands
-            self._fleet = usage_fold(dev).cpu().numpy()
+            fleet = (usage_fold(self._dev) if self._mesh is None
+                     else usage_fold_sharded(self._dev, self._mesh))
+            self._fleet = fleet.cpu().numpy()
             self.drains += 1
             self.applied_deltas += b
             self.folds += 1
@@ -281,5 +303,5 @@ class DeviceUsageMirror:
                 "folds": self.folds,
                 "epochs": list(self._epochs),
                 "fenced_refreshes": self.fenced_refreshes,
-                "sharded_fold": False,
+                "sharded_fold": self._mesh is not None,
             }

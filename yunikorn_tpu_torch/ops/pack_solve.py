@@ -40,7 +40,15 @@ Gumbel noise agrees to about 1e-6.
 
 Scope, gated by the core before the dispatch: batches with locality or
 host-port requests keep the greedy plan (PackUnsupported names the
-reason). The mesh-sharded solve is ROADMAP item 14.
+reason).
+
+Under a node mesh (parallel/mesh.pack_solve_sharded) the "topo"
+partitioner orders nodes by (shard, ICI domain, row) and `pick_parts`
+floors K at the shard count, so every part lies inside one shard: each
+shard relaxes and rounds its own K / n_shards parts on its device, and the
+repair runs the sharded round loop. The single-device solve with the same
+n_shards runs its parts in the same n_shards groups, so the two are bit for
+bit equal.
 """
 from __future__ import annotations
 
@@ -56,11 +64,13 @@ from yunikorn_tpu_torch.ops.assign import (
     SOLVE_ARG_NAMES,
     _prepare,
     _segment_prefix_accept,
+    _solve_mesh,
     _solve_rounds,
     _stable_lexsort,
     prepare_solve_args,
     solve_args_from_numpy,
 )
+from yunikorn_tpu_torch.parallel.mesh import Shards
 from yunikorn_tpu_torch.utils import prng
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
@@ -90,10 +100,12 @@ class PackUnsupported(Exception):
     greedy plan for the cycle."""
 
 
-def pick_parts(n_pods: int, n_nodes: int) -> int:
+def pick_parts(n_pods: int, n_nodes: int, n_shards: int = 1) -> int:
     """The partition count for a (pods, nodes) shape: the smallest power of
     two whose parts fit the cell budget, within the floors. Deterministic
-    in the shape alone."""
+    in the shape alone. n_shards (the mesh-aligned topology mode): the part
+    count is floored at the shard count, so each shard holds a whole number
+    of parts and part boundaries land on shard boundaries."""
     k = 1
     while (k < MAX_PARTS
            and n_pods % (2 * k) == 0 and n_nodes % (2 * k) == 0
@@ -101,17 +113,23 @@ def pick_parts(n_pods: int, n_nodes: int) -> int:
            and n_nodes // (2 * k) >= _MIN_PART_NODES
            and (n_pods // k) * (n_nodes // k) > _CELL_BUDGET):
         k *= 2
+    while (k < n_shards
+           and n_pods % (2 * k) == 0 and n_nodes % (2 * k) == 0):
+        k *= 2
     return k
 
 
-def shape_supported(n_pods: int, n_nodes: int) -> bool:
+def shape_supported(n_pods: int, n_nodes: int, n_shards: int = 1) -> bool:
     """Whether a (padded pods, node capacity) shape is packable: non-empty
-    and partitionable within four times the cell budget. The core gates on
-    this before the supervised dispatch, so a scope skip never rides the
-    retry and breaker machinery."""
+    and partitionable within four times the cell budget (and, for the
+    mesh-aligned mode, into at least one whole part per shard). The core
+    gates on this before the supervised dispatch, so a scope skip never
+    rides the retry and breaker machinery."""
     if n_pods < 1 or n_nodes < 1:
         return False
-    k = pick_parts(n_pods, n_nodes)
+    k = pick_parts(n_pods, n_nodes, n_shards)
+    if k < n_shards or k % max(n_shards, 1) != 0:
+        return False
     return (n_pods // k) * (n_nodes // k) <= 4 * _CELL_BUDGET
 
 
@@ -234,6 +252,7 @@ def pack_solve(
     *,
     n_parts: int,
     partitioner: str = "random",
+    n_shards: int = 1,
     lp_iters: int = LP_ITERS,
     round_rounds: int = ROUND_ROUNDS,
     repair_rounds: int = REPAIR_ROUNDS,
@@ -241,90 +260,127 @@ def pack_solve(
     policy: str = "binpacking",
     score_cols: int = 0,
     device=None,
+    mesh=None,
 ):
     """One global pack solve. Positional arguments are `assign.solve`'s
     (SOLVE_ARG_NAMES, numpy arrays or tensors) then the seed; they move to
     `device` (default `cuda`). Returns (assigned [N] int32, free_after
     [M, R] int32, feasible 0-dim bool), tensors on `device`.
 
-    partitioner="topo" orders nodes by ICI domain (node_dom of the topo
-    tuple; unlabeled nodes last) and cuts that order into the K parts, so
-    part boundaries land on domain boundaries where the layout allows; the
-    asks keep the seeded random permutation. An unlabeled fleet degrades
-    to the row order."""
+    partitioner="topo" orders nodes by (shard, ICI domain, row) — node_dom
+    of the topo tuple, unlabeled nodes last in their shard, n_shards equal
+    shards of the rows — and cuts that order into the K parts, so part
+    boundaries land on shard and domain boundaries where the layout allows;
+    the asks keep the seeded random permutation. An unlabeled fleet
+    degrades to the row order. With n_shards > 1 the topo parts run in
+    n_shards groups of K / n_shards, one a shard; mesh (a NodeMesh of
+    n_shards devices, its lead replacing `device`) runs each group on its
+    shard's device, bit-identical to the single-device groups."""
     if loc is not None:
         raise PackUnsupported("locality batches take the greedy path")
-    device = resolve_device(device)
+    nm = _solve_mesh(device, mesh)
+    device = nm.lead
+    if nm.size > 1 and (partitioner != "topo" or n_shards != nm.size):
+        raise ValueError("a sharded pack solve takes the topo partitioner "
+                         "with one shard a mesh device")
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft,
      _loc, _lh, _lp, cnt0, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
          g_anyof, g_anyof_valid, g_tol, g_ports, g_pref_req, g_pref_forb,
          g_pref_weight, node_labels, node_taints, node_taints_soft,
          node_ports, node_ok, free, capacity, host_group_mask,
-         host_group_soft), None, device, topo)
+         host_group_soft), None, device, topo, nm)
+    free_p, cap_p = nm.split(free), nm.split(capacity)
+    feas_p, soft_p = nm.split(group_feas, 1), nm.split(group_soft, 1)
     N, R = req.shape
-    M = free.shape[0]
+    M = free_p.shape[0]
     K = n_parts
     n, m = N // K, M // K
     sc = score_cols if score_cols > 0 else R
+    groups = n_shards if partitioner == "topo" and n_shards > 1 else 1
+    if K % groups:
+        raise ValueError(f"{K} parts do not split over {groups} shards")
+    free_full, cap_full = nm.gather(free_p), nm.gather(cap_p)
 
     # column normalization: prices and loads compare per-resource
     # magnitudes (millicores vs MiB) normalized by the mean node capacity
-    inv_scale = 1.0 / capacity.float().mean(dim=0).clamp(min=1.0)   # [R]
+    inv_scale = 1.0 / cap_full.float().mean(dim=0).clamp(min=1.0)  # [R]
 
     kp, kn, kr = prng.split(prng.prng_key(seed, device), 3)
     pods_part = prng.permutation(kp, N).view(K, n)
     if partitioner == "topo":
-        node_dom = (topo_rt[0] if topo_rt is not None
-                    else torch.full((M,), -1, dtype=torch.int32,
-                                    device=device))
-        # unlabeled nodes sort after every labeled domain
+        node_dom = (torch.full((M,), -1, dtype=torch.int32, device=device)
+                    if topo_rt is None else nm.gather(topo_rt[0]))
+        # unlabeled nodes sort after every labeled domain of their shard
         dom_key = torch.where(node_dom >= 0, node_dom, 2**30)
-        nodes_part = torch.argsort(dom_key, stable=True).view(K, m)
+        shard_id = torch.arange(M, device=device) // (M // max(n_shards, 1))
+        nodes_part = _stable_lexsort(dom_key, shard_id).view(K, m)
     else:
         nodes_part = prng.permutation(kn, M).view(K, m)
     part_keys = prng.split(kr, K)
 
-    preq = req[pods_part]                                       # [K, n, R]
-    pgid = group_id[pods_part].long()
-    prank = rank[pods_part]
-    pvalid = valid[pods_part]
-    # raw free through the fit and accept arithmetic (an in-flight overlay
-    # may drive a column negative, and greedy's fit refuses such nodes);
-    # only the LP's prices see clamped capacity
-    nfree = free[nodes_part]                                    # [K, m, R]
-    ncap = capacity[nodes_part]
-    rows = pgid[:, :, None].expand(K, n, m)
-    feas = torch.gather(group_feas[:, nodes_part].transpose(0, 1), 1, rows)
-    soft = torch.gather(group_soft[:, nodes_part].transpose(0, 1), 1, rows)
-    base = node_base_scores(nfree.reshape(K * m, R)[:, :sc],
-                            ncap.reshape(K * m, R)[:, :sc],
-                            policy).view(K, m)
-    preq_f = preq.float() * inv_scale
-    free_f = nfree.clamp(min=0).float() * inv_scale
-    scores = _relax_part(preq_f, feas, pvalid, base, soft, free_f, lp_iters)
-    local, free_left = _round_part(preq, prank, pvalid, feas, scores, nfree,
-                                   ncap, _row_sum(preq_f), part_keys,
-                                   round_rounds, policy, sc)
-    node_global = torch.where(
-        local >= 0, torch.gather(nodes_part, 1, local.long().clamp(0, m - 1)),
-        -1).to(torch.int32)
-    # un-permute by gathers: the argsort of a permutation is its inverse
+    # the parts in `groups` groups of kg, group g's nodes a contiguous range
+    # of rows inside shard s of the mesh (the mesh of one holds them all)
+    node_global, free_rows = [], []
+    kg = K // groups
+    bounds = nm.bounds(M)
+    for g in range(groups):
+        s = g * nm.size // groups
+        put = lambda x, s=s: nm.put(x, s)  # noqa: E731
+        ks = slice(g * kg, (g + 1) * kg)
+        pp = put(pods_part[ks])
+        part_nodes = put(nodes_part[ks])
+        nl = part_nodes - bounds[s][0]                          # [kg, m]
+        preq = put(req)[pp]                                     # [kg, n, R]
+        pgid = put(group_id)[pp].long()
+        prank = put(rank)[pp]
+        pvalid = put(valid)[pp]
+        # raw free through the fit and accept arithmetic (an in-flight
+        # overlay may drive a column negative, and greedy's fit refuses such
+        # nodes); only the LP's prices see clamped capacity
+        nfree = free_p[s][nl]                                   # [kg, m, R]
+        ncap = cap_p[s][nl]
+        rows = pgid[:, :, None].expand(kg, n, m)
+        feas = torch.gather(feas_p[s][:, nl].transpose(0, 1), 1, rows)
+        soft = torch.gather(soft_p[s][:, nl].transpose(0, 1), 1, rows)
+        base = node_base_scores(nfree.reshape(kg * m, R)[:, :sc],
+                                ncap.reshape(kg * m, R)[:, :sc],
+                                policy).view(kg, m)
+        preq_f = preq.float() * put(inv_scale)
+        free_f = nfree.clamp(min=0).float() * put(inv_scale)
+        scores = _relax_part(preq_f, feas, pvalid, base, soft, free_f,
+                             lp_iters)
+        local, left = _round_part(preq, prank, pvalid, feas, scores, nfree,
+                                  ncap, _row_sum(preq_f), put(part_keys[ks]),
+                                  round_rounds, policy, sc)
+        node_global.append(torch.where(
+            local >= 0,
+            torch.gather(part_nodes, 1, local.long().clamp(0, m - 1)),
+            -1).to(torch.int32))
+        # un-permute by a gather: the argsort of a permutation is its
+        # inverse; the group's residual free in row order
+        free_rows.append(left.reshape(-1, R)[
+            torch.argsort(part_nodes.reshape(-1))])
+    node_global = torch.cat(nm.to_lead(node_global))
+    per = groups // nm.size
+    free_after = Shards([torch.cat(free_rows[i * per:(i + 1) * per])
+                         for i in range(nm.size)])
     assigned = node_global.reshape(N)[torch.argsort(pods_part.reshape(N))]
-    free_after = free_left.reshape(M, R)[torch.argsort(nodes_part.reshape(M))]
 
     # repair: asks the partition stranded run the greedy round loop over
     # the full node set with the parts' residual capacity
     leftover = valid & (assigned < 0)
     rep_assigned, _, free_after, _, _ = _solve_rounds(
-        req, group_id, rank, leftover, group_feas, group_soft, free_after,
-        cnt0, capacity, None, None, max_rounds=repair_rounds,
+        req, group_id, rank, leftover, feas_p, soft_p, free_after,
+        cnt0, cap_p, None, None, max_rounds=repair_rounds,
         chunk=min(chunk, N), policy=policy, use_pallas=False,
-        has_loc_soft=False, pallas_soft=False, score_cols=score_cols)
+        has_loc_soft=False, pallas_soft=False, score_cols=score_cols,
+        mesh=nm)
+    free_after = nm.gather(free_after)
     assigned = torch.where(assigned >= 0, assigned, rep_assigned)
     # structural feasibility: placements only subtract what fits, so every
     # cell stays at or above min(initial free, 0)
-    feasible = (free_after >= free.clamp(max=0)).all()
+    feasible = (free_after >= free_full.clamp(max=0)).all()
     return assigned, free_after, feasible
 
 

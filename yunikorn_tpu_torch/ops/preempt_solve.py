@@ -50,6 +50,8 @@ capacity floor — both conservative); priority sums clamp each victim to
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -61,6 +63,7 @@ from yunikorn_tpu_torch.ops.preempt import (
     MAX_PREEMPTING_ASKS_PER_CYCLE,
     PRIO_SUM_CLAMP,
 )
+from yunikorn_tpu_torch.parallel.mesh import NodeMesh
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
 # node_order sentinel: rows at/above this are not candidates (padded rows,
@@ -86,57 +89,86 @@ def preempt_solve(
     *,
     max_candidates: int = MAX_CANDIDATE_NODES,
     device=None,
+    mesh=None,
 ):
     """Returns (node_idx [A] int32 — chosen node row or -1, victim_mask
     [A, V] bool — chosen slots of that node's victim table), tensors on
-    `device` (default `cuda`). Nothing is read back to the host."""
-    device = resolve_device(device)
+    `device` (default `cuda`). Nothing is read back to the host.
+
+    mesh (a parallel/mesh.NodeMesh): the node-side tensors (Shards, or full
+    ones to cut) stay on their shards, each ask's eligibility, prefix scan
+    and fit run per shard, and the candidate budget and the lexicographic
+    argmin read the per-node results gathered onto the lead device (its
+    `device`): the plans are the single-device ones, victim for victim."""
+    device = resolve_device(device) if mesh is None else mesh.lead
+    nm = mesh if mesh is not None else NodeMesh((device,))
     valid_rows = np.flatnonzero(np.asarray(a_valid)).tolist()
     (a_req, a_gid, a_prio, g_term_req, g_term_forb, g_term_valid, g_anyof,
-     g_anyof_valid, g_tol, node_labels, node_taints, node_ok, node_order,
-     free, victim_req, victim_prio, victim_valid) = [
+     g_anyof_valid, g_tol, node_order) = [
         _tensor(x, device) for x in (
             a_req, a_gid, a_prio, g_term_req, g_term_forb, g_term_valid,
-            g_anyof, g_anyof_valid, g_tol, node_labels, node_taints, node_ok,
-            node_order, free, victim_req, victim_prio, victim_valid)]
+            g_anyof, g_anyof_valid, g_tol, node_order)]
+    (labels_p, taints_p, ok_p, order_p, free_p, vreq_p, vprio_p,
+     vvalid_p) = [nm.split(x) for x in (
+         node_labels, node_taints, node_ok, node_order, free, victim_req,
+         victim_prio, victim_valid)]
     A = a_req.shape[0]
-    M, V, R = victim_req.shape
+    M, V, R = vreq_p.shape
     out_node = torch.full((A,), -1, dtype=torch.int32, device=device)
     out_mask = torch.zeros((A, V), dtype=torch.bool, device=device)
     if not valid_rows or M == 0:
         return out_node, out_mask
-    slot_idx = torch.arange(V, device=device)
-    row_idx = torch.arange(M, device=device)
+    bounds = nm.bounds(M)
+    slot_idx = [torch.arange(V, device=d) for d in nm.devices]
+    row_idx = [torch.arange(lo, hi, device=d)
+               for d, (lo, hi) in zip(nm.devices, bounds)]
 
-    # hoisted across asks: each ask's screen row, the node-order ranking,
-    # the clamped free rows and priorities, the victim rows resource-major
-    screen = group_screen(g_term_req, g_term_forb, g_term_valid, g_anyof,
-                          g_anyof_valid, g_tol, node_labels, node_taints,
-                          node_ok)                                   # [G, M]
-    screen_rows = screen[a_gid.long()]                               # [A, M]
+    # hoisted across asks, per shard: each ask's screen row, the clamped
+    # free rows and priorities, the victim rows resource-major
+    screen_rows, free_c, prio_clamped, vreq_t, listed, claimed = (
+        [], [], [], [], [], [])
+    for i in range(nm.size):
+        screen = group_screen(*(nm.put(x, i) for x in (
+            g_term_req, g_term_forb, g_term_valid, g_anyof, g_anyof_valid,
+            g_tol)), labels_p[i], taints_p[i], ok_p[i])            # [G, m]
+        screen_rows.append(screen[nm.put(a_gid, i).long()])         # [A, m]
+        free_c.append(free_p[i].clamp(max=CAP).long())              # [m, R]
+        prio_clamped.append(vprio_p[i].clamp(-PRIO_SUM_CLAMP,
+                                             PRIO_SUM_CLAMP).long())
+        vreq_t.append(vreq_p[i].clamp(max=CAP).long().permute(0, 2, 1)
+                      .contiguous())
+        listed.append(order_p[i] < _BIG)
+        claimed.append(torch.zeros(vvalid_p[i].shape, dtype=torch.bool,
+                                   device=nm.devices[i]))
+    # the node-order ranking, over the whole fleet
     order_perm = torch.argsort(node_order, stable=True)              # [M]
-    free_c = free.clamp(max=CAP).long()                              # [M, R]
-    prio_clamped = victim_prio.clamp(-PRIO_SUM_CLAMP,
-                                     PRIO_SUM_CLAMP).long()
-    vreq_t = victim_req.clamp(max=CAP).long().permute(0, 2, 1).contiguous()
-    listed = node_order < _BIG
-    claimed = torch.zeros((M, V), dtype=torch.bool, device=device)
-    for i in valid_rows:
-        elig = victim_valid & (victim_prio < a_prio[i]) & ~claimed   # [M, V]
-        vreq = torch.where(elig[:, None, :], vreq_t, 0)              # [M, R, V]
-        cum = _cumsum_rows(vreq).clamp(max=CAP)                      # inclusive
-        fits = ((free_c[:, :, None] + cum >= a_req[i][None, :, None])
-                .all(dim=1) & elig)                                  # [M, V]
-        # ordered-subset contract: the first eligible slot whose cumulative
-        # removal fits (ineligible slots free nothing and are never tested)
-        first = torch.where(fits, slot_idx, V).amin(dim=1)           # [M]
-        success = first < V
-        prefix = elig & (slot_idx[None, :] <= first[:, None])        # [M, V]
-        nvic = prefix.sum(dim=1)                                     # [M]
-        psum = torch.where(prefix, prio_clamped, 0).sum(dim=1)       # [M]
+    for a in valid_rows:
+        parts = {"success": [], "nvic": [], "psum": [], "searchable": []}
+        prefixes = []
+        for i in range(nm.size):
+            req_a, prio_a = nm.put(a_req[a], i), nm.put(a_prio[a], i)
+            elig = vvalid_p[i] & (vprio_p[i] < prio_a) & ~claimed[i]  # [m, V]
+            vreq = torch.where(elig[:, None, :], vreq_t[i], 0)       # [m, R, V]
+            cum = _cumsum_rows(vreq).clamp(max=CAP)                  # inclusive
+            fits = ((free_c[i][:, :, None] + cum >= req_a[None, :, None])
+                    .all(dim=1) & elig)                              # [m, V]
+            # ordered-subset contract: the first eligible slot whose
+            # cumulative removal fits (ineligible slots free nothing and are
+            # never tested)
+            first = torch.where(fits, slot_idx[i], V).amin(dim=1)    # [m]
+            prefix = elig & (slot_idx[i][None, :] <= first[:, None])  # [m, V]
+            prefixes.append(prefix)
+            parts["success"].append(first < V)
+            parts["nvic"].append(prefix.sum(dim=1))                  # [m]
+            parts["psum"].append(torch.where(prefix, prio_clamped[i], 0)
+                                 .sum(dim=1))                        # [m]
+            parts["searchable"].append(screen_rows[i][a] & elig.any(dim=1)
+                                       & listed[i])
+        success, nvic, psum, searchable = (
+            nm.gather(parts[k], 0)
+            for k in ("success", "nvic", "psum", "searchable"))
         # the candidate screen and the host planner's search budget: only
         # the first max_candidates searchable nodes in node order count
-        searchable = screen_rows[i] & elig.any(dim=1) & listed
         rank_sorted = torch.cumsum(searchable[order_perm].long(), dim=0) - 1
         rank = torch.empty_like(rank_sorted)
         rank[order_perm] = rank_sorted
@@ -150,10 +182,20 @@ def preempt_solve(
         order_k = torch.where(tie2, node_order.long(), _BIG)
         best = torch.argmin(order_k).view(1)
         found = cand.any()
-        chosen = prefix.index_select(0, best)[0] & found             # [V]
-        out_node[i] = torch.where(found, best[0], -1)
-        out_mask[i] = chosen
-        claimed = claimed | (chosen[None, :] & (row_idx == best)[:, None])
+        # the chosen node's prefix [V], from the shard that owns it
+        rows = []
+        for i, (lo, hi) in enumerate(bounds):
+            b_i = nm.put(best, i)
+            own = (b_i >= lo) & (b_i < hi)
+            rows.append(prefixes[i].index_select(
+                0, (b_i - lo).clamp(0, hi - lo - 1))[0] & own)
+        chosen = functools.reduce(torch.logical_or, nm.to_lead(rows)) & found
+        out_node[a] = torch.where(found, best[0], -1)
+        out_mask[a] = chosen
+        for i in range(nm.size):
+            claimed[i] = claimed[i] | (nm.put(chosen, i)[None, :]
+                                       & (row_idx[i] == nm.put(best, i))
+                                       [:, None])
     return out_node, out_mask
 
 

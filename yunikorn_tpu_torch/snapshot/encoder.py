@@ -47,6 +47,7 @@ from yunikorn_tpu_torch.common.objects import Affinity, Node, Pod, Toleration
 from yunikorn_tpu_torch.common.resource import Resource
 from yunikorn_tpu_torch.common.si import AllocationAsk
 from yunikorn_tpu_torch.log.logger import log
+from yunikorn_tpu_torch.parallel.mesh import NodeMesh, Shards
 from yunikorn_tpu_torch.snapshot.vocab import (
     BitVocab,
     Vocabs,
@@ -316,6 +317,9 @@ class NodeArrays:
         self.victim_uids: Dict[int, tuple] = getattr(self, "victim_uids", {})
         self.victim_version = getattr(self, "victim_version", 0)
         self._victim_dirty: bool = True
+        # the rows whose victim tables were written since the last take
+        # (a mesh's victim mirror re-uploads only the shards holding them)
+        self._victim_rows: set = set()
         # live nodes carrying PreferNoSchedule taints (gates the fused Pallas
         # kernel without scanning the padded arrays per solve)
         self._soft_taint_rows: set = getattr(self, "_soft_taint_rows", set())
@@ -325,6 +329,9 @@ class NodeArrays:
         # (labels/taints) and capacities skip the per-cycle upload. A shape
         # change (capacity growth, vocab repad) forces a full re-upload.
         self._dirty_fields: set = getattr(self, "_dirty_fields", set())
+        # the rows written since the last take (a mesh's mirror re-uploads a
+        # stale field only to the shards holding them)
+        self._dirty_rows: set = getattr(self, "_dirty_rows", set())
         self._full_dirty: bool = True
 
     def ensure_padding(self) -> None:
@@ -469,6 +476,7 @@ class NodeArrays:
         self.topo[idx] = topo_row
         self.version += 1
         self._dirty_fields |= set(DEVICE_FIELDS)
+        self._dirty_rows.add(idx)
         return idx
 
     @staticmethod
@@ -519,6 +527,7 @@ class NodeArrays:
             _set_bit(self.ports[idx], b)
         self.version += 1
         self._dirty_fields |= {"free_i", "ports"}
+        self._dirty_rows.add(idx)
 
     def remove_node(self, name: str) -> None:
         idx = self._name_to_idx.pop(name, None)
@@ -539,6 +548,7 @@ class NodeArrays:
         self._free_rows.append(idx)
         self.version += 1
         self._dirty_fields |= set(DEVICE_FIELDS)
+        self._dirty_rows.add(idx)
 
     def set_schedulable(self, name: str, schedulable: bool) -> None:
         idx = self._name_to_idx.get(name)
@@ -546,6 +556,7 @@ class NodeArrays:
             self.schedulable[idx] = schedulable
             self.version += 1
             self._dirty_fields.add("node_ok")
+            self._dirty_rows.add(idx)
 
     def _clear_victim_row(self, idx: int) -> None:
         if self.victim_valid[idx].any() or idx in self.victim_uids:
@@ -556,6 +567,7 @@ class NodeArrays:
             self.victim_uids.pop(idx, None)
             self.victim_version += 1
             self._victim_dirty = True
+            self._victim_rows.add(idx)
 
     def encode_victims(self, idx: int, rows, prios, apps, uids) -> None:
         """Write one node's victim table (rows already in eviction order and
@@ -579,6 +591,7 @@ class NodeArrays:
             self.victim_uids.pop(idx, None)
         self.victim_version += 1
         self._victim_dirty = True
+        self._victim_rows.add(idx)
 
     def take_victim_dirty(self) -> bool:
         """True when the victim tables changed since the last take (single
@@ -586,17 +599,26 @@ class NodeArrays:
         dirty, self._victim_dirty = self._victim_dirty, False
         return dirty
 
-    def take_device_dirty(self) -> Tuple[bool, set]:
-        """(full, fields) delta since the last take, for the device mirror.
+    def take_victim_rows(self) -> set:
+        """The rows whose victim tables were written since the last take
+        (the same single consumer)."""
+        rows, self._victim_rows = self._victim_rows, set()
+        return rows
+
+    def take_device_dirty(self) -> Tuple[bool, set, set]:
+        """(full, fields, rows) delta since the last take, for the device
+        mirror.
 
         full=True forces a complete re-upload (shape change or first use);
-        otherwise `fields` names the stale device arrays. Clears the
-        tracker: there is exactly one consumer (the encoder's
-        DeviceNodeState)."""
-        full, fields = self._full_dirty, self._dirty_fields
+        otherwise `fields` names the stale device arrays and `rows` the
+        rows written. Clears the tracker: there is exactly one consumer (the
+        encoder's DeviceNodeState)."""
+        full, fields, rows = (self._full_dirty, self._dirty_fields,
+                              self._dirty_rows)
         self._full_dirty = False
         self._dirty_fields = set()
-        return full, fields
+        self._dirty_rows = set()
+        return full, fields, rows
 
     @property
     def num_nodes(self) -> int:
@@ -625,6 +647,14 @@ class DeviceNodeState:
     never writes into one a solve or a preemption handle may still hold.
     Field granularity, as in the JAX package: whole-field uploads, no
     row scatters.
+
+    With a node mesh (refresh(mesh=...), parallel/mesh.NodeMesh) every field
+    is kept as Shards, each shard's rows on its device: a full refresh
+    uploads every shard's rows, and a stale field re-uploads only the
+    shards holding a row written since the last refresh (NodeArrays tracks
+    the rows beside the fields), so a dirty row uploads to the shard that
+    owns it and a clean cycle uploads nothing. A change of layout (mesh or
+    device) is a full refresh.
     """
 
     FIELDS = DEVICE_FIELDS
@@ -633,12 +663,13 @@ class DeviceNodeState:
         self.nodes = nodes
         self._arrays: Optional[dict] = None
         self._dims: Optional[tuple] = None
-        self._device: Optional[torch.device] = None
+        # the device, or the mesh, the arrays live on
+        self._layout = None
         # victim-table mirror (refresh_victims): its own tensors + dirty
         # cycle so the allocation path never uploads it
         self._victim_arrays: Optional[dict] = None
         self._victim_dims: Optional[tuple] = None
-        self._victim_device: Optional[torch.device] = None
+        self._victim_layout = None
         self.last_victim_refresh = "none"   # none | clean | full
         # how the last refresh ran
         self.last_refresh = "none"   # none | clean | fields | full
@@ -668,15 +699,17 @@ class DeviceNodeState:
             return na.topo
         return getattr(na, field).view(np.uint32)
 
-    def refresh(self, device) -> dict:
-        """Bring the mirror on `device` up to date; returns the field dict
-        (tensors)."""
+    def refresh(self, device, mesh=None) -> dict:
+        """Bring the mirror on `device` (or over `mesh`'s shards) up to
+        date; returns the field dict (tensors, or Shards with a mesh)."""
         na = self.nodes
         if self.dead:
             raise MirrorDiscarded("device mirror was discarded")
-        full, fields = na.take_device_dirty()
+        full, fields, rows = na.take_device_dirty()
         try:
-            return self._refresh_taken(na, full, fields, torch.device(device))
+            return self._refresh_taken(
+                na, full, fields, rows, torch.device(device) if mesh is None
+                else mesh)
         except Exception:
             # the delta was consumed above; a failed upload must not leave
             # later cycles serving stale tensors as "clean"
@@ -688,14 +721,37 @@ class DeviceNodeState:
             if self.dead:
                 na._full_dirty = True
 
-    def _refresh_taken(self, na, full, fields, device) -> dict:
+    @staticmethod
+    def _put(view, layout, old=None, rows=()):
+        """A host view on `layout`: a tensor on a device; over a mesh,
+        Shards with only the shards holding one of `rows` uploaded again
+        (the others kept from `old`; every shard without `old`). Returns
+        (tensor or Shards, bytes uploaded)."""
+        if not isinstance(layout, NodeMesh):
+            return _upload(view, layout), view.nbytes
+        bounds = layout.bounds(view.shape[0])
+        m = bounds[0][1]
+        stale = {r // m for r in rows}
+        pieces, nbytes = [], 0
+        for i, (lo, hi) in enumerate(bounds):
+            if old is not None and i not in stale:
+                pieces.append(old[i])
+                continue
+            pieces.append(_upload(view[lo:hi], layout.devices[i]))
+            nbytes += view[lo:hi].nbytes
+        return Shards(pieces), nbytes
+
+    def _refresh_taken(self, na, full, fields, rows, layout) -> dict:
         dims = (na.capacity, na._R, na._W, na._Wt, na._Wp)
         if (self._arrays is None or full or dims != self._dims
-                or device != self._device):
+                or layout != self._layout):
             views = {f: self._host_view(f) for f in self.FIELDS}
-            self._arrays = {k: _upload(v, device) for k, v in views.items()}
+            arrays = {}
+            for k, v in views.items():
+                arrays[k], _ = self._put(v, layout)
+            self._arrays = arrays
             self._dims = dims
-            self._device = device
+            self._layout = layout
             self.last_refresh, self.last_fields = "full", tuple(self.FIELDS)
             self.upload_bytes += sum(v.nbytes for v in views.values())
             return self._arrays
@@ -705,39 +761,50 @@ class DeviceNodeState:
         fresh = dict(self._arrays)
         uploaded = 0
         for f in sorted(fields):
-            view = self._host_view(f)
-            fresh[f] = _upload(view, device)
-            uploaded += view.nbytes
+            fresh[f], nbytes = self._put(self._host_view(f), layout,
+                                         self._arrays[f], rows)
+            uploaded += nbytes
         # swap in only after every upload succeeded (no partial mirror)
         self._arrays = fresh
         self.last_refresh, self.last_fields = "fields", tuple(sorted(fields))
         self.upload_bytes += uploaded
         return self._arrays
 
-    def refresh_victims(self, device) -> dict:
+    def refresh_victims(self, device, mesh=None) -> dict:
         """Bring the victim-table mirror up to date and return the node
         fields merged with the victim group. Separate from refresh(): the
         allocation path never uploads victim state; the preemption path
-        uploads it only when the tables changed."""
-        device = torch.device(device)
-        base = self.refresh(device)
+        uploads it only when the tables changed (with a mesh, only to the
+        shards holding a row written since the last refresh)."""
+        layout = torch.device(device) if mesh is None else mesh
+        base = self.refresh(device, mesh=mesh)
         na = self.nodes
         vdims = (na.capacity, na.victim_slots, na._R)
         stale = na.take_victim_dirty()
+        rows = na.take_victim_rows()
         if (self._victim_arrays is None or stale or vdims != self._victim_dims
-                or device != self._victim_device):
-            views = {f: getattr(na, f) for f in VICTIM_FIELDS}
+                or layout != self._victim_layout):
+            keep = (self._victim_arrays is not None
+                    and vdims == self._victim_dims
+                    and layout == self._victim_layout)
+            arrays, uploaded = {}, 0
             try:
-                self._victim_arrays = {k: _upload(v, device)
-                                       for k, v in views.items()}
+                for f in VICTIM_FIELDS:
+                    arrays[f], nbytes = self._put(
+                        getattr(na, f), layout,
+                        self._victim_arrays[f] if keep else None, rows)
+                    uploaded += nbytes
             except Exception:
-                # the dirty flag was consumed; a failed upload must not
-                # leave later planners reading a stale mirror as "clean"
+                # the delta was consumed; a failed upload must not leave
+                # later planners reading a stale mirror as "clean": the next
+                # refresh uploads every table
                 na._victim_dirty = True
+                self._victim_arrays = None
                 raise
+            self._victim_arrays = arrays
             self._victim_dims = vdims
-            self._victim_device = device
-            self.upload_bytes += sum(v.nbytes for v in views.values())
+            self._victim_layout = layout
+            self.upload_bytes += uploaded
             self.last_victim_refresh = "full"
         else:
             self.last_victim_refresh = "clean"
@@ -1029,18 +1096,22 @@ class SnapshotEncoder:
                 self.device = DeviceNodeState(self.nodes)
             return self.device
 
-    def device_arrays(self, device=None, epoch: Optional[int] = None) -> dict:
+    def device_arrays(self, device=None, epoch: Optional[int] = None,
+                      mesh=None) -> dict:
         """Refresh and return the persistent node tensors on `device`
-        (default `cuda`)."""
-        device = resolve_device(device)
-        return self._mirror_enter(epoch).refresh(device)
+        (default `cuda`), or with `mesh` (a parallel/mesh.NodeMesh) as
+        Shards over its devices."""
+        device = mesh.lead if mesh is not None else resolve_device(device)
+        return self._mirror_enter(epoch).refresh(device, mesh=mesh)
 
-    def victim_arrays(self, device=None, epoch: Optional[int] = None) -> dict:
+    def victim_arrays(self, device=None, epoch: Optional[int] = None,
+                      mesh=None) -> dict:
         """Refresh and return the node tensors INCLUDING the victim tables
-        (the batched preemption planner's inputs) on `device`. Call
-        sync_victims first so the tables reflect the current cache."""
-        device = resolve_device(device)
-        return self._mirror_enter(epoch).refresh_victims(device)
+        (the batched preemption planner's inputs) on `device` (or as Shards
+        over `mesh`). Call sync_victims first so the tables reflect the
+        current cache."""
+        device = mesh.lead if mesh is not None else resolve_device(device)
+        return self._mirror_enter(epoch).refresh_victims(device, mesh=mesh)
 
     def discard_device_mirror(self) -> None:
         """Orphan the device mirror after a deadline-abandoned dispatch.

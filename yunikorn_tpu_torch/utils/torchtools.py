@@ -67,6 +67,34 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+# set_mesh_devices' list (None: mesh_devices() reads the cards)
+_mesh_devices: Optional[list] = None
+
+
+def set_mesh_devices(devices) -> None:
+    """Make mesh_devices() return `devices` in this process (None restores
+    the cards): the counterpart of the JAX package's virtual CPU device
+    count. A device may repeat — [cpu] * 8 in the tests, [cuda:0] * 4 to
+    run several node shards on one card. A test and smoke hook, not a
+    configuration key."""
+    global _mesh_devices
+    _mesh_devices = (None if devices is None
+                     else [torch.device(d) for d in devices])
+
+
+def mesh_devices() -> list:
+    """The devices a node mesh spans: set_mesh_devices' list, else cuda:0
+    .. cuda:k-1 with k the largest power of two at most the card count
+    (node capacities are powers of two, so every shard gets a whole
+    slice), [] without a card."""
+    if _mesh_devices is not None:
+        return list(_mesh_devices)
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 1:
+        return []
+    return [torch.device("cuda", i) for i in range(1 << (n.bit_length() - 1))]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -274,6 +302,8 @@ def warm_bucket(n_nodes: int, n_pods: int, core=None, device=None) -> dict:
     nodesort policies, with and without soft/locality constraints — with
     the core's SolverOptions (max_rounds, chunk, max_batch, use_pallas) on
     the encoder's device mirror and row store, as the core's cycle solves.
+    A core with a node mesh warms through parallel/mesh.solve_sharded on
+    its per-shard mirror, as its cycles solve.
     Eager torch compiles no program: what this pays in advance is the
     per-shape first touch of the card, the caching allocator's segments
     (kept: nothing empties the cache), each kernel module's lazy load on
@@ -293,9 +323,10 @@ def warm_bucket(n_nodes: int, n_pods: int, core=None, device=None) -> dict:
 
     t0 = time.perf_counter()
     so, use_pallas, learned, gate_device = SolverOptions(), False, None, True
+    mesh = None
     if core is not None:
         core._resolve_solver_runtime()
-        so, use_pallas = core.solver, core._use_pallas
+        so, use_pallas, mesh = core.solver, core._use_pallas, core._mesh
         dev = core.device
         gate_device = core._gate_device_on()
         if core._policy_params is not None:
@@ -313,16 +344,29 @@ def warm_bucket(n_nodes: int, n_pods: int, core=None, device=None) -> dict:
         batches.append(batch)
     scope = (torch.cuda.device(dev) if dev.type == "cuda"
              else contextlib.nullcontext())
+    if mesh is not None and enc.nodes.capacity % mesh.size:
+        mesh = None
     solves = 0
     with scope:
-        state = enc.device_arrays(device=dev, epoch=enc.mirror_epoch)
+        state = enc.device_arrays(device=dev, epoch=enc.mirror_epoch,
+                                  mesh=mesh)
         for policy in ("binpacking", "spread"):
             for batch in batches:
-                res = solve_batch(batch, enc.nodes, policy=policy,
-                                  max_rounds=so.max_rounds, chunk=so.chunk,
-                                  use_pallas=use_pallas,
-                                  max_batch=so.max_batch,
-                                  device_state=state, device=dev)
+                if mesh is not None:
+                    from yunikorn_tpu_torch.parallel.mesh import solve_sharded
+
+                    res = solve_sharded(batch, enc.nodes, mesh,
+                                        policy=policy,
+                                        max_rounds=so.max_rounds,
+                                        chunk=so.chunk,
+                                        max_batch=so.max_batch,
+                                        device_state=state)
+                else:
+                    res = solve_batch(batch, enc.nodes, policy=policy,
+                                      max_rounds=so.max_rounds,
+                                      chunk=so.chunk, use_pallas=use_pallas,
+                                      max_batch=so.max_batch,
+                                      device_state=state, device=dev)
                 res.assigned.cpu()  # executed, not merely queued
                 solves += 1
         kernels = _warm_kernels(batches[0], enc.nodes, so, use_pallas,
