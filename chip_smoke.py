@@ -337,23 +337,39 @@ phase fails, and when no CUDA device is present):
           CoreScheduler(shard=True) against shard=False at bench.py's core
           shape (cold and warm cycle: the warm mirror clean, 0 node bytes)
           and at the pressure cut, pod for pod, the mesh circuit closed with
-          0 failures and replicated_bytes in last_cycle. "cards" is the
-          card count; with more than one card every check runs again over
-          the real cards ("real_cards": peer copies between them)
+          0 failures and replicated_bytes in last_cycle; the learned solve
+          at MAIN_NODES x MAIN_PODS with the committed checkpoint through
+          solve_sharded(learned=), every output equal, learned_propose
+          launched once a shard a round and its finish once a round (counted
+          from 0 around that run), every shard call (keys, nf, slice sums)
+          and finish held against the plain version, the odd rounds'
+          best_nodes shard calls with the learned term held, round 0's
+          shard calls' and finish's ms, plain ms and bound, the warm
+          medians, and the eval shape's EXPECTED_LEARNED; cvx_solve_sharded
+          against cvx_solve_batch at the CVX_SHAPES and the pressure cut,
+          with and without the checkpoint's duals, plans and free_after
+          equal (EXPECTED_CVX held); learned and cvx cores with shard=True
+          against shard=False at the cut, pod for pod, each duel recording
+          its arm. "cards" is the card count; with more than one card every
+          check runs again over the real cards ("real_cards": peer copies
+          between them)
   kernels one line per kernel: launches (the wrapper's count of calls in
           the main path's run; launches_locality, launches_topology,
           launches_duel (launches_duel_repair of them in the pack arm's
           repair), launches_learned (launches_learned_arm of them in the
           learned solve), launches_shim, launches_train,
-          launches_replay_*, launches_shard, launches_warm and
-          launches_mesh: in the
+          launches_replay_*, launches_shard, launches_warm,
+          launches_mesh and launches_mesh_learned: in the
           locality and topology paths' full-width runs, the optimal and the
           learned core's full-width cycles, the shim's pressure run, the
           trained checkpoint's learned cycle, each replay run, the 4-shard
           wave, the warm phase's prewarm child on the card and the mesh
-          phase's sharded pressure solve; for
+          phase's sharded pressure and learned solves; for
           learned_propose the learned core's cycle, the trained
-          checkpoint's and the replay's learned arm), error against the
+          checkpoint's and the replay's learned arm and the mesh phase's
+          sharded learned solve, each a count of shard calls, with
+          launches_finish / launches_mesh_finish the finish's), error
+          against the
           plain version (max_abs_err_shard / max_abs_err_replay /
           max_abs_err_warm / max_abs_err_mesh: over the shard wave's / the
           replays' / the prewarm's / the sharded solve's calls,
@@ -649,6 +665,11 @@ ADMIT_VALID_QUEUES = ("partitions:\n  - name: default\n    queues:\n"
 # the mesh phase: node shards on the one card, and the chained form's slice
 MESH_SHARDS = 4
 MESH_CHUNK_BATCH = 16_384
+# the mesh phase's `orders` part: the (padded pods, node capacity) of the
+# CVX_SHAPES and of the pressure cut, and the fleet widths the node tower
+# is embedded at (the CVX_SHAPES', the cut's and the main path's)
+MESH_ORDER_SHAPES = ((2_048, 1_024), (4_096, 4_096), (16_384, 2_048))
+MESH_TOWER_WIDTHS = (1_024, 2_048, 4_096, 16_384)
 KERNELS = [{
     "name": "best_nodes",
     "route": "cuda",
@@ -1023,28 +1044,49 @@ def capturing_best_nodes():
 
 @contextlib.contextmanager
 def capturing_learned_propose():
-    """Route ops/assign's learned_propose through a spy that keeps a copy
-    of every call's arguments by name (cloned on the calling thread);
-    yields the list of dicts."""
+    """Route ops/assign's learned_propose_shard and learned_propose_finish
+    (the kernel's two parts, as the solve's rounds call them: a shard call
+    a node shard, one finish) through spies that keep a copy of every
+    call's arguments by name (cloned on the calling thread); yields
+    {"shard": [dicts], "finish": [dicts]}."""
     import inspect
 
     from yunikorn_tpu_torch.ops import assign
-    from yunikorn_tpu_torch.ops.learned import learned_propose
+    from yunikorn_tpu_torch.ops import learned as lmod
 
-    sig = inspect.signature(learned_propose)
-    captured = []
+    real = {"shard": lmod.learned_propose_shard,
+            "finish": lmod.learned_propose_finish}
+    captured = {"shard": [], "finish": []}
 
-    def spy(*args, **kwargs):
-        bound = sig.bind(*args, **kwargs).arguments
-        captured.append({k: v.clone() if isinstance(v, torch.Tensor) else v
-                         for k, v in bound.items()})
-        return learned_propose(*args, **kwargs)
+    def spy(kind):
+        fn = real[kind]
+        sig = inspect.signature(fn)
 
-    assign.learned_propose = spy
+        def run(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs).arguments
+            captured[kind].append(
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in bound.items()})
+            return fn(*args, **kwargs)
+        return run
+
+    assign.learned_propose_shard = spy("shard")
+    assign.learned_propose_finish = spy("finish")
     try:
         yield captured
     finally:
-        assign.learned_propose = learned_propose
+        assign.learned_propose_shard = real["shard"]
+        assign.learned_propose_finish = real["finish"]
+
+
+def whole_call(inp):
+    """A captured shard call of a solve without a mesh (node_offset 0 over
+    all m_total nodes) as learned_propose's keyword arguments."""
+    if inp.get("node_offset", 0) or inp.get(
+            "m_total", inp["free"].shape[0]) != inp["free"].shape[0]:
+        raise AssertionError("not a call over all nodes")
+    return {k: v for k, v in inp.items() if k not in ("node_offset",
+                                                       "m_total")}
 
 
 def hold_calls(captured, where):
@@ -2991,7 +3033,8 @@ def learned_core_full(dev, stats):
                                                      make_pressure_pods)
     from yunikorn_tpu_torch.core.scheduler import SolverOptions
     from yunikorn_tpu_torch.ops.best_nodes import best_nodes
-    from yunikorn_tpu_torch.ops.learned import learned_propose
+    from yunikorn_tpu_torch.ops.learned import (learned_propose,
+                                                learned_propose_finish)
     from yunikorn_tpu_torch.policy import net
 
     apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
@@ -3018,9 +3061,11 @@ def learned_core_full(dev, stats):
     try:
         best_nodes.launches = 0
         learned_propose.launches = 0
+        learned_propose_finish.launches = 0
         n, cycle_s = core_cycle(core, asks)
         launches = {"best_nodes": best_nodes.launches,
-                    "learned_propose": learned_propose.launches}
+                    "learned_propose": learned_propose.launches,
+                    "learned_propose_finish": learned_propose_finish.launches}
     finally:
         core._dispatch_solve = dispatch
         core._learned_dispatch = learned_dispatch
@@ -3030,13 +3075,17 @@ def learned_core_full(dev, stats):
     if set(outcomes) - {"outcome=won", "outcome=fell_back"} or not outcomes:
         raise AssertionError(f"policy outcomes {outcomes}, skip "
                              f"{entry.get('policy_skip')}")
-    if (launches["learned_propose"] < 1 or split["greedy"] < 1
+    if (launches["learned_propose"] < 1
+            or launches["learned_propose_finish"]
+            != launches["learned_propose"]
+            or split["greedy"] < 1
             or split["learned"] < 1
             or launches["best_nodes"] != split["greedy"] + split["learned"]):
         raise AssertionError(f"launches {launches}, best_nodes {split}")
     nodes_used = check_bindings(cache, cb.bound, asks)
-    stats.setdefault("learned_propose", {})["launches"] = \
-        launches["learned_propose"]
+    stats.setdefault("learned_propose", {}).update(
+        launches=launches["learned_propose"],
+        launches_finish=launches["learned_propose_finish"])
     stats.setdefault("best_nodes", {})["launches_learned"] = \
         launches["best_nodes"]
     stats["best_nodes"]["launches_learned_arm"] = split["learned"]
@@ -3146,6 +3195,7 @@ def learned_solve_calls(batch, enc, params, dev, stats, clock_hz):
     with capturing_learned_propose() as captured:
         res = assign.solve_batch(batch, enc.nodes, device=dev,
                                  learned=(params, LEARNED_SEED), **SOLVE_KW)
+    captured = [whole_call(inp) for inp in captured["shard"]]
     calls = []
     for inp in captured:
         b = learned_propose_bound_ms(inp, clock_hz)
@@ -4464,27 +4514,75 @@ def phase_admit():
     return out
 
 
-def hold_learned_calls(captured, where):
-    """Each captured learned_propose call again through the kernel and its
-    plain version, held by check_proposals (nf equal, picks and proposals
-    equal off counted near-ties, lmean within LEARNED_LMEAN_TOL); returns
-    the summed near-tie counts and the largest lmean error (None when
-    nothing was captured)."""
-    from yunikorn_tpu_torch.ops.learned import (learned_propose,
-                                                learned_propose_reference)
+def check_shard_part(got, ref, inp):
+    """Hold the kernel's shard part (keys, nf, partial) against the plain
+    version's on the same inputs: nf equal, the slice sums of the active
+    rows equal bit for bit (both add the nodes in order in float64), and
+    the keys equal except on near-ties, counted: a key may differ only
+    where the plain version's top two scores u over the shard's nodes lie
+    within LEARNED_NEAR_TIE (the Gumbel noise's logf is the device's).
+    Raises on anything else; returns the counts."""
+    from yunikorn_tpu_torch.ops.learned import chunk_scores
+    from yunikorn_tpu_torch.utils import prng
 
-    out = {"calls": len(captured), "pick_near_ties": 0, "gate_near_ties": 0,
-           "lmean_max_abs_err": 0.0 if captured else None}
-    for inp in captured:
+    keys, nf, partial = got
+    rkeys, rnf, rpartial = ref
+    if not torch.equal(nf, rnf):
+        raise AssertionError(f"nf differs on {int((nf != rnf).sum())} rows")
+    act = inp["active"]
+    if not torch.equal(partial[act], rpartial[act]):
+        diff = float((partial[act] - rpartial[act]).abs().max())
+        raise AssertionError(f"slice sums differ by up to {diff}")
+    bad = (keys != rkeys).nonzero().squeeze(1).tolist()
+    chunk = inp["chunk"]
+    round_key = prng.fold_in(inp["key"], inp["rnd"])
+    ties = 0
+    for c in sorted({i // chunk for i in bad}):
+        _ok, _ls, u = chunk_scores(inp["pod_emb"], inp["node_emb"],
+                                   inp["group_id"], inp["group_feas"],
+                                   inp["free"], inp["req"], inp["tau"],
+                                   round_key, c, chunk,
+                                   inp.get("node_offset", 0),
+                                   inp.get("m_total"))
+        for i in [i for i in bad if i // chunk == c]:
+            top2 = u[i - c * chunk].topk(2).values
+            if float(top2[0] - top2[1]) > LEARNED_NEAR_TIE:
+                raise AssertionError(f"row {i}: key differs off a near-tie")
+            ties += 1
+    return {"rows": int(nf.numel()), "pick_near_ties": ties}
+
+
+def hold_learned_calls(captured, where):
+    """Each captured learned_propose shard call again through the kernel
+    and its plain version (check_shard_part), and each finish call at its
+    captured merged slots, whose four outputs must equal the plain
+    version's bit for bit; returns the counts, the summed near-ties of the
+    shard calls' picks and the largest |lmean - plain lmean| measured over
+    the finishes (None when nothing was captured)."""
+    from yunikorn_tpu_torch.ops.learned import (
+        learned_propose_finish, learned_propose_finish_reference,
+        learned_propose_shard, learned_propose_shard_reference)
+
+    out = {"calls": len(captured["shard"]),
+           "finish_calls": len(captured["finish"]), "pick_near_ties": 0,
+           "lmean_max_abs_err": None}
+    for inp in captured["shard"]:
         try:
-            check = check_proposals(learned_propose(**inp),
-                                    learned_propose_reference(**inp), inp)
+            check = check_shard_part(learned_propose_shard(**inp),
+                                     learned_propose_shard_reference(**inp),
+                                     inp)
         except AssertionError as e:
-            raise AssertionError(f"learned_propose at {where}: {e}") from e
+            raise AssertionError(f"learned_propose at {where}, shard offset "
+                                 f"{inp.get('node_offset', 0)}: {e}") from e
         out["pick_near_ties"] += check["pick_near_ties"]
-        out["gate_near_ties"] += check["gate_near_ties"]
-        out["lmean_max_abs_err"] = max(out["lmean_max_abs_err"],
-                                       check["lmean_max_abs_err"])
+    for inp in captured["finish"]:
+        got = learned_propose_finish(**inp)
+        ref = learned_propose_finish_reference(**inp)
+        err = float((got[3] - ref[3]).abs().max()) if got[3].numel() else 0.0
+        out["lmean_max_abs_err"] = max(out["lmean_max_abs_err"] or 0.0, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"learned_propose_finish at {where} "
+                                 "differs from its plain version")
     return out
 
 
@@ -5359,6 +5457,9 @@ def mesh_kernel(args, kwargs, mesh, clock_hz):
 
     req, gid, feas, soft, free, base = args
     M = free.shape[0]
+    # a captured call of the mesh of one carries its own shard arguments
+    kwargs = {k: v for k, v in kwargs.items()
+              if k not in ("node_offset", "m_total", "keys_out")}
     want = best_nodes(*args, **kwargs)
     keys, shards = [], []
     for lo, hi in mesh.bounds(M):
@@ -5636,6 +5737,327 @@ def mesh_cores(dev, mesh):
     return out
 
 
+def finish_bound_ms(inp) -> dict:
+    """Least time for one learned_propose finish: its inputs read once (the
+    node embedding's row at each pick) and its outputs written once over
+    HBM bandwidth; its operations (the slice adds in float64, one dot
+    product a row) are a few a byte, so the bytes bound it."""
+    N, S = inp["partial"].shape
+    E = inp["pod_emb"].shape[1]
+    nbytes = N * (1 + 8 + 4 + 8 * S + 2 * 4 * E) + N * 16
+    return {"bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
+
+
+def mesh_learned(dev, mesh, stats, clock_hz):
+    """The learned solve at full width (the pressure solve's MAIN_NODES x
+    MAIN_PODS, the committed checkpoint, seed LEARNED_SEED) over the mesh
+    against the single device on the card: assigned, accept_round,
+    free_after and rounds equal; learned_propose launched once a shard a
+    round, its finish once a round and best_nodes once a shard in each odd
+    round (counted from 0 around the sharded run); every shard call and
+    finish held against the plain version (keys, nf and slice sums; the
+    finish bit for bit, lmean error 0) and every odd round's best_nodes
+    shard call, with its learned term, held with its keys; round 0's shard
+    calls and finish and the first odd round's best_nodes shard calls timed
+    beside their bounds and plain versions; the warm medians of 3 of both
+    solves. Then policy_bench's eval shape
+    (LEARNED_EVAL) sharded: equal to the single device, EXPECTED_LEARNED's
+    winner and units."""
+    from yunikorn_tpu_torch.ops import learned as lmod
+    from yunikorn_tpu_torch.ops import pack_solve
+    from yunikorn_tpu_torch.ops.assign import solve_batch
+    from yunikorn_tpu_torch.ops.best_nodes import (best_nodes,
+                                                   best_nodes_reference)
+    from yunikorn_tpu_torch.parallel.mesh import solve_sharded
+    from yunikorn_tpu_torch.policy import net
+
+    params = net.params_from_numpy(net.load_checkpoint(LEARNED_CKPT).params,
+                                   dev)
+    learned = (params, LEARNED_SEED)
+    enc, batch, _pods, _ = build_workload(MAIN_NODES, MAIN_PODS)
+    single = solve_batch(batch, enc.nodes, device=dev, learned=learned,
+                         **SOLVE_KW)
+    with capturing_best_nodes() as bn_calls, \
+            capturing_learned_propose() as lp_calls:
+        torch.cuda.synchronize()
+        best_nodes.launches = 0
+        lmod.learned_propose.launches = 0
+        lmod.learned_propose_finish.launches = 0
+        sharded = solve_sharded(batch, enc.nodes, mesh, learned=learned,
+                                **SOLVE_KW)
+        torch.cuda.synchronize()
+        launches = {"learned_propose": lmod.learned_propose.launches,
+                    "learned_propose_finish":
+                        lmod.learned_propose_finish.launches,
+                    "best_nodes": best_nodes.launches}
+    same = same_result(single, sharded)
+    if not all(same.values()):
+        raise AssertionError(f"sharded and single-device learned solves "
+                             f"differ: {same}")
+    r = sharded.rounds
+    want = {"learned_propose": mesh.size * r, "learned_propose_finish": r,
+            "best_nodes": mesh.size * (r // 2)}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    held = hold_learned_calls(lp_calls, "the sharded learned solve")
+    if not all("pod_emb" in kw for _args, kw in bn_calls):
+        raise AssertionError("an odd round's shard call lacks the learned "
+                             "term")
+    err, offsets = hold_shard_calls(bn_calls, "the sharded learned solve")
+    if len(offsets) != mesh.size:
+        raise AssertionError(f"calls held at shard offsets {offsets}")
+    # round 0's shard calls and the first odd round's best_nodes shard
+    # calls, timed beside their bounds; each plain version on the first
+    # shard only (it is as slow on each)
+    shards = []
+    for i, inp in enumerate(lp_calls["shard"][:mesh.size]):
+        b = learned_propose_bound_ms(inp, clock_hz)
+        shards.append({
+            "offset": inp["node_offset"], "rows": b["rows"],
+            "fitting_pairs": b["fitting_pairs"],
+            "ms": cuda_ms(lambda inp=inp: lmod.learned_propose_shard(**inp),
+                          5),
+            "plain_ms": None if i else cuda_ms(
+                lambda: lmod.learned_propose_shard_reference(**inp), 1),
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+    bn_shards = []
+    for i, (args, kw) in enumerate(bn_calls[:mesh.size]):
+        b = best_nodes_bound_ms(args[0], args[1], args[2], args[4], True,
+                                clock_hz, rows=kw["rows"],
+                                emb=kw["pod_emb"].shape[1])
+        bn_shards.append({
+            "offset": kw["node_offset"], "rows": b["rows"],
+            "ms": cuda_ms(lambda a=args, k=kw: best_nodes(*a, **k), 10),
+            "plain_ms": None if i else cuda_ms(
+                lambda: best_nodes_reference(*args, **kw), 1),
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+    fin = lp_calls["finish"][0]
+    fin_ref = lmod.learned_propose_finish_reference
+    finish = dict(finish_bound_ms(fin),
+                  ms=cuda_ms(lambda: lmod.learned_propose_finish(**fin), 10),
+                  plain_ms=cuda_ms(lambda: fin_ref(**fin), 3))
+    stats.setdefault("learned_propose", {}).update(
+        launches_mesh=launches["learned_propose"],
+        launches_mesh_finish=launches["learned_propose_finish"],
+        held_mesh_calls=held["calls"] + held["finish_calls"],
+        max_abs_err_mesh=held["lmean_max_abs_err"],
+        mesh_shard_ms=[c["ms"] for c in shards],
+        mesh_shard_bound_ms=[c["bound_ms"] for c in shards],
+        mesh_finish_ms=finish["ms"], mesh_finish_bound_ms=finish["bound_ms"])
+    stats.setdefault("best_nodes", {}).update(
+        launches_mesh_learned=launches["best_nodes"],
+        held_mesh_learned_calls=len(bn_calls),
+        max_abs_err_mesh_learned=err,
+        mesh_learned_shard_ms=[c["ms"] for c in bn_shards],
+        mesh_learned_shard_bound_ms=[c["bound_ms"] for c in bn_shards])
+    warm = {"single": warm_median_ms(lambda: solve_batch(
+                batch, enc.nodes, device=dev, learned=learned, **SOLVE_KW),
+                runs=3)[0],
+            "mesh": warm_median_ms(lambda: solve_sharded(
+                batch, enc.nodes, mesh, learned=learned, **SOLVE_KW),
+                runs=3)[0]}
+    # policy_bench's eval shape, where the checkpoint's plan wins
+    enc_e, batch_e, prio = learned_fleet(*LEARNED_EVAL)
+    n = batch_e.num_pods
+    ev_single = solve_batch(batch_e, enc_e.nodes, device=dev, learned=learned,
+                            **SOLVE_KW)
+    ev = solve_sharded(batch_e, enc_e.nodes, mesh, learned=learned,
+                       **SOLVE_KW)
+    ev_same = same_result(ev_single, ev)
+    greedy = solve_sharded(batch_e, enc_e.nodes, mesh, **SOLVE_KW)
+    winner, st = pack_solve.choose_plan_n(
+        [("greedy", greedy.assigned[:n].cpu().numpy()),
+         ("learned", ev.assigned[:n].cpu().numpy())],
+        batch_e.req.astype(np.int32), batch_e.valid,
+        cap_i=np.floor(enc_e.nodes.capacity_arr).astype(np.int64),
+        priorities=np.asarray(prio))
+    got = {k: (st[k]["placed"], st[k]["units_norm"]) for k in st}
+    want_winner, want_units = EXPECTED_LEARNED
+    if (not all(ev_same.values()) or winner != want_winner
+            or abs(got["learned"][1] - want_units["learned"][1])
+            > LEARNED_UNITS_RTOL * want_units["learned"][1]):
+        raise AssertionError(f"eval shape: {ev_same}, {winner}, {got}")
+    return {"nodes": MAIN_NODES, "pods": MAIN_PODS, "identical": same,
+            "rounds": r, "placed": int((sharded.assigned >= 0).sum()),
+            "launches": launches, "held": held,
+            "held_best_nodes_calls": len(bn_calls),
+            "held_best_nodes_offsets": offsets, "max_abs_err": err,
+            "round0": {"shards": shards, "finish": finish},
+            "first_odd_round_best_nodes": bn_shards,
+            "warm_ms": warm,
+            "eval": {"shape": list(LEARNED_EVAL), "identical": ev_same,
+                     "winner": winner, "placed_units": got}}
+
+
+def mesh_orders(dev, mesh):
+    """The layout independence the mesh's bit-equality rests on, tested on
+    the card's own ops over mesh.size shards against one piece: at each of
+    MESH_ORDER_SHAPES the cvx arm's row sums (ops/cvx_solve.row_total), its
+    price products (_price) and its loads (_load) in node_blocks' blocks;
+    at each of MESH_TOWER_WIDTHS the node tower in EMB_BLOCK row blocks
+    (ops/learned.embed_nodes). Raises unless each is bit-equal. Also
+    reports whether the plain tower over the shards' row pieces equals one
+    product over all rows (`pieces_equal`: where not, the card's product
+    rounds by its row count, which is why embed_nodes runs in blocks)."""
+    from yunikorn_tpu_torch.ops import cvx_solve as cvx
+    from yunikorn_tpu_torch.ops.learned import embed_nodes
+    from yunikorn_tpu_torch.parallel.mesh import NodeMesh
+    from yunikorn_tpu_torch.policy import features as pf
+    from yunikorn_tpu_torch.policy import net
+
+    k, one = mesh.size, NodeMesh((dev,))
+    rng = np.random.default_rng(LEARNED_SEED)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    out = {"cvx": [], "tower": []}
+    for N, M in MESH_ORDER_SHAPES:
+        X = t(rng.random((N, M)) * (rng.random((N, M)) < 0.3))
+        req = t(rng.random((N, 8)))
+        lam = t(rng.random((M, 8)) * (rng.random((M, 8)) < 0.5))
+        chunk, block = cvx.node_blocks(M, [M])
+        if cvx.node_blocks(M, [M // k] * k) != (chunk, block):
+            raise AssertionError(f"node_blocks differ over {k} shards at {M}")
+        Xp, lam_p = mesh.split(X, 1), mesh.split(lam)
+        row = {"N": N, "M": M, "chunk": chunk, "block": block,
+               "row_total": torch.equal(cvx.row_total(mesh, Xp, block),
+                                        cvx.row_total(one, [X], block)),
+               "price": torch.equal(
+                   mesh.gather([cvx._price(mesh.put(req, i), lam_p[i], chunk)
+                                for i in range(k)], 1),
+                   cvx._price(req, lam, chunk)),
+               "load": torch.equal(
+                   mesh.gather([cvx._load(Xp[i], mesh.put(req, i))
+                                for i in range(k)]), cvx._load(X, req))}
+        out["cvx"].append(row)
+        if not all(row[c] for c in ("row_total", "price", "load")):
+            raise AssertionError(f"cvx blocks differ over {k} shards: {row}")
+    params = net.params_from_numpy(net.load_checkpoint(LEARNED_CKPT).params,
+                                   dev)
+    for M in MESH_TOWER_WIDTHS:
+        feats, W = t(rng.random((M, pf.F_NODE))), M // k
+        pieces = [feats[i * W:(i + 1) * W].contiguous() for i in range(k)]
+        row = {"M": M, "pieces_equal": torch.equal(
+                   torch.cat([net.node_tower(params, p) for p in pieces]),
+                   net.node_tower(params, feats)),
+               "blocks_equal": torch.equal(
+                   torch.cat([embed_nodes(params, p, i * W, M)
+                              for i, p in enumerate(pieces)]),
+                   embed_nodes(params, feats))}
+        out["tower"].append(row)
+        if not row["blocks_equal"]:
+            raise AssertionError(f"node tower differs over {k} shards: {row}")
+    return out
+
+
+def mesh_cvx(dev, mesh):
+    """cvx_solve_sharded against cvx_solve_batch on the card at the
+    CVX_SHAPES and at the pressure cut (CUT_NODES x CUT_PODS: N 16,384 x M
+    2,048, the cell budget's edge), each with and without the committed
+    checkpoint's duals: plans and free_after equal, feasible; the plans
+    without duals at the CVX_SHAPES within EXPECTED_CVX's units."""
+    from yunikorn_tpu_torch.ops import pack_solve
+    from yunikorn_tpu_torch.ops.cvx_solve import cvx_solve_batch
+    from yunikorn_tpu_torch.parallel.mesh import cvx_solve_sharded
+    from yunikorn_tpu_torch.policy import net
+
+    params = net.params_from_numpy(net.load_checkpoint(LEARNED_CKPT).params,
+                                   dev)
+    cases = [(shape, lambda shape=shape: duel_fleet(*shape)[:2])
+             for shape in CVX_SHAPES]
+    cases.append(((CUT_PODS, CUT_NODES, "cut"),
+                  lambda: build_workload(CUT_NODES, CUT_PODS)[:2]))
+    out = []
+    for shape, build in cases:
+        enc, batch = build()
+        n = batch.num_pods
+        for learned in (None, params):
+            t0 = time.perf_counter()
+            single = cvx_solve_batch(batch, enc.nodes, seed=DUEL_SEED,
+                                     learned=learned, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sharded = cvx_solve_sharded(batch, enc.nodes, mesh,
+                                        seed=DUEL_SEED, learned=learned)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            equal = (torch.equal(single.assigned, sharded.assigned)
+                     and torch.equal(single.free_after, sharded.free_after)
+                     and bool(sharded.feasible))
+            if not equal:
+                raise AssertionError(f"cvx {shape} duals={learned is not None}"
+                                     f": sharded differs from single")
+            u = pack_solve.packed_utilization(
+                sharded.assigned[:n].cpu().numpy(),
+                batch.req.astype(np.int32), batch.valid,
+                cap_i=np.floor(enc.nodes.capacity_arr).astype(np.int64))
+            row = {"shape": list(shape), "duals": learned is not None,
+                   "equal": True, "placed": u["placed"],
+                   "units": u["units_norm"], "single_s": t1 - t0,
+                   "mesh_s": t2 - t1}
+            want = EXPECTED_CVX.get(shape)
+            if want is not None and learned is None:
+                placed, units = want[1]["cvx"]
+                if (u["placed"] != placed or abs(u["units_norm"] - units)
+                        > DUEL_UNITS_RTOL * units):
+                    raise AssertionError(f"cvx {shape}: {row} off the JAX "
+                                         f"package's {want[1]['cvx']}")
+            out.append(row)
+    return out
+
+
+def mesh_arm_cores(dev, mesh):
+    """solver.policy=learned (the committed checkpoint) and
+    solver.policy=optimal with pack=cvx through CoreScheduler(shard=True)
+    against shard=False at the pressure cut, pod for pod; each duel
+    records its arm (no "mesh" skip)."""
+    from yunikorn_tpu_torch.client.synthetic import (PRESSURE_APPS,
+                                                     make_pressure_nodes,
+                                                     make_pressure_pods)
+    from yunikorn_tpu_torch.core.scheduler import SolverOptions
+
+    apps = [(f"app-{k}", f"root.q{k}") for k in range(len(PRESSURE_APPS))]
+    out = {}
+    for label, solver_kw, keys in (
+            ("learned", dict(policy="learned",
+                             policy_checkpoint=LEARNED_CKPT),
+             ("learned_util", "learned_placed")),
+            ("cvx", dict(policy="optimal", pack="cvx"),
+             ("cvx_util", "cvx_placed"))):
+        binds, runs = {}, {}
+        for shard in (True, False):
+            _, core, cb = make_core(dev, make_pressure_nodes(CUT_NODES),
+                                    apps, SolverOptions(shard=shard,
+                                                        **solver_kw))
+            pods = make_pressure_pods(CUT_PODS)
+            names = {p.uid: p.metadata.name for p in pods}
+            n, cycle_s = core_cycle(core, asks_of(pods))
+            check_tiers(core, f"{label} core shard={shard}")
+            entry = core.metrics["last_cycle"]["default"]
+            skip = entry.get("policy_skip") or entry.get("cvx_skip")
+            if skip is not None or any(k not in entry for k in keys):
+                raise AssertionError(f"{label} core shard={shard}: the arm "
+                                     f"did not run (skip {skip})")
+            if shard and (core._mesh is None
+                          or core._mesh.size != mesh.size
+                          or entry.get("mesh") != mesh.size):
+                raise AssertionError(f"{label} core: mesh {core._mesh}, "
+                                     f"entry mesh {entry.get('mesh')}")
+            binds[shard] = {names[k]: v for k, v in cb.bound.items()}
+            runs["mesh" if shard else "single"] = {
+                "placed": n, "cycle_ms": cycle_s * 1e3,
+                "solve_ms": entry.get("solve_ms"),
+                "winner": entry.get("solver_policy"),
+                **{k: entry.get(k) for k in keys}}
+        if binds[True] != binds[False]:
+            diff = sum(binds[True].get(k) != v for k, v in binds[False].items())
+            raise AssertionError(f"{label}: the mesh core binds {diff} pods "
+                                 "differently")
+        out[label] = {"identical": True, "bound": len(binds[True]), **runs}
+    return out
+
+
 def mesh_checks(dev, mesh, stats, clock_hz):
     """Every check of the mesh phase over `mesh`, against the single device
     `dev`, with each part's seconds."""
@@ -5646,7 +6068,12 @@ def mesh_checks(dev, mesh, stats, clock_hz):
                                                    clock_hz)}),
             ("locality_topology", lambda: mesh_locality_topology(dev, mesh)),
             ("preempt_fold_pack", lambda: mesh_preempt_fold_pack(dev, mesh)),
-            ("core", lambda: {"core": mesh_cores(dev, mesh)})):
+            ("core", lambda: {"core": mesh_cores(dev, mesh)}),
+            ("learned", lambda: {"learned": mesh_learned(dev, mesh, stats,
+                                                         clock_hz)}),
+            ("orders", lambda: {"orders": mesh_orders(dev, mesh)}),
+            ("cvx", lambda: {"cvx": mesh_cvx(dev, mesh)}),
+            ("arm_cores", lambda: {"arm_cores": mesh_arm_cores(dev, mesh)})):
         t0 = time.perf_counter()
         out.update(fn())
         seconds[name] = time.perf_counter() - t0

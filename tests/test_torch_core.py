@@ -659,20 +659,8 @@ def test_pipelined_cycles_publish_their_overlap():
 
 
 # --------------------------------------------------------------------------
-# what the port does not have yet, the device rule, and its own pieces
+# the device rule and the port's own pieces
 # --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("option, item", [
-    ({"shard": True, "policy": "learned"}, 24),
-    ({"shard": True, "policy": "optimal", "pack": "cvx"}, 24),
-])
-def test_unported_option_raises_naming_its_item(option, item):
-    from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache
-
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}:"):
-        tsched.CoreScheduler(SchedulerCache(), device="cpu",
-                             solver_options=tsched.SolverOptions(**option))
-
 
 def test_core_raises_without_cuda(monkeypatch):
     from yunikorn_tpu_torch.cache.external.scheduler_cache import SchedulerCache

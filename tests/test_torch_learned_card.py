@@ -45,6 +45,51 @@ def test_learned_propose_kernel_matches_plain(N, M, R, E, active):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N, M, shards", [
+    (4_096, 4_096, 4), (2_048, 2_048, 2), (1_024, 1_000, 8)])
+def test_learned_propose_shard_and_finish_match_plain(N, M, shards):
+    """The kernel's shard part on each node shard (node_offset / m_total)
+    against its plain version (chip_smoke.check_shard_part: nf and the
+    slice sums equal, keys equal off near-ties), then the finish over the
+    merged slots bit-equal to its plain version; with widths that are
+    multiples of 128 the merged slots equal one call's and so do the
+    outputs; one launch a shard call and one a finish."""
+    needs_card()
+    rng = np.random.default_rng(N + M + shards)
+    inp = cs.learned_inputs(rng, N, M, 4, 8, 16, "cuda")
+    bounds = [(i * M // shards, (i + 1) * M // shards) for i in range(shards)]
+    parts = []
+    before = (learned.learned_propose.launches,
+              learned.learned_propose_finish.launches)
+    for lo, hi in bounds:
+        part = dict(inp, node_emb=inp["node_emb"][lo:hi].contiguous(),
+                    group_feas=inp["group_feas"][:, lo:hi].contiguous(),
+                    free=inp["free"][lo:hi].contiguous(), node_offset=lo,
+                    m_total=M)
+        got = learned.learned_propose_shard(**part)
+        torch.cuda.synchronize()
+        out = cs.check_shard_part(
+            got, learned.learned_propose_shard_reference(**part), part)
+        assert out["pick_near_ties"] <= N // 1_000
+        parts.append(got)
+    merged = learned.merge_proposals(parts, torch.device("cuda"))
+    fin = dict(active=inp["active"], pod_emb=inp["pod_emb"],
+               node_emb=inp["node_emb"], keys=merged[0], nf=merged[1],
+               partial=merged[2])
+    got = learned.learned_propose_finish(**fin)
+    ref = learned.learned_propose_finish_reference(**fin)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (learned.learned_propose.launches,
+            learned.learned_propose_finish.launches) == (before[0] + shards,
+                                                         before[1] + 1)
+    if M % (128 * shards) == 0:
+        whole = learned.learned_propose(**inp)
+        for a, b in zip(got, whole):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_learned_propose_ties_across_slices_go_to_the_lowest_node():
     """tau 0 and one embedding for every node: every fitting node scores
     the same, so the pick is the lowest fitting node, whichever block of

@@ -484,23 +484,6 @@ def test_sharded_pack_equals_single_device_and_meets_the_duel_bar(cpu_mesh):
     assert abs(units_t - units_j) <= 0.005 * units_j
 
 
-@pytest.mark.parametrize("opts", [dict(policy="learned"),
-                                  dict(policy="all"),
-                                  dict(policy="optimal", pack="cvx")])
-def test_shard_with_learned_or_cvx_names_item_24(opts):
-    from yunikorn_tpu_torch.cache.external.scheduler_cache import \
-        SchedulerCache
-    from yunikorn_tpu_torch.core.scheduler import CoreScheduler, SolverOptions
-
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        CoreScheduler(SchedulerCache(), device="cpu",
-                      solver_options=SolverOptions(shard=True, **opts))
-    # without shard=True they construct (a mesh that auto resolves skips
-    # the arms instead)
-    CoreScheduler(SchedulerCache(), device="cpu",
-                  solver_options=SolverOptions(**opts))
-
-
 def test_mesh_devices_and_make_mesh():
     torchtools.set_mesh_devices(CPU8[:4])
     try:
@@ -513,10 +496,6 @@ def test_mesh_devices_and_make_mesh():
         torchtools.set_mesh_devices(None)
     if not torch.cuda.is_available():
         assert torchtools.mesh_devices() == []
-    assert not tmesh.LEARNED_SHARDED_SUPPORTED
-    assert not tmesh.CVX_SHARDED_SUPPORTED and tmesh.PACK_SHARDED_SUPPORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        enc, batch = parallel_env(PORT)
-        tmesh.solve_sharded(batch, enc.nodes, tmesh.make_mesh(CPU8),
-                            learned=({}, 0))
+    assert tmesh.LEARNED_SHARDED_SUPPORTED
+    assert tmesh.CVX_SHARDED_SUPPORTED and tmesh.PACK_SHARDED_SUPPORTED
     assert tbn.KEY_NONE == -(1 << 63)

@@ -9,10 +9,9 @@ keys (:210-265). The solver-specific knobs (`solver.*`) are new: they size the
 device-array buckets and the assignment loop.
 
 The JAX package's conf/schedulerconf.py, copied with its imports rewritten.
-Keys whose feature the port lacks (solver.shardSolve=true together with
-solver.policy=learned|all or solver.pack=cvx: the learned and cvx arms
-under the node mesh, ROADMAP item 24) still parse here; the core raises
-NotImplementedError naming its ROADMAP item when one asks for it. solver.aotStore names the kernel-library store (aot/);
+Every key the JAX package parses drives the port's feature (solver.
+shardSolve=true runs each arm over the node mesh). solver.aotStore names
+the kernel-library store (aot/);
 solver.aotBackground=true is refused like an unknown value (the port has no
 background build: aot/runtime.BACKGROUND_REFUSED).
 """

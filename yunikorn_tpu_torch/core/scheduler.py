@@ -21,17 +21,12 @@ Gang semantics (placeholder replacement, timeout → Resuming/Failing) and
 recovery (existing allocations) are handled host-side around the solve, exactly
 at the same protocol seams the reference uses.
 
-The JAX package's core/scheduler.py, ported. What the port does not have yet
-is absent, or raises NotImplementedError naming its ROADMAP item:
-  - solver.shard=True with solver.policy=learned|all or solver.pack=cvx
-    (the learned and cvx arms under the node mesh, item 24); a mesh that
-    auto resolves skips those arms with outcome "mesh"
-  - any fallback below the device tier: a gate scan, row-store sync,
-    mirror refresh or solve that fails after its retries fails the cycle;
-    nothing re-runs the card's work on the CPU. A device preemption
-    dispatch or finish that fails is counted as a failed cycle stage
-    ("preempt") and plans nothing that cycle: the host planner does not
-    re-plan it
+The JAX package's core/scheduler.py, ported, with no fallback below the
+device tier by design: a gate scan, row-store sync, mirror refresh or
+solve that fails after its retries fails the cycle; nothing re-runs the
+card's work on the CPU. A device preemption dispatch or finish that fails
+is counted as a failed cycle stage ("preempt") and plans nothing that
+cycle: the host planner does not re-plan it.
 
 The default cycle is the JAX package's: with solver.gateDevice auto the
 admission gate scans on the core's device (ops/gate_solve.device_admit),
@@ -67,8 +62,11 @@ cycle refreshes the encoder's mirror per shard and solves through
 parallel/mesh.solve_sharded on the supervised path "mesh", placement for
 placement equal to the single-device solve; an open "mesh" circuit or a
 failed mesh dispatch drops the cycle to the core's device (counted in
-solve_mesh_fallbacks_total). The pack arm follows a mesh cycle onto
-pack_solve_sharded and the preemption planner plans over the mesh.
+solve_mesh_fallbacks_total). The duel arms follow a mesh cycle onto the
+mesh (pack_solve_sharded, cvx_solve_sharded, solve_sharded with the
+learned params); when the greedy solve dropped to the core's device the
+learned arm solves there too and the pack and cvx arms skip ("mesh"). The
+preemption planner plans over the mesh.
 
 solver.policy=learned runs the JAX package's learned arm: with a validated
 checkpoint (solver.policyCheckpoint, set_policy_checkpoint) the core
@@ -151,7 +149,7 @@ from yunikorn_tpu_torch.obs.trace import CycleTracer
 from yunikorn_tpu_torch.ops import cvx_solve as cvx_mod
 from yunikorn_tpu_torch.ops import pack_solve as pack_mod
 from yunikorn_tpu_torch.ops.assign import (apply_free_delta, load_kernels,
-                                           not_ported, solve_batch)
+                                           solve_batch)
 from yunikorn_tpu_torch.policy import net as policy_net
 from yunikorn_tpu_torch.robustness.health import HealthMonitor, solver_source
 from yunikorn_tpu_torch.robustness.supervisor import (
@@ -199,9 +197,7 @@ class SolverOptions:
     """Device-path knobs for the batched solve (conf solver.* keys), the
     JAX package's set. The tri-states take None = "auto". In the port:
     use_pallas auto = False (the best-node kernel's exact mode; True selects
-    its quantized mode, bit-equal to the JAX package's Pallas kernel), and
-    the options whose feature is not ported yet raise NotImplementedError
-    at construction when set to True (see the module docstring)."""
+    its quantized mode, bit-equal to the JAX package's Pallas kernel)."""
     max_rounds: int = 16
     chunk: int = 512
     use_pallas: Optional[bool] = None
@@ -386,7 +382,6 @@ class CoreScheduler(SchedulerAPI):
                  flightrec=None, flightrec_options=None, device=None):
         self.device = resolve_device(device)
         self.solver = solver_options or SolverOptions()
-        _check_options(self.solver)
         # the AOT runtime's accounting label of this core's kernel loads
         # (core/shard.py gives each shard its own): it changes no key, the
         # libraries are per process, so a kernel is accounted to the first
@@ -1793,14 +1788,13 @@ class CoreScheduler(SchedulerAPI):
             # learned override would fight the accept caps: these cycles
             # keep the greedy plan
             return "locality"
-        if self._mesh is not None and not mesh_mod.LEARNED_SHARDED_SUPPORTED:
-            # ROADMAP item 24: the learned solve does not run over the mesh
-            return "mesh"
         return None
 
     def _learned_dispatch(self, h: "_SolveHandle") -> None:
         """Dispatch the learned-scorer solve of an eligible cycle; failures
-        leave h.learned None (greedy stays authoritative)."""
+        leave h.learned None (greedy stays authoritative). It follows the
+        greedy solve: over the mesh when that solve ran there
+        (solve_sharded with the params), else on the core's device."""
         if not self._learned_on():
             return
         reason = self._learned_eligible(h)
@@ -1816,6 +1810,14 @@ class CoreScheduler(SchedulerAPI):
 
         def learned_fn():
             with self._device_scope():
+                if h.used_mesh:
+                    return mesh_mod.solve_sharded(
+                        h.batch, self.encoder.nodes, self._mesh,
+                        max_rounds=so.max_rounds, chunk=so.chunk,
+                        policy=h.policy, free_delta=h.overlay,
+                        node_mask=h.node_mask, ports_delta=h.inflight_ports,
+                        max_batch=so.max_batch, device_state=h.mesh_state,
+                        learned=learned)
                 return solve_batch(
                     h.batch, self.encoder.nodes, policy=h.policy,
                     max_rounds=so.max_rounds, chunk=so.chunk,
@@ -1867,11 +1869,12 @@ class CoreScheduler(SchedulerAPI):
 
     def _cvx_eligible(self, h: "_SolveHandle") -> Optional[str]:
         """None when the cvx arm models this cycle; else the skip reason
-        (over the cell budget: the shapes the pack arm exists for; "mesh"
-        under a node mesh, ROADMAP item 24)."""
+        (over the cell budget: the shapes the pack arm exists for). Under a
+        mesh the arm follows the greedy solve onto it (cvx_solve_sharded),
+        so a mesh cycle whose greedy solve dropped to the core's device
+        skips it ("mesh")."""
         reason = self._arm_scope(h.batch, cvx_mod.cvx_shape_supported)
-        if (reason is None and self._mesh is not None
-                and not mesh_mod.CVX_SHARDED_SUPPORTED):
+        if reason is None and self._mesh is not None and not h.used_mesh:
             return "mesh"
         return reason
 
@@ -1947,6 +1950,13 @@ class CoreScheduler(SchedulerAPI):
 
         def cvx_fn():
             with self._device_scope():
+                if h.used_mesh:
+                    return mesh_mod.cvx_solve_sharded(
+                        h.batch, self.encoder.nodes, self._mesh,
+                        policy=h.policy, free_delta=h.overlay,
+                        node_mask=h.node_mask, ports_delta=h.inflight_ports,
+                        seed=self._cycle_seq, chunk=self.solver.chunk,
+                        device_state=h.mesh_state, learned=learned)
                 return cvx_mod.cvx_solve_batch(
                     h.batch, self.encoder.nodes, policy=h.policy,
                     free_delta=h.overlay, node_mask=h.node_mask,
@@ -4194,15 +4204,6 @@ _COLD_MEM_KEYS = {"segment.all.allocated": "device_mallocs",
                   "reserved_bytes.all.current": "reserved_growth_bytes"}
 _COLD_STAGES = ("gate_ms", "encode_ms", "solve_ms", "commit_ms", "post_ms",
                 "total_ms")
-
-
-def _check_options(so: SolverOptions) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for each option
-    whose feature the port does not have yet."""
-    if so.shard and (so.policy in ("learned", "all") or so.pack == "cvx"):
-        not_ported("solver.shard=True with solver.policy=learned|all or "
-                   "solver.pack=cvx", 24,
-                   "the learned and cvx arms under the mesh")
 
 
 def _host_rows(assigned: torch.Tensor, n: int) -> np.ndarray:

@@ -5,16 +5,16 @@
 // Replaces the proposal half of `_learned_chunk_pass` in the JAX package's
 // ops/assign.py (an XLA-fused stage there, not a Pallas kernel), called on
 // every round of the learned solve (ops/assign `_solve_rounds`). For each
-// active pod i and node m:
+// active pod i and node m of m_total nodes:
 //
 //   ok(i, m)  = feas[gid[i], m]  AND  free[m, r] >= req[i, r] for every r
 //   ls(i, m)  = sum_e pod_emb[i, e] * node_emb[m, e]   (e in order, each
 //               product and sum rounded: no fused multiply-add)
 //   g(i, m)   = -log(-log(u)), u the float32 uniform in [tiny, 1) that
 //               threefry2x32 gives under the key fold_in(fold_in(key, rnd),
-//               c) at the counter (i - c * chunk) * M + m, c = i / chunk:
-//               the reference's Gumbel draw of shape (chunk, M) at
-//               [i - c * chunk, m] (utils/prng)
+//               c) at the counter (i - c * chunk) * m_total + m, c = i /
+//               chunk: the reference's Gumbel draw of shape (chunk,
+//               m_total) at [i - c * chunk, m] (utils/prng)
 //   pick[i]   = the ok node of largest ls + tau * g, ties to the lowest m
 //   nf[i]     = the number of ok nodes
 //   lmean[i]  = (sum of ls over the ok nodes) / max(nf, 1), summed and
@@ -22,9 +22,30 @@
 //               sum moves with its order by a few ulp of its terms (more
 //               than 1e-6 of the mean under cancellation), and the gate
 //               below reads lmean, so the order must not matter
-//   prop[i]   = pick[i] if nf > 0 and ls(i, pick) - lmean > 0.05, else M
+//   prop[i]   = pick[i] if nf > 0 and ls(i, pick) - lmean > 0.05, else
+//               m_total
 //
-// Inactive pods come back as prop M, pick 0, nf 0, lmean 0.
+// Inactive pods come back as prop m_total, pick 0, nf 0, lmean 0.
+//
+// The pass runs in two parts, so that a node mesh (parallel/mesh) can run
+// the first on each node shard's device:
+//   shard   (yk_learned_propose_shard) over the nodes node_offset ..
+//           node_offset + n_nodes of m_total: each row's ordered key (the
+//           best score's order-preserving bits high, m_total - 1 - the
+//           global node low, top bit flipped so that a signed max orders
+//           it: ops/best_nodes.exact_key's layout; LLONG_MIN for none), its
+//           nf, and its float64 sum of ls over each 128-node slice of the
+//           shard. Counters and keys use the global node index.
+//   finish  (yk_learned_propose_finish) once over the merged slots: the
+//           shards' keys max-merged, their nf added, their slice tables
+//           side by side in shard order (ops/learned.merge_proposals). It
+//           adds each row's slice sums in slice order (float64), rounds the
+//           mean once, recomputes ls at the pick from the [m_total, E] node
+//           embedding in the same order as the shard part, and applies the
+//           gate. Shards whose widths are multiples of 128 give the slice
+//           table of one call over all nodes, so the finish reads the same
+//           sums.
+// One call over all nodes is the shard part at (0, M) and the finish.
 //
 // What bounds it on an H100: integer operations. Each fitting pair costs
 // one threefry2x32 hash (20 rounds of add, rotate, xor, and 5 key
@@ -45,14 +66,11 @@
 //           chunk key in registers. A warp walks only the nodes some row of
 //           the warp admits (the OR of their group words) and hashes only
 //           the pairs that fit. Each row's slice result merges into its slot:
-//           the argmax as one atomicMax on an ordered 64-bit key (the score's
-//           order-preserving bits high, M - 1 - m low, so ties go to the
-//           lowest node), the count by an integer atomicAdd, and the slice's
-//           float64 sum of ls into its own cell of a [N, slices] table (no
-//           float atomics: the sum is deterministic).
-//   finish  adds each row's slice sums in slice order (float64), rounds
-//           the mean once, recomputes ls at the pick in the same order as
-//           main, and applies the gate.
+//           the argmax as one atomicMax on the ordered 64-bit key (ties go
+//           to the lowest node), the count by an integer atomicAdd, and the
+//           slice's float64 sum of ls into its own cell of a [N, slices]
+//           table (no float atomics: the sum is deterministic).
+//   finish  as above.
 // A first, simple design: no tensor cores (a 16-term dot product a pair is
 // not a matrix product worth a wgmma tile), no TMA.
 #include <climits>
@@ -125,7 +143,7 @@ __device__ __forceinline__ float dot_rn(const float* pe, const float* ne) {
 }
 
 // One thread per (group, padded node) and per row: words [G, W]; the row
-// slots reset; the active rows compacted into row_list (one atomicAdd on the
+// slots reset (key LLONG_MIN, nf 0); the active rows compacted into row_list (one atomicAdd on the
 // count per block, so rows keep their order inside each block of 256); the
 // chunk keys [n_chunks, 2] folded from the call's key.
 __global__ void __launch_bounds__(kPrepThreads)
@@ -134,11 +152,11 @@ prep_kernel(const uint8_t* __restrict__ feas,
             const int64_t* __restrict__ key, int rnd, int n_chunks,
             int n_nodes, int n_groups, int n_words, int n_rows,
             uint32_t* words, uint32_t* chunk_keys,
-            unsigned long long* row_key, int32_t* row_nf, int32_t* row_list,
+            long long* row_key, int32_t* row_nf, int32_t* row_list,
             int32_t* row_count) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < n_rows) {
-    row_key[t] = 0ull;
+    row_key[t] = LLONG_MIN;
     row_nf[t] = 0;
   }
   if (t < n_chunks) {
@@ -194,9 +212,9 @@ propose_kernel(const int32_t* __restrict__ req,
                const uint32_t* __restrict__ chunk_keys,
                const int32_t* __restrict__ rows,
                const int32_t* __restrict__ row_count, int n_rows,
-               int n_nodes, int n_groups, int n_res, int n_words,
-               int n_slices, int chunk, float tau,
-               unsigned long long* __restrict__ row_key,
+               int n_nodes, int node_offset, int m_total, int n_groups,
+               int n_res, int n_words, int n_slices, int chunk, float tau,
+               long long* __restrict__ row_key,
                int32_t* __restrict__ row_nf, double* __restrict__ partial) {
   // [kSlice, res4] free rows, then [kSlice, kE] node embeddings
   extern __shared__ __align__(16) int32_t s_free[];
@@ -236,7 +254,8 @@ propose_kernel(const int32_t* __restrict__ req,
       const int c = row / chunk;
       k0 = chunk_keys[2 * c];
       k1 = chunk_keys[2 * c + 1];
-      base = (unsigned long long)(row - c * chunk) * (unsigned)n_nodes + s0;
+      base = (unsigned long long)(row - c * chunk) * (unsigned)m_total +
+             (unsigned)(node_offset + s0);
     }
 #pragma unroll
     for (int r = 0; r < kMaxR; ++r) {
@@ -279,7 +298,7 @@ propose_kernel(const int32_t* __restrict__ req,
           const float v = __fadd_rn(ls, __fmul_rn(tau, gumbel_of(x0 ^ x1)));
           if (best_j < 0 || v > best_v) {  // nodes ascend: first max kept
             best_v = v;
-            best_j = s0 + j;
+            best_j = node_offset + s0 + j;
           }
         }
       }
@@ -288,9 +307,11 @@ propose_kernel(const int32_t* __restrict__ req,
       partial[(size_t)row * n_slices + blockIdx.x] = sum;
       if (nf > 0) {
         atomicAdd(row_nf + row, nf);
-        atomicMax(row_key + row,
-                  ((unsigned long long)ordered_bits(best_v) << 32) |
-                      (unsigned long long)(uint32_t)(n_nodes - 1 - best_j));
+        const unsigned long long key =
+            (((unsigned long long)ordered_bits(best_v) << 32) |
+             (unsigned long long)(uint32_t)(m_total - 1 - best_j)) ^
+            (1ull << 63);
+        atomicMax(row_key + row, (long long)key);
       }
     }
   }
@@ -300,10 +321,10 @@ template <int kE>
 __global__ void finish_kernel(const uint8_t* __restrict__ active,
                               const float* __restrict__ pod_emb,
                               const float* __restrict__ node_emb,
-                              const unsigned long long* __restrict__ row_key,
+                              const long long* __restrict__ row_key,
                               const int32_t* __restrict__ row_nf,
                               const double* __restrict__ partial, int n_rows,
-                              int n_nodes, int n_slices,
+                              int m_total, int n_slices,
                               int32_t* __restrict__ prop,
                               int32_t* __restrict__ pick,
                               int32_t* __restrict__ nf_out,
@@ -311,7 +332,7 @@ __global__ void finish_kernel(const uint8_t* __restrict__ active,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows) return;
   if (!active[i]) {
-    prop[i] = n_nodes;
+    prop[i] = m_total;
     pick[i] = 0;
     nf_out[i] = 0;
     lmean_out[i] = 0.0f;
@@ -323,8 +344,11 @@ __global__ void finish_kernel(const uint8_t* __restrict__ active,
   }
   const int nf = row_nf[i];
   const float lmean = __double2float_rn(__ddiv_rn(sum, (double)max(nf, 1)));
-  const unsigned long long k = row_key[i];
-  const int p = k ? n_nodes - 1 - (int)(uint32_t)(k & 0xffffffffull) : 0;
+  const long long k = row_key[i];
+  const int p = k != LLONG_MIN
+                    ? m_total - 1 - (int)(uint32_t)((unsigned long long)k &
+                                                    0xffffffffull)
+                    : 0;
   bool good = false;
   if (nf > 0) {
     float pe[kE], ne[kE];
@@ -335,24 +359,24 @@ __global__ void finish_kernel(const uint8_t* __restrict__ active,
     }
     good = __fsub_rn(dot_rn<kE>(pe, ne), lmean) > kGateMargin;
   }
-  prop[i] = good ? p : n_nodes;
+  prop[i] = good ? p : m_total;
   pick[i] = p;
   nf_out[i] = nf;
   lmean_out[i] = lmean;
 }
 
-struct Args {
+struct ShardArgs {
   const void *req, *group_id, *feas, *free_, *active, *pod_emb, *node_emb,
       *key;
   int rnd, chunk;
   float tau;
-  int n_rows, n_nodes, n_groups, n_res;
+  int n_rows, n_nodes, node_offset, m_total, n_groups, n_res;
   void *words, *chunk_keys, *row_key, *row_nf, *row_list, *row_count,
-      *partial, *prop, *pick, *nf, *lmean;
+      *partial;
 };
 
 template <int kMaxR, int kE>
-cudaError_t run(const Args& a, cudaStream_t stream) {
+cudaError_t run_shard(const ShardArgs& a, cudaStream_t stream) {
   const int n_words = (a.n_nodes + 31) / 32;
   const int n_slices = (a.n_nodes + kSlice - 1) / kSlice;
   const int n_chunks = (a.n_rows + a.chunk - 1) / a.chunk;
@@ -371,9 +395,8 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
       static_cast<const int64_t*>(a.key), a.rnd, n_chunks, a.n_nodes,
       a.n_groups, n_words, a.n_rows, static_cast<uint32_t*>(a.words),
       static_cast<uint32_t*>(a.chunk_keys),
-      static_cast<unsigned long long*>(a.row_key),
-      static_cast<int32_t*>(a.row_nf), static_cast<int32_t*>(a.row_list),
-      static_cast<int32_t*>(a.row_count));
+      static_cast<long long*>(a.row_key), static_cast<int32_t*>(a.row_nf),
+      static_cast<int32_t*>(a.row_list), static_cast<int32_t*>(a.row_count));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (a.n_nodes > 0) {
     const int res4 = (a.n_res + 3) & ~3;
@@ -391,26 +414,35 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
         static_cast<const uint32_t*>(a.chunk_keys),
         static_cast<const int32_t*>(a.row_list),
         static_cast<const int32_t*>(a.row_count), a.n_rows, a.n_nodes,
-        a.n_groups, a.n_res, n_words, n_slices, a.chunk, a.tau,
-        static_cast<unsigned long long*>(a.row_key),
+        a.node_offset, a.m_total, a.n_groups, a.n_res, n_words, n_slices,
+        a.chunk, a.tau, static_cast<long long*>(a.row_key),
         static_cast<int32_t*>(a.row_nf), static_cast<double*>(a.partial));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  finish_kernel<kE><<<(a.n_rows + 255) / 256, 256, 0, stream>>>(
-      static_cast<const uint8_t*>(a.active),
-      static_cast<const float*>(a.pod_emb),
-      static_cast<const float*>(a.node_emb),
-      static_cast<const unsigned long long*>(a.row_key),
-      static_cast<const int32_t*>(a.row_nf),
-      static_cast<const double*>(a.partial), a.n_rows, a.n_nodes, n_slices,
-      static_cast<int32_t*>(a.prop), static_cast<int32_t*>(a.pick),
-      static_cast<int32_t*>(a.nf), static_cast<float*>(a.lmean));
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 template <int kMaxR>
-cudaError_t dispatch(int emb, const Args& a, cudaStream_t s) {
-  return emb == 16 ? run<kMaxR, 16>(a, s) : run<kMaxR, 32>(a, s);
+cudaError_t dispatch_shard(int emb, const ShardArgs& a, cudaStream_t s) {
+  return emb == 16 ? run_shard<kMaxR, 16>(a, s) : run_shard<kMaxR, 32>(a, s);
+}
+
+template <int kE>
+cudaError_t run_finish(const void* active, const void* pod_emb,
+                       const void* node_emb, const void* row_key,
+                       const void* row_nf, const void* partial, int n_rows,
+                       int m_total, int n_slices, void* prop, void* pick,
+                       void* nf, void* lmean, cudaStream_t stream) {
+  finish_kernel<kE><<<(n_rows + 255) / 256, 256, 0, stream>>>(
+      static_cast<const uint8_t*>(active),
+      static_cast<const float*>(pod_emb),
+      static_cast<const float*>(node_emb),
+      static_cast<const long long*>(row_key),
+      static_cast<const int32_t*>(row_nf),
+      static_cast<const double*>(partial), n_rows, m_total, n_slices,
+      static_cast<int32_t*>(prop), static_cast<int32_t*>(pick),
+      static_cast<int32_t*>(nf), static_cast<float*>(lmean));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -423,38 +455,67 @@ int yk_learned_propose_max_res() { return 64; }
 // Nodes per block slice (the width of one cell of the partial-sum table).
 int yk_learned_propose_slice_nodes() { return kSlice; }
 
-// req [n_rows, n_res] int32, group_id [n_rows] int32, feas [G, n_nodes]
-// bool, free_ [n_nodes, n_res] int32, active [n_rows] bool, pod_emb
-// [n_rows, emb] and node_emb [n_nodes, emb] float32 (emb 16 or 32, zero
-// padded), key [2] int64 (two 32-bit words). Scratch: words [G, ceil(n_nodes
-// / 32)] uint32, chunk_keys [ceil(n_rows / chunk), 2] uint32, row_key
-// [n_rows] uint64, row_nf, row_list [n_rows] and row_count [1] int32,
-// partial [n_rows, ceil(n_nodes / slice)] float64. Outputs prop, pick, nf
-// [n_rows] int32 and lmean [n_rows] float32. Returns the first CUDA error of
-// the launches (0 = launched).
-int yk_learned_propose(const void* req, const void* group_id,
-                       const void* feas, const void* free_,
-                       const void* active, const void* pod_emb,
-                       const void* node_emb, const void* key, int rnd,
-                       int chunk, float tau, int n_rows, int n_nodes,
-                       int n_groups, int n_res, int emb, void* words,
-                       void* chunk_keys, void* row_key, void* row_nf,
-                       void* row_list, void* row_count, void* partial,
-                       void* prop, void* pick, void* nf, void* lmean,
-                       void* stream) {
+// The shard part over the nodes node_offset .. node_offset + n_nodes of
+// m_total. req [n_rows, n_res] int32, group_id [n_rows] int32, feas [G,
+// n_nodes] bool, free_ [n_nodes, n_res] int32, active [n_rows] bool,
+// pod_emb [n_rows, emb] and node_emb [n_nodes, emb] float32 (emb 16 or 32,
+// zero padded), key [2] int64 (two 32-bit words). Scratch: words [G,
+// ceil(n_nodes / 32)] uint32, chunk_keys [ceil(n_rows / chunk), 2] uint32,
+// row_list [n_rows] and row_count [1] int32. Outputs: row_key [n_rows]
+// int64 (LLONG_MIN where no node fits or the row is inactive), row_nf
+// [n_rows] int32, partial [n_rows, ceil(n_nodes / slice)] float64 (written
+// on the active rows only). Returns the first CUDA error of the launches
+// (0 = launched).
+int yk_learned_propose_shard(const void* req, const void* group_id,
+                             const void* feas, const void* free_,
+                             const void* active, const void* pod_emb,
+                             const void* node_emb, const void* key, int rnd,
+                             int chunk, float tau, int n_rows, int n_nodes,
+                             int node_offset, int m_total, int n_groups,
+                             int n_res, int emb, void* words,
+                             void* chunk_keys, void* row_key, void* row_nf,
+                             void* row_list, void* row_count, void* partial,
+                             void* stream) {
   if (n_rows <= 0) return 0;
   if ((emb != 16 && emb != 32) || chunk <= 0 || n_groups < 1 ||
-      n_res > 64) {
+      n_res > 64 || node_offset < 0 || n_nodes < 0 ||
+      (long long)node_offset + n_nodes > (long long)m_total) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{req,      group_id, feas,       free_,   active,  pod_emb,
-               node_emb, key,      rnd,        chunk,   tau,     n_rows,
-               n_nodes,  n_groups, n_res,      words,   chunk_keys,
-               row_key,  row_nf,   row_list,   row_count, partial, prop,
-               pick,     nf,       lmean};
+  const ShardArgs a{req,        group_id,  feas,        free_,      active,
+                    pod_emb,    node_emb,  key,         rnd,        chunk,
+                    tau,        n_rows,    n_nodes,     node_offset, m_total,
+                    n_groups,   n_res,     words,       chunk_keys, row_key,
+                    row_nf,     row_list,  row_count,   partial};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_res <= 8) return (int)dispatch<8>(emb, a, s);
-  return (int)dispatch<64>(emb, a, s);
+  if (n_res <= 8) return (int)dispatch_shard<8>(emb, a, s);
+  return (int)dispatch_shard<64>(emb, a, s);
+}
+
+// The finish over the merged slots of m_total nodes: active [n_rows] bool,
+// pod_emb [n_rows, emb] and node_emb [m_total, emb] float32 (emb 16 or 32,
+// zero padded), row_key [n_rows] int64 (the shards' keys max-merged),
+// row_nf [n_rows] int32 (their sum), partial [n_rows, n_slices] float64
+// (their tables side by side). Outputs prop, pick, nf [n_rows] int32 and
+// lmean [n_rows] float32. Returns the launch's CUDA error (0 = launched).
+int yk_learned_propose_finish(const void* active, const void* pod_emb,
+                              const void* node_emb, const void* row_key,
+                              const void* row_nf, const void* partial,
+                              int n_rows, int m_total, int n_slices, int emb,
+                              void* prop, void* pick, void* nf, void* lmean,
+                              void* stream) {
+  if (n_rows <= 0) return 0;
+  if ((emb != 16 && emb != 32) || m_total < 0 || n_slices < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return emb == 16
+             ? (int)run_finish<16>(active, pod_emb, node_emb, row_key,
+                                   row_nf, partial, n_rows, m_total,
+                                   n_slices, prop, pick, nf, lmean, s)
+             : (int)run_finish<32>(active, pod_emb, node_emb, row_key,
+                                   row_nf, partial, n_rows, m_total,
+                                   n_slices, prop, pick, nf, lmean, s);
 }
 
 const char* yk_cuda_error_string(int code) {

@@ -55,12 +55,14 @@ the single-device solve's. A solve without a mesh runs the same code over
 the mesh of one on its device.
 
 The learned policy (`learned` = (params, seed), solver.policy=learned; see
-ops/learned) embeds each pod slice's asks once and the nodes' current free
-capacity every round: the gated learned proposals (the learned_propose
-kernel) override the water fill before the topology gang proposals, which
-still win, and the odd rounds' best node carries the learned term (the
-best-node kernel's exact mode, as the reference's learned argmax is its
-plain one). With learned=None every output is the greedy solve's.
+ops/learned) embeds each pod slice's asks once on the lead device and the
+nodes' current free capacity every round, each shard its own rows: the
+gated learned proposals (the learned_propose kernel's shard part on each
+shard, merged and finished on the lead device) override the water fill
+before the topology gang proposals, which still win, and the odd rounds'
+best node carries the learned term (the best-node kernel's exact mode, as
+the reference's learned argmax is its plain one). With learned=None every
+output is the greedy solve's.
 """
 from __future__ import annotations
 
@@ -75,8 +77,9 @@ from yunikorn_tpu_torch.ops.best_nodes import (LIBRARY, NEG_INF, TOPO_GANG_W,
                                                best_nodes, learned_dot,
                                                merge_keys, pref_bonus)
 from yunikorn_tpu_torch.ops.learned import LIBRARY as LEARNED_LIBRARY
-from yunikorn_tpu_torch.ops.learned import (learned_prep, learned_propose,
-                                            node_embedding)
+from yunikorn_tpu_torch.ops.learned import (  # noqa: F401
+    learned_prep, learned_propose, learned_propose_finish,
+    learned_propose_shard, merge_proposals, node_embedding)
 from yunikorn_tpu_torch.ops.predicates import (
     group_feasibility,
     group_preferred_bonus,
@@ -129,11 +132,6 @@ class SolveResult:
     # host bytes of the pod-side args a sharded solve ships to its lead
     # device (parallel/mesh.solve_sharded; None on the single device)
     replicated_bytes: Optional[int] = None
-
-
-def not_ported(what: str, item: int, name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item {item}: {name})")
 
 
 def load_kernels() -> None:
@@ -795,24 +793,68 @@ def _hoist_group_state(g_term_req, g_term_forb, g_term_valid, g_anyof,
 
 
 def _best_nodes_sharded(nm, bounds, M, req, group_id, feas_p, soft_p, free_p,
-                        base_p, chunk, rows, node_dom_p=None, pref=None):
+                        base_p, chunk, rows, node_dom_p=None, pref=None,
+                        pod_emb=None, node_emb_p=None):
     """The exact best node over every shard: one best_nodes call a shard on
-    its device and slice, with node_offset / m_total / keys_out, the keys
-    merged on the lead device (ops/best_nodes.merge_keys). Returns (best
-    [N] int32 global node, feasible [N] bool), equal to one call over all
-    M nodes."""
+    its device and slice, with node_offset / m_total / keys_out (with the
+    planned-domain bonus when node_dom_p is given, the learned term when
+    pod_emb and each shard's node_emb_p are), the keys merged on the lead
+    device (ops/best_nodes.merge_keys). Returns (best [N] int32 global
+    node, feasible [N] bool), equal to one call over all M nodes."""
     keys = []
     for i, (lo, _hi) in enumerate(bounds):
         k = torch.empty((req.shape[0],), dtype=torch.int64,
                         device=nm.devices[i])
-        steer = ({} if node_dom_p is None else
+        extra = ({} if node_dom_p is None else
                  dict(node_dom=node_dom_p[i], pref=nm.put(pref, i)))
+        if pod_emb is not None:
+            extra.update(pod_emb=nm.put(pod_emb, i), node_emb=node_emb_p[i])
         best_nodes(nm.put(req, i), nm.put(group_id, i), feas_p[i], soft_p[i],
                    free_p[i], base_p[i], mode="exact", has_soft=True,
                    chunk=chunk, rows=nm.put(rows, i), node_offset=lo,
-                   m_total=M, keys_out=k, **steer)
+                   m_total=M, keys_out=k, **extra)
         keys.append(k)
     return merge_keys(nm.to_lead(keys), M)
+
+
+def learned_round(nm, bounds, M, rt, req, group_id, feas_p, free_p, cap_p,
+                  active, rnd, chunk, score_cols, tau=None):
+    """One round's learned proposals over the mesh `nm`: each shard embeds
+    its node rows (ops/learned.node_embedding at its offset) and runs the
+    learned_propose kernel's shard part on its device and slice; the parts
+    merge on the lead device (merge_proposals) and the finish applies the
+    gate there. rt is the slice's ops/learned.LearnedRT, tau (default the
+    params') the exploration temperature. Returns (prop [N] int32, M where
+    no override; the shards' node embeddings; the gathered [M, E] one), the
+    proposals equal to one learned_propose call over all M nodes."""
+    tau = rt.params["tau"] if tau is None else tau
+    node_emb_p, parts = [], []
+    for i, (lo, _hi) in enumerate(bounds):
+        node_emb_p.append(node_embedding(rt, free_p[i], cap_p[i], score_cols,
+                                         node_offset=lo, m_total=M))
+        parts.append(learned_propose_shard(
+            nm.put(rt.pod_emb, i), node_emb_p[i], nm.put(group_id, i),
+            feas_p[i], free_p[i], nm.put(req, i), nm.put(active, i), tau,
+            nm.put(rt.key, i), rnd, chunk, node_offset=lo, m_total=M))
+    keys, nf, partial = merge_proposals(parts, nm.lead)
+    node_emb = nm.gather(node_emb_p)
+    prop = learned_propose_finish(active, rt.pod_emb, node_emb, keys, nf,
+                                  partial)[0]
+    return prop, node_emb_p, node_emb
+
+
+def subtract_accepts(nm, bounds, free_p, snode, delta) -> Shards:
+    """Each shard's free rows less the accepted requests delta [L, R] (0 on
+    rows not accepted) at the global nodes snode [L] it owns (snode M or
+    beyond: none): the subtraction on the shard's device, integer adds that
+    are the same in any order."""
+    parts = []
+    for i, (lo, hi) in enumerate(bounds):
+        own = (snode >= lo) & (snode < hi)
+        parts.append(free_p[i].index_add(
+            0, nm.put(torch.where(own, snode - lo, 0), i),
+            nm.put(torch.where(own[:, None], -delta, 0), i)))
+    return Shards(parts)
 
 
 def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
@@ -831,9 +873,9 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
     this slice's ops/learned.LearnedRT: each round embeds the current free
     capacity, the gated learned proposals override the water fill (the
     gang proposals still win over them), and the odd rounds' best node
-    carries the learned term in the exact mode. Returns (assigned [N]
-    int32, accept_round [N] int32, free [M, R] int32, rounds, cnt [L, D]
-    int32).
+    carries the learned term in the exact mode (learned_round). Returns
+    (assigned [N] int32, accept_round [N] int32, free [M, R] int32, rounds,
+    cnt [L, D] int32).
 
     mesh (a NodeMesh; default the mesh of one on req's device):
     group_feas / group_soft [G, M], free0 / capacity [M, R] and topo_rt's
@@ -841,7 +883,7 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
     stages run per shard, the global ones on the rows gathered onto the
     lead device, and free comes back as Shards (for the next chained slice)
     when a mesh was given, else as one tensor. A mesh of several shards
-    takes no learned_rt and no use_pallas."""
+    takes no use_pallas."""
     N, R = req.shape
     dev = req.device
     nm = mesh if mesh is not None else NodeMesh((dev,))
@@ -864,7 +906,6 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
     around = torch.full((N,), -1, dtype=torch.int32, device=dev)
     rank_order = torch.argsort(rank, stable=True)
     rank_sorted_req = req[rank_order]
-    mode = "quantized" if use_pallas else "exact"
     g_capped = g_rr_dom = None
     if loc is not None:
         (spread_l, aff_l, softspread_l, anti_l, min_skew_l, group_contrib,
@@ -914,16 +955,13 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
         proposals = _water_fill_proposals(req, group_id, rank_order, active,
                                           feas_round, cur_free, base_scores,
                                           soft_round, g_rr_dom, g_capped)
-        learned_emb = None
+        learned_emb = node_emb_p = None
         if learned_rt is not None:
-            node_emb = node_embedding(learned_rt, cur_free, capacity,
-                                      score_cols)
-            learned_emb = (learned_rt.pod_emb, node_emb)
             # confident learned proposals override the water fill
-            lprop = learned_propose(
-                learned_rt.pod_emb, node_emb, group_id, feas_round, cur_free,
-                req, active, learned_rt.params["tau"], learned_rt.key, rnd,
-                chunk)[0]
+            lprop, node_emb_p, node_emb = learned_round(
+                nm, bounds, M, learned_rt, req, group_id, feas_rp, free_p,
+                cap_p, active, rnd, chunk, score_cols)
+            learned_emb = (learned_rt.pod_emb, node_emb)
             proposals = torch.where(lprop < M, lprop.long(), proposals)
         if topo_rt is not None:
             # the segmented per-domain gang fill wins wherever it names a
@@ -950,34 +988,27 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                     req, group_id, feas_round, soft_round, cur_free, capacity,
                     base_scores, chunk, policy, score_cols,
                     learned_emb=learned_emb, **steer)
-            elif nm.size > 1:
-                # one kernel call a shard, the exact mode (the reference's
-                # mesh runs its plain argmax), with the bonus when steered
+            elif use_pallas and topo_rt is None and learned_emb is None:
+                # the quantized mode (one device): the soft-free kernel
+                # variant unless the batch has soft rows, as the Pallas
+                # kernel's
+                best, feasible = best_nodes(
+                    req, group_id, feas_round, soft_round, cur_free,
+                    base_scores, mode="quantized", has_soft=pallas_soft,
+                    chunk=chunk, rows=active & ~prop_fits)
+            else:
+                # the exact mode, one kernel call a shard (the mesh of one
+                # included): it always scores with the soft matrix, as the
+                # reference's argmax does, with the bonus when steered and
+                # the learned term under the learned policy (the steered
+                # and the learned argmax are the reference's plain one
+                # whatever use_pallas says)
                 best, feasible = _best_nodes_sharded(
                     nm, bounds, M, req, group_id, feas_rp, soft_rp, free_p,
                     base_p, chunk, active & ~prop_fits, node_dom_p,
-                    None if topo_rt is None else topo_rt[1])
-            elif topo_rt is not None or learned_emb is not None:
-                # the steered and the learned argmax are the reference's
-                # plain one whatever use_pallas says: the exact mode with
-                # the bonus and the learned term
-                emb = ({} if learned_emb is None else
-                       dict(pod_emb=learned_emb[0], node_emb=learned_emb[1]))
-                best, feasible = best_nodes(
-                    req, group_id, feas_round, soft_round, cur_free,
-                    base_scores, mode="exact", has_soft=True, chunk=chunk,
-                    rows=active & ~prop_fits,
-                    node_dom=None if topo_rt is None else topo_rt[0],
-                    pref=None if topo_rt is None else topo_rt[1], **emb)
-            else:
-                # the exact mode always scores with the soft matrix, as the
-                # reference's argmax does; the soft-free kernel variant is
-                # the quantized mode's, as the Pallas kernel's is
-                best, feasible = best_nodes(
-                    req, group_id, feas_round, soft_round, cur_free,
-                    base_scores, mode=mode,
-                    has_soft=pallas_soft or not use_pallas, chunk=chunk,
-                    rows=active & ~prop_fits)
+                    None if topo_rt is None else topo_rt[1],
+                    None if learned_emb is None else learned_emb[0],
+                    node_emb_p)
             merged = torch.where(prop_fits, proposals, best.long())
             cand = active & (feasible | prop_fits)
         else:
@@ -998,15 +1029,7 @@ def _solve_rounds(req, group_id, rank, valid, group_feas, group_soft, free0,
                 loc, M, cnt, total, spread_l, aff_l, anti_l, min_skew_l,
                 allowance_l, g_ref_masks, loc[9], g_capped, loc_plan)
         delta = torch.where(accept_sorted[:, None], sreq, 0)
-        # each shard subtracts the accepts on its own rows (integer adds:
-        # the same in any order)
-        parts = []
-        for i, (lo, hi) in enumerate(bounds):
-            own = (snode >= lo) & (snode < hi)
-            parts.append(free_p[i].index_add(
-                0, nm.put(torch.where(own, snode - lo, 0), i),
-                nm.put(torch.where(own[:, None], -delta, 0), i)))
-        free_p = Shards(parts)
+        free_p = subtract_accepts(nm, bounds, free_p, snode, delta)
         accepted = torch.zeros((N,), dtype=torch.bool, device=dev)
         accepted[order] = accept_sorted
         assigned = torch.where(accepted, merged.to(torch.int32), assigned)
@@ -1073,15 +1096,11 @@ def _prepare(args, loc, device, topo=None, mesh=None):
             group_soft, loc, loc_hoist, loc_plan, cnt0, topo_rt)
 
 
-def _solve_mesh(device, mesh, learned=None, use_pallas=False) -> NodeMesh:
+def _solve_mesh(device, mesh, use_pallas=False) -> NodeMesh:
     """The mesh a solve runs over: `mesh`, or the mesh of one on `device`
-    resolved. A mesh of several shards takes neither the learned policy nor
-    the quantized mode."""
+    resolved. A mesh of several shards does not take the quantized mode."""
     if mesh is None:
         return NodeMesh((resolve_device(device),))
-    if mesh.size > 1 and learned is not None:
-        not_ported("the learned policy under a node mesh", 24,
-                   "the learned and cvx arms under the mesh")
     if mesh.size > 1 and use_pallas:
         raise ValueError("a sharded solve runs the exact mode "
                          "(use_pallas=False), as the reference's mesh runs "
@@ -1125,7 +1144,7 @@ def solve(
     the node axis over (its lead device replaces `device`; node-side
     arguments may come as Shards); the outputs are the single-device
     solve's, free_after gathered on the lead device."""
-    mesh = _solve_mesh(device, mesh, learned, use_pallas)
+    mesh = _solve_mesh(device, mesh, use_pallas)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
      loc_hoist, loc_plan, cnt0, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
@@ -1139,7 +1158,8 @@ def solve(
         raise ValueError(f"batch size {N} must be a multiple of the chunk "
                          f"size {chunk}")
     learned_rt = (None if learned is None else
-                  learned_prep(learned, req, capacity, score_cols))
+                  learned_prep(learned, req, mesh.gather(capacity),
+                               score_cols))
     assigned, around, free, rounds, cnt = _solve_rounds(
         req, group_id, rank, valid, group_feas, group_soft, free, cnt0,
         capacity, loc, loc_hoist, max_rounds=max_rounds, chunk=chunk,
@@ -1178,7 +1198,7 @@ def solve_chunked(
 
     PRECONDITION: pod rows are sorted by rank (solve_batch sorts and unsorts
     around this call) — slice boundaries supersede rank priority."""
-    mesh = _solve_mesh(device, mesh, learned, use_pallas)
+    mesh = _solve_mesh(device, mesh, use_pallas)
     (req, group_id, rank, valid, free, capacity, group_feas, group_soft, loc,
      loc_hoist, loc_plan, cnt, topo_rt) = _prepare(
         (req, group_id, rank, valid, g_term_req, g_term_forb, g_term_valid,
@@ -1194,12 +1214,13 @@ def solve_chunked(
                          f"{mb}, and chunk_pods of the chunk size {chunk}")
     assigned, around = [], []
     round_base = 0
+    cap_full = mesh.gather(capacity)
     for k, start in enumerate(range(0, N, mb)):
         sl = slice(start, start + mb)
         loc_k = None if loc is None else loc[:3] + (loc[3][sl],) + loc[4:]
         topo_k = None if topo_rt is None else (topo_rt[0], topo_rt[1][sl])
         learned_k = (None if learned is None else learned_prep(
-            learned, req[sl], capacity, score_cols, salt=k))
+            learned, req[sl], cap_full, score_cols, salt=k))
         a_k, ar_k, free, r_k, cnt = _solve_rounds(
             req[sl], group_id[sl], rank[sl], valid[sl], group_feas,
             group_soft, free, cnt, capacity, loc_k, loc_hoist,

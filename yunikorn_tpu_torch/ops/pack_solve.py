@@ -69,8 +69,10 @@ from yunikorn_tpu_torch.ops.assign import (
     _stable_lexsort,
     prepare_solve_args,
     solve_args_from_numpy,
+    subtract_accepts,
 )
-from yunikorn_tpu_torch.parallel.mesh import Shards
+from yunikorn_tpu_torch.ops.best_nodes import KEY_NONE, exact_key, merge_keys
+from yunikorn_tpu_torch.parallel.mesh import NodeMesh, Shards
 from yunikorn_tpu_torch.utils import prng
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
 
@@ -190,7 +192,7 @@ def _relax_part(preq_f, feas, pvalid, base, soft, free_f, lp_iters: int):
 
 
 def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
-                keys, rounds: int, policy: str, sc_cols: int):
+                keys, rounds: int, policy: str, sc_cols: int, mesh=None):
     """Seeded randomized rounding of each part (batched over parts): each
     round samples every ask a node by Gumbel-max over the scores (noise
     from fold_in(keys[k], round) for part k) among the nodes it fits,
@@ -202,43 +204,80 @@ def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
     preq [K, n, R] int32, prank/pvalid [K, n], feas [K, n, m] bool, scores
     [K, n, m], nfree/ncap [K, m, R] int32, size_key [K, n] float32, keys
     [K, 2]. Returns (assigned [K, n] int32 local node index or -1,
-    free_left [K, m, R] int32)."""
+    free_left [K, m, R] int32).
+
+    mesh (a NodeMesh, for the cvx arm's one part over the whole fleet):
+    feas, scores, nfree and ncap come one piece a shard ([K, n, W] and
+    [K, W, R], in shard order, on the shards' devices). Each shard masks
+    its columns by fit, adds its window of the round's Gumbel draw (prng's
+    cols) and takes its argmax there; the picks merge on the lead device as
+    exact keys (ops/best_nodes.merge_keys: the lowest node among equal
+    scores, -0.0 = +0.0, as one torch.argmax over all m nodes), the accept
+    runs there over the gathered free capacity, and each shard subtracts
+    the accepts on its own nodes; free_left comes back as Shards of the
+    [K * W, R] pieces. Without a mesh the same code runs over one piece."""
     K, n, R = preq.shape
-    m = nfree.shape[1]
     dev = preq.device
-    cur = nfree.reshape(K * m, R)
-    cap = ncap.reshape(K * m, R)[:, :sc_cols]
+    if mesh is None:
+        nm = NodeMesh((dev,))
+        feas, scores, nfree, ncap = [feas], [scores], [nfree], [ncap]
+    else:
+        nm = mesh
+    m = sum(f.shape[1] for f in nfree)
+    bounds = nm.bounds(m)
+    if K > 1 and nm.size > 1:
+        raise ValueError("node pieces round one part")
+    # the pieces' rows in the flat [K * m] node index of the accept
+    flat_bounds = bounds if K == 1 else [(0, K * m)]
+    cur = [f.reshape(-1, R) for f in nfree]
+    cap = [c.reshape(-1, R)[:, :sc_cols] for c in ncap]
+    req_p = [nm.put(preq, s) for s in range(nm.size)]
     req_flat = preq.reshape(K * n, R)
     rank_flat = prank.reshape(K * n)
     size_flat = -size_key.reshape(K * n)
     part_base = (torch.arange(K, device=dev) * m)[:, None]      # [K, 1]
     done = ~pvalid.reshape(K * n)
     assigned = torch.full((K * n,), -1, dtype=torch.int32, device=dev)
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     for i in range(rounds):
-        cur3 = cur.view(K, 1, m, R)
-        margin = cur3[..., 0] - preq[:, :, None, 0]
-        for r in range(1, R):
-            margin = torch.minimum(margin, cur3[..., r] - preq[:, :, None, r])
-        ok = feas & (margin >= 0)
-        base_now = node_base_scores(cur[:, :sc_cols], cap, policy).view(K, m)
-        u = (scores + 0.05 * base_now[:, None, :]) * _LP_INV_TAU
-        noise = prng.gumbel(prng.fold_in(keys, i), (n, m))
-        best = torch.argmax(torch.where(ok, u + noise, neg), dim=2)  # [K, n]
-        cand = ~done & ok.any(dim=2).reshape(K * n)
-        gnode = torch.where(cand, (best + part_base).reshape(K * n), K * m)
+        round_keys = prng.fold_in(keys, i)
+        picks = []
+        for s, (lo, hi) in enumerate(bounds):
+            w, rq = hi - lo, req_p[s]
+            cur3 = cur[s].view(K, 1, w, R)
+            margin = cur3[..., 0] - rq[:, :, None, 0]
+            for r in range(1, R):
+                margin = torch.minimum(margin,
+                                       cur3[..., r] - rq[:, :, None, r])
+            ok = feas[s] & (margin >= 0)
+            base_now = node_base_scores(cur[s][:, :sc_cols], cap[s],
+                                        policy).view(K, w)
+            u = (scores[s] + 0.05 * base_now[:, None, :]) * _LP_INV_TAU
+            noise = prng.gumbel(nm.put(round_keys, s), (n, m), cols=(lo, hi))
+            masked = torch.where(ok, u + noise, NEG_INF)
+            best = torch.argmax(masked, dim=2)                  # [K, n]
+            top = masked.gather(2, best[..., None])[..., 0]
+            picks.append(torch.where(ok.any(dim=2),
+                                     exact_key(top, best + lo, m), KEY_NONE))
+        best, found = merge_keys(nm.to_lead(picks), m)          # [K, n]
+        cand = ~done & found.reshape(K * n)
+        gnode = torch.where(cand, (best.long() + part_base).reshape(K * n),
+                            K * m)
         order = _stable_lexsort(rank_flat, size_flat, gnode)
         snode = gnode[order]
         sreq = req_flat[order]
-        accept_sorted = _segment_prefix_accept(snode, sreq, cur, K * m)
+        cur_all = nm.gather([c.view(K, -1, R) for c in cur], 1)
+        accept_sorted = _segment_prefix_accept(
+            snode, sreq, cur_all.reshape(K * m, R), K * m)
         delta = torch.where(accept_sorted[:, None], sreq, 0)
-        cur = cur.index_add(0, snode.clamp(0, K * m - 1), -delta)
+        cur = list(subtract_accepts(nm, flat_bounds, cur, snode, delta))
         accepted = torch.zeros((K * n,), dtype=torch.bool, device=dev)
         accepted[order] = accept_sorted
         assigned = torch.where(accepted, best.reshape(K * n).to(torch.int32),
                                assigned)
         done = done | accepted
-    return assigned.view(K, n), cur.view(K, m, R)
+    if mesh is None:
+        return assigned.view(K, n), cur[0].view(K, m, R)
+    return assigned.view(K, n), Shards(cur)
 
 
 def pack_solve(

@@ -13,22 +13,27 @@ One process drives every shard, as the JAX core drives its mesh from one
 program. What is node-local runs on each shard's device: the group
 feasibility and soft rows, the base scores, the locality rules, the
 odd rounds' best-node kernel on the shard's slice and the scatter of the
-accepted requests into the shard's free capacity. The stages that order
-nodes globally (the water fill's score sort, the topology gang fill, the
-accept scan) read the node rows gathered onto the lead device, as GSPMD
-gathers for them. The cross-shard steps are the few NodeMesh methods below:
-each is a `Tensor.to(lead, non_blocking=True)` copy followed by a
-concatenation, a max or a sum. Between two cards that copy is a peer copy;
-on one device (set_mesh_devices([cuda:0] * 4), [cpu] * 8) it is a view.
+accepted requests into the shard's free capacity; under the learned
+policy the node embedding and the learned_propose kernel's shard part; in
+the cvx arm the [N, M / k] relaxation state and its rounding's draws. The
+stages that order nodes globally (the water fill's score sort, the
+topology gang fill, the accept scans, the learned proposal's finish) read
+the node rows gathered onto the lead device, as GSPMD gathers for them.
+The cross-shard steps are the few NodeMesh methods below: each is a
+`Tensor.to(lead, non_blocking=True)` copy followed by a concatenation, a
+max or a sum. Between two cards that copy is a peer copy; on one device
+(set_mesh_devices([cuda:0] * 4), [cpu] * 8) it is a view.
 
 Every result is bit-identical to the single-device solve: the node-local
-stages are elementwise along M, the best-node keys merge by a max that is
-the same in any shard order (ops/best_nodes.merge_keys), integer scatters
-are exact in any order, and every float sum keeps its single-device order.
-
-The learned and cvx arms do not run under a mesh yet (ROADMAP item 24):
-LEARNED_SHARDED_SUPPORTED and CVX_SHARDED_SUPPORTED are False, and the core
-skips those arms on a mesh cycle.
+stages are elementwise along M, the best-node and learned keys merge by a
+max that is the same in any shard order (ops/best_nodes.merge_keys,
+ops/learned.merge_proposals), integer scatters are exact in any order, the
+node tower runs in fleet-aligned row blocks (ops/learned.embed_nodes), and
+every float sum and product of the cvx arm runs in blocks whose width the
+layout does not change (ops/cvx_solve.node_blocks): each shard sums its
+128-column blocks of a row on its device and the lead device sums the
+gathered partials (row_total), the same ops on the same values as on one
+device when the mesh has 2, 4 or 8 shards and 8 divides M.
 """
 from __future__ import annotations
 
@@ -37,14 +42,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+# which arms run under a mesh, as the JAX package names them (all do)
 # the pack arm under a mesh: the mesh-aligned "topo" partitioner cuts every
 # part inside one shard (pack_solve_sharded)
 PACK_SHARDED_SUPPORTED = True
-# ROADMAP item 24: the learned arm needs learned_propose with a node offset
-# for its counter-based noise and node_embedding per shard; the cvx arm its
-# projection's cross-shard row sums
-LEARNED_SHARDED_SUPPORTED = False
-CVX_SHARDED_SUPPORTED = False
+# the learned arm: solve_sharded(learned=), each shard embedding its nodes
+# and hashing its own pairs (learned_propose's node offset)
+LEARNED_SHARDED_SUPPORTED = True
+# the cvx arm: cvx_solve_sharded, the [N, M] relaxation cut along M
+CVX_SHARDED_SUPPORTED = True
 
 class Shards(tuple):
     """One tensor cut along its node axis `dim` into a mesh's shards: the
@@ -176,14 +182,13 @@ def solve_sharded(batch, node_arrays, mesh: NodeMesh, *,
     device_state: the encoder's mirror over this mesh
     (SnapshotEncoder.device_arrays(mesh=mesh)): its Shards stay on their
     devices, so node state moves once per change, not once per cycle.
-    learned must be None (ROADMAP item 24). The result's replicated_bytes
-    is the host bytes of the pod-side args shipped to the lead device (the
-    node side rides the mirror, which counts its own uploads)."""
+    learned = (params, seed) runs the learned policy's solve (the params
+    ride to every shard; each embeds its own nodes). The result's
+    replicated_bytes is the host bytes of the pod-side args shipped to the
+    lead device (the node side rides the mirror, which counts its own
+    uploads)."""
     from yunikorn_tpu_torch.ops import assign
 
-    if learned is not None:
-        assign.not_ported("the learned policy under a node mesh", 24,
-                          "the learned and cvx arms under the mesh")
     mesh.bounds(node_arrays.capacity)   # raises unless M % size == 0
     np_args, static = assign.prepare_solve_args(
         batch, node_arrays, free_delta=free_delta, node_mask=node_mask,
@@ -192,7 +197,7 @@ def solve_sharded(batch, node_arrays, mesh: NodeMesh, *,
         # store's gather is a single-device tensor the mesh path skips
         allow_req_device=False)
     kwargs = dict(static, max_rounds=max_rounds, chunk=chunk, policy=policy,
-                  use_pallas=False, mesh=mesh)
+                  use_pallas=False, mesh=mesh, learned=learned)
     N = np_args[0].shape[0]
     mb = 1 << (max(int(max_batch), 64).bit_length() - 1)
     if N > mb:
@@ -259,6 +264,28 @@ def pack_solve_sharded(batch, node_arrays, mesh: NodeMesh, *,
     return pack_mod.PackResult(assigned=assigned, free_after=free_after,
                                feasible=feasible, n_parts=n_parts,
                                partitioner="topo")
+
+
+def cvx_solve_sharded(batch, node_arrays, mesh: NodeMesh, *,
+                      policy: str = "binpacking", free_delta=None,
+                      node_mask=None, ports_delta=None, seed: int = 0,
+                      chunk: int = 512, device_state=None, learned=None):
+    """ops/cvx_solve's full-fleet solve with the node axis sharded over
+    `mesh`: the [N, M] relaxation state, its feasibility and soft rows, the
+    duals and the rounding's noise cut along M on the shards' devices (X
+    is never gathered), the row sums over M as fixed trees, the rounding's
+    argmax merged across shards and its accept on the lead device, the
+    repair on the sharded round loop. The same CvxResult as
+    cvx_solve_batch, free_after gathered on the lead device, bit-equal to
+    it when M / mesh size is a power of two. learned: the two-tower params
+    for the warm-started duals (each shard embeds its own nodes). Raises
+    CvxUnsupported for batches outside the model."""
+    from yunikorn_tpu_torch.ops import cvx_solve as cvx_mod
+
+    return cvx_mod.cvx_solve_batch(
+        batch, node_arrays, policy=policy, free_delta=free_delta,
+        node_mask=node_mask, ports_delta=ports_delta, seed=seed, chunk=chunk,
+        device_state=device_state, learned=learned, mesh=mesh)
 
 
 def preempt_solve_sharded(np_args, mesh: NodeMesh, *, max_candidates: int):

@@ -71,11 +71,24 @@ def _words(key: torch.Tensor, ndim: int):
     return key[..., 0].reshape(view), key[..., 1].reshape(view)
 
 
-def _counters(shape, device):
+def _counters(shape, device, cols=None):
     """The partitionable counters of a draw of `shape`: the high and low
-    words of each cell's flat row-major index."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device).view(shape)
+    words of each cell's flat row-major index; with cols = (lo, hi), those
+    of the columns lo..hi of the last axis only (row * shape[-1] + lo + j,
+    the counters the whole draw gives those cells)."""
+    if cols is None:
+        n = math.prod(shape)
+        idx = torch.arange(n, dtype=torch.int64, device=device).view(shape)
+    else:
+        lo, hi = (int(c) for c in cols)
+        if not 0 <= lo <= hi <= shape[-1]:
+            raise ValueError(f"columns {lo}..{hi} lie outside a last axis "
+                             f"of {shape[-1]}")
+        rows = torch.arange(math.prod(shape[:-1]), dtype=torch.int64,
+                            device=device) * shape[-1]
+        idx = (rows[:, None] + torch.arange(lo, hi, dtype=torch.int64,
+                                            device=device)[None, :])
+        idx = idx.view(shape[:-1] + (hi - lo,))
     return idx >> 32, idx & MASK
 
 
@@ -97,22 +110,24 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, cols=None) -> torch.Tensor:
     """32-bit random words of `shape` for each key of key [..., 2]:
-    int64 [..., *shape], each word the XOR of the hash's two outputs."""
+    int64 [..., *shape], each word the XOR of the hash's two outputs.
+    cols = (lo, hi): only the columns lo..hi of the last axis of that draw
+    (a node shard's window), bit for bit the same words."""
     shape = tuple(int(s) for s in shape)
-    hi, lo = _counters(shape, key.device)
+    hi, lo = _counters(shape, key.device, cols)
     k1, k2 = _words(key, len(shape))
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return b1.bitwise_xor_(b2)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, cols=None) -> torch.Tensor:
     """float32 uniform draws in [minval, maxval): the top 23 bits of each
     random word as the mantissa of a float in [1, 2), minus 1, scaled and
-    shifted in float32, and floored at minval."""
-    bits = random_bits(key, shape)
+    shifted in float32, and floored at minval. cols as in random_bits."""
+    bits = random_bits(key, shape, cols)
     one = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = np.float32(minval)
@@ -120,10 +135,11 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     return (floats * span + float(lo)).clamp_(min=float(lo))
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape, cols=None) -> torch.Tensor:
     """Standard Gumbel noise, -log(-log(u)) with u uniform in
-    [tiny, 1) (tiny = the smallest normal float32)."""
-    u = uniform(key, shape, _TINY_F32, 1.0)
+    [tiny, 1) (tiny = the smallest normal float32). cols as in
+    random_bits."""
+    u = uniform(key, shape, _TINY_F32, 1.0, cols)
     return u.log_().neg_().log_().neg_()
 
 

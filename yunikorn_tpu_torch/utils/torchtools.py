@@ -279,15 +279,43 @@ def warm_kernel_calls(batch, nodes, so, use_pallas, learned, dev) -> list:
     return calls
 
 
-def _warm_kernels(batch, nodes, so, use_pallas, learned, dev) -> dict:
+def warm_learned_sharded(batch, nodes, so, learned, mesh) -> int:
+    """The learned proposal a bucket's prewarm makes for a core with a node
+    mesh, at tau 0, through the sharded path its cycles take
+    (ops/assign.learned_round: one learned_propose shard call a shard,
+    then the finish on the lead device). Returns the shard calls made."""
+    from yunikorn_tpu_torch.ops import assign
+    from yunikorn_tpu_torch.ops.learned import learned_prep
+
+    np_args, static = assign.prepare_solve_args(batch, nodes)
+    (req, group_id, _rank, valid, free, capacity, group_feas, _soft,
+     *_rest) = assign._prepare(np_args[:23], None, mesh.lead, mesh=mesh)
+    free_p, cap_p = mesh.split(free), mesh.split(capacity)
+    M = free_p.shape[0]
+    sc = static.get("score_cols", 0)
+    rt = learned_prep(learned, req, mesh.gather(cap_p), sc)
+    assign.learned_round(mesh, mesh.bounds(M), M, rt, req, group_id,
+                         mesh.split(group_feas, 1), free_p, cap_p, valid, 0,
+                         min(so.chunk, req.shape[0]), sc, tau=0.0)
+    return mesh.size
+
+
+def _warm_kernels(batch, nodes, so, use_pallas, learned, dev,
+                  mesh=None) -> dict:
     """warm_kernel_calls' calls, launched on the card and synchronised:
-    each kernel module's lazy load happens on its first launch. On the CPU
-    the wrappers take the plain version: no call is made."""
+    each kernel module's lazy load happens on its first launch. With a
+    node mesh the learned proposal runs sharded (warm_learned_sharded), as
+    the core's cycles run it. On the CPU the wrappers take the plain
+    version: no call is made."""
     out = {"best_nodes_calls": 0, "learned_propose_calls": 0}
     if dev.type != "cuda":
         return out
     for name, kernel, args, kw in warm_kernel_calls(
             batch, nodes, so, use_pallas, learned, dev):
+        if name == "learned_propose" and mesh is not None:
+            out[f"{name}_calls"] += warm_learned_sharded(batch, nodes, so,
+                                                         learned, mesh)
+            continue
         kernel(*args, **kw)
         out[f"{name}_calls"] += 1
     torch.cuda.synchronize(dev)
@@ -311,7 +339,8 @@ def warm_bucket(n_nodes: int, n_pods: int, core=None, device=None) -> dict:
     the bucket also makes one best_nodes call at its shape, and a
     learned_propose call when the core serves a checkpoint (_warm_kernels;
     cmd/aot_smoke captures these calls and holds them against their plain
-    versions). The kernel libraries resolve through the AOT runtime (a
+    versions; a core with a mesh makes one learned_propose shard call a
+    shard and the finish). The kernel libraries resolve through the AOT runtime (a
     store hit loads, a miss builds). Isolated caches/encoders; never
     touches live state.
 
@@ -370,7 +399,7 @@ def warm_bucket(n_nodes: int, n_pods: int, core=None, device=None) -> dict:
                 res.assigned.cpu()  # executed, not merely queued
                 solves += 1
         kernels = _warm_kernels(batches[0], enc.nodes, so, use_pallas,
-                                learned, dev)
+                                learned, dev, mesh)
     return {"solves": solves, **kernels,
             "seconds": time.perf_counter() - t0}
 
