@@ -326,6 +326,25 @@ class _PipelineCycle:
     cold0: Optional[dict] = None
 
 
+class _CoreLock:
+    """CoreScheduler._core_lock's context manager."""
+
+    __slots__ = ("core", "cycle_id")
+
+    def __init__(self, core: "CoreScheduler", cycle_id: int):
+        self.core, self.cycle_id = core, cycle_id
+
+    def __enter__(self) -> None:
+        lock = self.core._lock
+        if not lock.try_acquire():
+            with self.core.tracer.span("lock_wait", self.cycle_id):
+                lock.acquire()
+
+    def __exit__(self, *exc) -> bool:
+        self.core._lock.release()
+        return False
+
+
 @dataclasses.dataclass
 class _SolveHandle:
     """One supervised assignment solve: the dispatch inputs (kept so a
@@ -1125,9 +1144,26 @@ class CoreScheduler(SchedulerAPI):
                                            list(app.user.groups))
 
     def update_allocation(self, request: AllocationRequest) -> None:
+        n_asks, n_rel, n_alloc = (len(request.asks), len(request.releases),
+                                  len(request.allocations))
+        # a request of one item is one pod's traffic (the shim submits each
+        # pod's ask and release on its own): it takes the core lock as it
+        # is, with no span, so a submit storm pays nothing for tracing
+        if n_asks + n_rel + n_alloc <= 1:
+            self._update_allocation(request, self._lock)
+            return
+        cid = self._cycle_seq
+        with self.tracer.span("si_update", cid, asks=n_asks, releases=n_rel,
+                              allocations=n_alloc) as sp:
+            sp.args["rejected"] = self._update_allocation(
+                request, self._core_lock(cid))
+
+    def _update_allocation(self, request: AllocationRequest, lock) -> int:
+        """update_allocation's work under `lock` (the core lock), then the
+        callback and the trigger; the number of asks rejected."""
         resp = AllocationResponse()
         accepted_keys: List[str] = []
-        with self._lock:
+        with lock:
             for ask in request.asks:
                 self._use_partition(self._app_partition.get(ask.application_id, "default"))
                 app = self.partition.applications.get(ask.application_id)
@@ -1164,6 +1200,12 @@ class CoreScheduler(SchedulerAPI):
         if (resp.new or resp.released or resp.rejected) and self.callback is not None:
             self.callback.update_allocation(resp)
         self.trigger()
+        return len(resp.rejected)
+
+    def _core_lock(self, cycle_id: int) -> "_CoreLock":
+        """The core lock, with a "lock_wait" tracer span around the wait
+        when another thread holds it (an uncontended acquire adds none)."""
+        return _CoreLock(self, cycle_id)
 
     # -------------------------------------------------- allocation bookkeeping
     def _restore_allocation(self, alloc: Allocation) -> None:
@@ -1914,8 +1956,9 @@ class CoreScheduler(SchedulerAPI):
                     chunk=self.solver.chunk, device_state=h.device_state,
                     partitioner=mode, device=self.device)
         try:
-            h.pack = self.supervisor.run("pack", pack_fn,
-                                         commit_success=False)
+            with self.tracer.span("pack_launch", self._cycle_seq):
+                h.pack = self.supervisor.run("pack", pack_fn,
+                                             commit_success=False)
             # counted only on a dispatch that produced a plan
             self._m_pack_partitioner.inc(mode=mode)
         except AbandonedDispatch:
@@ -2011,11 +2054,16 @@ class CoreScheduler(SchedulerAPI):
         n = h.batch.num_pods
         cands = [("greedy", np.asarray(greedy_assigned)[:n])]
         pack_ms = cvx_ms = learned_ms = None
+        pack_device = {}
         if h.pack is not None:
             plan = self._arm_plan("pack", h.pack, n, self._m_pack,
                                   "_last_pack_stats", {"policy": "greedy"})
             if plan is not None:
                 pack_ms = (time.perf_counter() - h.pack_t0) * 1000
+                # the arm's device stages, from its CUDA events (done: the
+                # plan was just read back), without waiting on any
+                if h.pack.timer is not None:
+                    pack_device = h.pack.timer.read()
                 cands.append(("optimal", plan))
         if h.cvx is not None:
             plan = self._arm_plan("cvx", h.cvx, n, self._m_cvx,
@@ -2072,6 +2120,8 @@ class CoreScheduler(SchedulerAPI):
                 "greedy_placed": utils["greedy"]["placed"],
                 "partitioner": h.pack.partitioner,
             }
+            for stage, ms in pack_device.items():
+                self._last_pack_stats[f"pack_{stage}_device_ms"] = round(ms, 3)
         else:
             self._last_pack_stats = {**self._last_pack_stats,
                                      "policy": winner}
@@ -2762,7 +2812,8 @@ class CoreScheduler(SchedulerAPI):
             extra = None
             try:
                 self._cycle_stage = "housekeeping"
-                extra = self._pipeline_housekeeping()
+                extra = self._pipeline_housekeeping(
+                    idle=prep is None and prev is None)
                 if prep is not None:
                     self._cycle_stage = "dispatch"
                     self._pipeline_dispatch(prep)
@@ -2782,10 +2833,9 @@ class CoreScheduler(SchedulerAPI):
                 # (a failed dispatch leaves prep's asks pending; the next
                 # gate re-admits them).
                 if finished is not None:
-                    t_pub0 = time.time()
-                    self._publish_cycle(finished)
-                    self.tracer.add("publish", prev.cycle_id, t_pub0,
-                                    time.time(), allocs=n_prev)
+                    with self.tracer.span("publish", prev.cycle_id,
+                                          allocs=n_prev):
+                        self._publish_cycle(finished)
                 if extra is not None:
                     self._publish_cycle(extra)
             return n_prev
@@ -2805,24 +2855,39 @@ class CoreScheduler(SchedulerAPI):
         now)."""
         t0 = time.time()
         cold0 = self._cold_marks()
-        with self._lock:
+        # the id this cycle takes if the gate admits anything; a gate that
+        # admits nothing leaves no span
+        cid = self._cycle_seq + 1
+        tr = self.tracer
+        with tr.span("gate", cid, t0=t0) as gate, self._core_lock(cid):
             self._use_partition("default")
             if getattr(self.partition, "draining", False):
+                gate.drop()
                 return None
-            admitted, ranks, held = self._collect_and_gate(
-                exclude_keys=self._inflight_ask_keys or None,
-                seed_admissions=self._inflight_gate_seed or None)
+            with tr.span("gate_scan", cid):
+                admitted, ranks, held = self._collect_and_gate(
+                    exclude_keys=self._inflight_ask_keys or None,
+                    seed_admissions=self._inflight_gate_seed or None)
             if held:
                 self._m_unschedulable.inc(held, reason="quota_held")
             if not admitted:
+                gate.drop()
                 return None
             t_gate = time.time()
-            inflight_placed = self._inflight_placements()
-            self.encoder.sync_nodes()
-            batch = self.encoder.build_batch_cached(
-                admitted, ranks=ranks, extra_placed=inflight_placed)
-            self._resolve_solver_runtime_locked()
-            self._attach_device_req(admitted, batch)
+            gate_stats = dict(self._last_gate_stats)
+            gate.close(t_gate, pods=len(admitted), **_gate_extras(gate_stats))
+            with tr.span("encode", cid, t0=t_gate) as enc:
+                inflight_placed = self._inflight_placements()
+                self.encoder.sync_nodes()
+                batch = self.encoder.build_batch_cached(
+                    admitted, ranks=ranks, extra_placed=inflight_placed)
+                self._resolve_solver_runtime_locked()
+                self._attach_device_req(admitted, batch)
+                t_encode_end = time.time()
+                enc.close(t_encode_end,
+                          cached=int(self.encoder.last_encode_cached),
+                          overlapped=int(self._pipeline_inflight is not None),
+                          reencoded=self.encoder.last_encode_rows_reencoded)
             self._cycle_seq += 1
             cyc = _PipelineCycle(
                 cycle_id=self._cycle_seq, admitted=admitted, ranks=ranks,
@@ -2830,18 +2895,12 @@ class CoreScheduler(SchedulerAPI):
                 extra_fp=self.encoder.placed_fingerprint(inflight_placed),
                 encode_cached=self.encoder.last_encode_cached,
                 overlapped=self._pipeline_inflight is not None,
-                gate_stats=dict(self._last_gate_stats),
+                gate_stats=gate_stats,
                 encode_rows=self.encoder.last_encode_rows,
                 encode_reencoded=self.encoder.last_encode_rows_reencoded,
                 encode_device=dict(self._last_encode_device),
-                t_prepare_start=t0, t_gate=t_gate, t_encode_end=time.time(),
+                t_prepare_start=t0, t_gate=t_gate, t_encode_end=t_encode_end,
                 cold0=cold0)
-            self.tracer.add("gate", cyc.cycle_id, t0, t_gate,
-                            pods=len(admitted), **_gate_extras(cyc.gate_stats))
-            self.tracer.add("encode", cyc.cycle_id, t_gate, cyc.t_encode_end,
-                            cached=int(cyc.encode_cached),
-                            overlapped=int(cyc.overlapped),
-                            reencoded=cyc.encode_reencoded)
             jattrs = {}
             if cyc.gate_stats.get("path") is not None:
                 jattrs["gate_path"] = cyc.gate_stats["path"]
@@ -2853,27 +2912,38 @@ class CoreScheduler(SchedulerAPI):
                               "gated", t_gate, **jattrs)
             return cyc
 
-    def _pipeline_housekeeping(self) -> Optional[tuple]:
+    def _pipeline_housekeeping(self, idle: bool) -> Optional[tuple]:
         """Commit-sensitive host work at its sequential position (post
         previous commit, pre next dispatch). Asks it consumes that are rows
         in the prepared batch are invalidated at dispatch via the
-        pending-check, so nothing double-allocates."""
-        with self._lock:
-            self._use_partition("default")
-            # unconditional: expired cooldowns must settle their
-            # mis-eviction ledger even when no later cycle ever feels
-            # preemption pressure (the only other purge call sites)
-            self._purge_preempt_cooldown(time.time())
-            self._check_app_completion()
-            self._check_placeholder_timeouts()
-            replaced = self._replace_placeholders()
-            pinned = self._allocate_required_node_asks()
-            if replaced.new:
-                self._m_allocated.inc(len(replaced.new))
-            if pinned or replaced.new:
-                self._record_committed_spans(
-                    [a.allocation_key for a in pinned]
-                    + [a.allocation_key for a in replaced.new])
+        pending-check, so nothing double-allocates. idle: the tick has no
+        cycle; its span is kept only if the work found something or
+        waited, so idle ticks do not fill the tracer's ring."""
+        cid = self._cycle_seq
+        with self.tracer.span("housekeeping", cid) as sp, \
+                self._core_lock(cid):
+            out = self._housekeeping_locked()
+            if idle and out is None and not sp.kids:
+                sp.drop()
+        return out
+
+    def _housekeeping_locked(self) -> Optional[tuple]:
+        """_pipeline_housekeeping's work (core lock held)."""
+        self._use_partition("default")
+        # unconditional: expired cooldowns must settle their
+        # mis-eviction ledger even when no later cycle ever feels
+        # preemption pressure (the only other purge call sites)
+        self._purge_preempt_cooldown(time.time())
+        self._check_app_completion()
+        self._check_placeholder_timeouts()
+        replaced = self._replace_placeholders()
+        pinned = self._allocate_required_node_asks()
+        if replaced.new:
+            self._m_allocated.inc(len(replaced.new))
+        if pinned or replaced.new:
+            self._record_committed_spans(
+                [a.allocation_key for a in pinned]
+                + [a.allocation_key for a in replaced.new])
         if pinned or replaced.new or replaced.released:
             return (pinned, replaced, [], [], [], [])
         return None
@@ -2881,8 +2951,8 @@ class CoreScheduler(SchedulerAPI):
     def _pipeline_dispatch(self, cyc: "_PipelineCycle") -> None:
         """Dispatch the prepared batch against post-commit state (the port's
         solve runs to its end inside this call)."""
-        t_disp0 = time.time()
-        with self._lock:
+        cid = cyc.cycle_id
+        with self.tracer.span("dispatch", cid) as sp, self._core_lock(cid):
             self._use_partition("default")
             batch = cyc.batch
             # delta replay: allocations committed while this batch was being
@@ -2923,8 +2993,7 @@ class CoreScheduler(SchedulerAPI):
             # solve is in flight must not receive its placement
             cyc.node_names = dict(self.encoder.nodes._idx_to_name)
             cyc.t_dispatched = time.time()
-            self.tracer.add("dispatch", cyc.cycle_id, t_disp0,
-                            cyc.t_dispatched, **self._last_solve_stats)
+            sp.close(cyc.t_dispatched, **self._last_solve_stats)
             # mark the batch in flight: the next gate excludes these asks and
             # charges them against quota as in-cycle admissions
             self._inflight_ask_keys = {a.allocation_key for a in cyc.admitted}
@@ -2944,33 +3013,43 @@ class CoreScheduler(SchedulerAPI):
         the in-flight gate state is cleared, the asks stay pending (commit
         never ran), and the next cycle re-admits them — the failure is
         counted and lands in the health report."""
-        batch = cyc.batch
+        cid = cyc.cycle_id
         t_mat0 = time.time()
         self.supervisor.cycle_id = cyc.cycle_id
-        # the result read back — deliberately OUTSIDE the core lock so
-        # informer/API threads are never stalled on device latency
-        try:
-            assigned = self._solve_materialize(cyc.result)
-        except Exception as e:
-            self._note_cycle_failure("solve", e)
-            self._cycle_abandoned = True
-            logger.exception("pipelined cycle %d abandoned: solve failed",
-                             cyc.cycle_id)
-            with self._lock:
-                self._use_partition("default")
-                self._inflight_ask_keys = set()
-                self._inflight_gate_seed = []
-            return None, 0
-        t_mat1 = time.time()
-        self.tracer.add("solve", cyc.cycle_id, cyc.t_dispatched, t_mat0,
-                        policy=self._last_pack_stats.get("policy", "greedy"))
-        self.tracer.add("materialize", cyc.cycle_id, t_mat0, t_mat1)
-        self.journey.mark(
-            [a.allocation_key for a in cyc.admitted], "solved", t_mat1,
-            arm=self._last_pack_stats.get("policy", "greedy"),
-            solve_ms=round((t_mat1 - cyc.t_dispatched) * 1000, 2),
-            aot=self._aot_outcome())
-        with self._lock:
+        with self.tracer.span("materialize", cid, t0=t_mat0) as mat:
+            # the result read back — deliberately OUTSIDE the core lock so
+            # informer/API threads are never stalled on device latency
+            try:
+                assigned = self._solve_materialize(cyc.result)
+            except Exception as e:
+                mat.drop()
+                self._note_cycle_failure("solve", e)
+                self._cycle_abandoned = True
+                logger.exception("pipelined cycle %d abandoned: solve failed",
+                                 cyc.cycle_id)
+                with self._lock:
+                    self._use_partition("default")
+                    self._inflight_ask_keys = set()
+                    self._inflight_gate_seed = []
+                return None, 0
+            t_mat1 = time.time()
+            mat.close(t_mat1, **_pack_device_extras(self._last_pack_stats))
+        with self.tracer.span("commit", cid, t0=t_mat1) as commit:
+            self.journey.mark(
+                [a.allocation_key for a in cyc.admitted], "solved", t_mat1,
+                arm=self._last_pack_stats.get("policy", "greedy"),
+                solve_ms=round((t_mat1 - cyc.t_dispatched) * 1000, 2),
+                aot=self._aot_outcome())
+            return self._commit_pipelined(cyc, assigned, t_mat0, t_mat1,
+                                          commit)
+
+    def _commit_pipelined(self, cyc: "_PipelineCycle", assigned, t_mat0,
+                          t_mat1, commit) -> Tuple[tuple, int]:
+        """_pipeline_finish's commit under the core lock: the allocations,
+        the preemption plan and the cycle entry. Ends the commit span
+        where the commit ends."""
+        batch = cyc.batch
+        with self._core_lock(cyc.cycle_id):
             self._use_partition("default")
             self._inflight_ask_keys = set()
             self._inflight_gate_seed = []
@@ -2993,6 +3072,7 @@ class CoreScheduler(SchedulerAPI):
             self._m_solve_ms.inc(int(
                 (time.time() - cyc.t_prepare_start) * 1000))
             t_commit = time.time()
+            commit.close(t_commit, allocs=len(new_allocs))
             preempt_releases = self._plan_preemption(
                 unplaced_asks, preempt_handle, cycle_id=cyc.cycle_id)
             end = time.time()
@@ -3033,8 +3113,6 @@ class CoreScheduler(SchedulerAPI):
             self._m_pipeline_cycles.inc()
             for k, g in self._g_pipeline.items():
                 g.set(entry[k])
-            self.tracer.add("commit", cyc.cycle_id, t_mat1, t_commit,
-                            allocs=len(new_allocs))
         payload = ([], AllocationResponse(), new_allocs, preempt_releases,
                    skipped_keys, fallback_keys)
         return payload, len(new_allocs)
@@ -4220,7 +4298,20 @@ def _pack_extras(stats: dict) -> dict:
               "partitioner", "skip"):
         if k in stats:
             out["pack_skip" if k == "skip" else k] = stats[k]
+    out.update(_pack_device_extras(stats))
     return out
+
+
+# the pack arm's device stages (ops/pack_solve's CUDA events; the card only)
+PACK_DEVICE_KEYS = tuple(f"pack_{stage}_device_ms"
+                         for stage in ("relax", "round", "gumbel", "repair"))
+
+
+def _pack_device_extras(stats: dict) -> dict:
+    """The pack arm's device ms per stage, for the cycle entry and the
+    materialize span: absent off the card, and for a stage whose events
+    had not completed."""
+    return {k: stats[k] for k in PACK_DEVICE_KEYS if k in stats}
 
 
 def _policy_extras(stats: dict) -> dict:

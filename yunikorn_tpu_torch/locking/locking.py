@@ -62,6 +62,15 @@ class Mutex:
         else:
             self._lock.acquire()
 
+    def try_acquire(self) -> bool:
+        """Acquire only if no other thread holds the lock; True when
+        acquired."""
+        if not self._lock.acquire(blocking=False):
+            return False
+        if DETECTION_ENABLED:
+            self._holder = threading.current_thread().name
+        return True
+
     def release(self) -> None:
         if DETECTION_ENABLED:
             self._holder = None

@@ -1,15 +1,56 @@
 """Structured cycle tracer: ring-buffered stage spans + Chrome trace export.
 
 Subsumes the old `CoreScheduler._pipeline_trace` deque (a tuple log readable
-only from tests): every scheduling-cycle stage — gate / encode / dispatch /
-solve / materialize / commit / publish — records a span with its cycle id and
-stage-specific args (device-transfer bytes, compile-cache outcome, batch
-size), and per-pod bind spans ride in a separate ring so a 50k-pod bind storm
-cannot evict the cycle skeleton. Export is Chrome trace-event JSON
-(`chrome_trace()`): complete events ("ph":"X", microsecond ts/dur) on named
-lanes, loadable in Perfetto / chrome://tracing — the pipelined cycle's
-overlap (encode of cycle N+1 under solve N) is directly visible as
-overlapping spans on the prepare and device lanes.
+only from tests): every scheduling-cycle stage records a span with its cycle
+id and stage-specific args (device-transfer bytes, compile-cache outcome,
+batch size), and per-pod bind spans ride in a separate ring so a 50k-pod
+bind storm cannot evict the cycle skeleton. Export is Chrome trace-event
+JSON (`chrome_trace()`): complete events ("ph":"X", microsecond ts/dur) on
+named lanes, loadable in Perfetto / chrome://tracing.
+
+Clock: every span's t0/t1 is `time.time()`, the Unix clock, the same clock
+on which a torch.profiler (kineto) device trace can be placed by one mark
+taken inside the profiled stretch, so the spans and the device's kernels
+share one timeline.
+
+Nesting: `span(name, cycle_id, **args)` opens a span on the calling thread
+(a context manager, or closed explicitly with `close(t1, **args)` /
+discarded with `drop()`). A per-thread stack of open spans gives each span
+its `parent`, the name of the enclosing span on the same thread ("" at the
+top). A closed span waits in its parent until the parent closes, then both
+enter the ring, children first: a dropped parent (a gate that admitted
+nothing) takes its children with it, but for its "gc" spans, and a reader
+that takes the first span covering an instant finds the innermost one. `add()` records a span
+after the fact, at the top level.
+
+Args every `span()` records:
+  cpu_ms   the CPU time of the opening thread over the span
+           (`time.thread_time()`), plus that of the worker threads that ran
+           its work while it waited (a supervised dispatch's watchdog
+           thread, which adopts its caller's innermost span: `inherit` /
+           `adopted`): wall less cpu_ms is time the span's work was blocked
+           or runnable but not running (waiting on a lock, the interpreter
+           lock held by another thread, the core taken away)
+  gc_ms    the interpreter's collector pauses charged to the span: one
+           `gc.callbacks` hook a process charges each pause to the innermost
+           open span of the thread that triggered it, and records a "gc"
+           child span (args generation, collected; its pause is its
+           parent's gc_ms, so its own gc_ms is 0 unless its parent was
+           dropped) for every generation-2
+           collection and every pause of GC_SPAN_MS or more. Pauses outside
+           any open span are counted (`gc_hook_counts()`). An adopting
+           worker's pauses count to the span it adopted.
+
+The pipelined cycle's spans (core/scheduler.py): "gate" (from the tick's
+start through the gate scan; children "lock_wait" when the core lock was
+held by another thread, "gate_scan" around the scan), "encode", "dispatch"
+(the greedy solve; child "pack_launch" around the pack arm's launch),
+"materialize" (the read-back and the duel; the pack arm's device ms as
+args on the card), "commit", "housekeeping", "publish"; and "si_update"
+around each `update_allocation` of more than one item on the caller's
+thread (the shim submits each pod's ask in a request of its own: such a
+request takes the core lock with no span at all, so a submit storm neither
+pays for spans nor evicts the cycle skeleton).
 
 Lock-cheap: one mutex guarding two bounded deques; a span append is a tuple
 build + deque.append.
@@ -17,7 +58,10 @@ build + deque.append.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import threading
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 
@@ -27,15 +71,20 @@ class Span(NamedTuple):
     t0: float
     t1: float
     args: tuple  # ((key, value), ...) — hashable, built once
+    parent: str = ""  # the enclosing span on the same thread
 
 
 # stage → (lane title, tid). Lanes separate the pipeline's concurrent actors
-# so overlap renders as parallel tracks, not stacked self-overlap.
+# so overlap renders as parallel tracks, not stacked self-overlap. A span
+# whose name has no lane renders on its parent's.
 LANES: Dict[str, Tuple[str, int]] = {
     "gate": ("host: gate+encode", 1),
+    "gate_scan": ("host: gate+encode", 1),
     "encode": ("host: gate+encode", 1),
     "dispatch": ("host: gate+encode", 1),
-    "solve": ("device: solve", 2),
+    "pack_launch": ("host: gate+encode", 1),
+    # the sequential cycle's solve (dispatch through read-back, one thread)
+    "solve": ("host: solve", 2),
     "materialize": ("host: commit+publish", 3),
     "commit": ("host: commit+publish", 3),
     "housekeeping": ("host: commit+publish", 3),
@@ -47,8 +96,210 @@ LANES: Dict[str, Tuple[str, int]] = {
     "ledger_confirm": ("front: ledger", 8),
     "quarantine": ("front: failover", 9),
     "rehome": ("front: failover", 9),
+    "si_update": ("SI: update_allocation", 10),
 }
 _DEFAULT_LANE = ("host: other", 5)
+
+# a collector pause at least this long leaves a "gc" span (so does every
+# generation-2 collection); shorter ones only add to gc_ms
+GC_SPAN_MS = 1.0
+
+# the calling thread's open spans, innermost last
+_local = threading.local()
+
+
+def _open_spans() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def inherit() -> list:
+    """The calling thread's innermost open span, for `adopted` on a worker
+    thread that runs this thread's work while it waits."""
+    return _open_spans()[-1:]
+
+
+@contextlib.contextmanager
+def adopted(frames: list):
+    """Run the block with `frames` (from `inherit`) as the calling
+    thread's open spans: its spans nest under them, its collector pauses
+    are charged to them, and its CPU time over the block is added to their
+    cpu_ms (and their enclosing spans')."""
+    _local.stack = list(frames)
+    c0 = time.thread_time()
+    try:
+        yield
+    finally:
+        cpu = time.thread_time() - c0
+        _local.stack = []
+        for frame in frames:
+            while frame is not None:
+                frame.worker_cpu += cpu
+                frame = frame.outer
+
+
+class OpenSpan:
+    """A span being timed (CycleTracer.span). Usable as a context manager:
+    leaving the block closes it, or drops it when an exception leaves."""
+
+    __slots__ = ("tracer", "name", "cycle_id", "parent", "outer", "args",
+                 "t0", "gc_ms", "worker_cpu", "kids", "_c0", "_stack",
+                 "_done")
+
+    def __init__(self, tracer, name: str, cycle_id: int, t0: float,
+                 args: dict):
+        stack = _open_spans()
+        self.tracer, self.name, self.cycle_id = tracer, name, cycle_id
+        self.outer = stack[-1] if stack else None
+        self.parent = self.outer.name if stack else ""
+        self.args = args
+        self.gc_ms = self.worker_cpu = 0.0
+        self.kids: List[Span] = []
+        self._stack, self._done = stack, False
+        stack.append(self)
+        self._c0 = time.thread_time()
+        self.t0 = time.time() if t0 is None else t0
+
+    def _pop(self) -> Optional["OpenSpan"]:
+        """Leave the thread's stack; the enclosing open span, if any."""
+        self._done = True
+        self._stack.remove(self)
+        return self._stack[-1] if self._stack else None
+
+    def close(self, t1: Optional[float] = None, **args) -> None:
+        """End the span at t1 (default now) with `args` added."""
+        if self._done:
+            return
+        cpu = time.thread_time() - self._c0 + self.worker_cpu
+        if t1 is None:
+            t1 = time.time()
+        outer = self._pop()
+        self.args.update(args)
+        self.args["cpu_ms"] = round(cpu * 1e3, 3)
+        self.args["gc_ms"] = round(self.gc_ms, 3)
+        span = Span(self.name, self.cycle_id, self.t0, t1,
+                    tuple(sorted(self.args.items())), self.parent)
+        self.kids.append(span)
+        if outer is not None and outer.tracer is self.tracer:
+            outer.kids.extend(self.kids)
+        else:
+            self.tracer._append(self.kids)
+
+    def drop(self) -> None:
+        """Discard the span and its children, but for their "gc" spans:
+        those still mark the pauses, each now carrying its own pause as
+        its gc_ms (the span it was charged to is gone)."""
+        if self._done:
+            return
+        outer = self._pop()
+        pauses = [k._replace(args=tuple(
+            (a, round((k.t1 - k.t0) * 1e3, 3) if a == "gc_ms" else v)
+            for a, v in k.args)) for k in self.kids if k.name == "gc"]
+        if not pauses:
+            return
+        if outer is not None and outer.tracer is self.tracer:
+            outer.kids.extend(pauses)
+        else:
+            self.tracer._append(pauses)
+
+    def __enter__(self) -> "OpenSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.close()
+        else:
+            self.drop()
+        return False
+
+
+class _GcHook:
+    """The process's one gc.callbacks hook (see the module docstring)."""
+
+    def __init__(self):
+        self.calls = 0          # collections seen
+        self.outside = 0        # of them, outside any open span
+        self.outside_ms = 0.0
+        self._t0 = self._c0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.time()
+            self._c0 = time.thread_time()
+            return
+        t1 = time.time()
+        self.calls += 1
+        ms = (t1 - self._t0) * 1e3
+        stack = getattr(_local, "stack", None)
+        if not stack:
+            self.outside += 1
+            self.outside_ms += ms
+            return
+        top = stack[-1]
+        top.gc_ms += ms
+        gen = info.get("generation", 0)
+        if gen == 2 or ms >= GC_SPAN_MS:
+            cpu = time.thread_time() - self._c0
+            top.kids.append(Span("gc", top.cycle_id, self._t0, t1, (
+                ("collected", info.get("collected", 0)),
+                ("cpu_ms", round(cpu * 1e3, 3)), ("gc_ms", 0.0),
+                ("generation", gen)), top.name))
+
+
+_gc_hook: Optional[_GcHook] = None
+_gc_mu = threading.Lock()
+
+
+def install_gc_hook() -> None:
+    """Register the process's collector hook, once however many tracers
+    (cores) the process builds."""
+    global _gc_hook
+    with _gc_mu:
+        if _gc_hook is None:
+            _gc_hook = _GcHook()
+            gc.callbacks.append(_gc_hook)
+
+
+def gc_hook_counts() -> dict:
+    """The hook's counters since it was installed: collections seen, and
+    those that fell outside any open span (count and ms)."""
+    h = _gc_hook
+    if h is None:
+        return {"calls": 0, "outside": 0, "outside_ms": 0.0}
+    return {"calls": h.calls, "outside": h.outside,
+            "outside_ms": round(h.outside_ms, 3)}
+
+
+class DeviceTimer:
+    """CUDA event pairs on the current stream around named stretches of a
+    computation's device work. `read()` sums each name's elapsed ms once
+    its events have completed and never waits: an event not yet done
+    leaves its name out. Adds no kernel, copy or synchronisation."""
+
+    def __init__(self):
+        self._pairs: Dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._pairs.setdefault(name, []).append((start, end))
+
+    def read(self) -> Dict[str, float]:
+        out = {}
+        for name, pairs in self._pairs.items():
+            if all(a.query() and b.query() for a, b in pairs):
+                out[name] = sum(a.elapsed_time(b) for a, b in pairs)
+        return out
 
 
 class CycleTracer:
@@ -57,12 +308,23 @@ class CycleTracer:
         self._spans: collections.deque = collections.deque(maxlen=capacity)
         self._pod_spans: collections.deque = collections.deque(
             maxlen=pod_capacity)
+        install_gc_hook()
 
     def add(self, name: str, cycle_id: int, t0: float, t1: float,
             **args) -> None:
         span = Span(name, cycle_id, t0, t1, tuple(sorted(args.items())))
         with self._lock:
             self._spans.append(span)
+
+    def span(self, name: str, cycle_id: int, t0: Optional[float] = None,
+             **args) -> OpenSpan:
+        """Open a span on the calling thread, from t0 (default now); see
+        the module docstring."""
+        return OpenSpan(self, name, cycle_id, t0, args)
+
+    def _append(self, spans: List[Span]) -> None:
+        with self._lock:
+            self._spans.extend(spans)
 
     def add_pod(self, name: str, cycle_id: int, t0: float, t1: float,
                 **args) -> None:
@@ -117,9 +379,10 @@ class CycleTracer:
         seen_lanes = {}
         events: List[dict] = []
         for s in spans:
-            title, tid = LANES.get(s.name, _DEFAULT_LANE)
+            title, tid = LANES.get(s.name) or LANES.get(s.parent,
+                                                         _DEFAULT_LANE)
             seen_lanes[tid] = title
-            args = {"cycle": s.cycle_id}
+            args = {"cycle": s.cycle_id, "parent": s.parent}
             args.update(dict(s.args))
             # dur from the ROUNDED endpoints: rounding ts and dur
             # independently lets ts+dur exceed the next span's ts by a

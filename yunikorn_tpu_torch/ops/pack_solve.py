@@ -52,6 +52,7 @@ bit equal.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -59,6 +60,7 @@ import numpy as np
 import torch
 
 from yunikorn_tpu_torch.models.policies import node_base_scores
+from yunikorn_tpu_torch.obs.trace import DeviceTimer
 from yunikorn_tpu_torch.ops.assign import (
     NEG_INF,
     SOLVE_ARG_NAMES,
@@ -143,6 +145,13 @@ class PackResult:
     feasible: torch.Tensor
     n_parts: int
     partitioner: str = "random"
+    # on the card: the CUDA events around the solve's stages (relax,
+    # round, gumbel, repair), read once the plan is back
+    timer: Optional[DeviceTimer] = None
+
+
+def _timed(timer: Optional[DeviceTimer], stage: str):
+    return contextlib.nullcontext() if timer is None else timer.time(stage)
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -192,7 +201,8 @@ def _relax_part(preq_f, feas, pvalid, base, soft, free_f, lp_iters: int):
 
 
 def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
-                keys, rounds: int, policy: str, sc_cols: int, mesh=None):
+                keys, rounds: int, policy: str, sc_cols: int, mesh=None,
+                timer=None):
     """Seeded randomized rounding of each part (batched over parts): each
     round samples every ask a node by Gumbel-max over the scores (noise
     from fold_in(keys[k], round) for part k) among the nodes it fits,
@@ -215,7 +225,8 @@ def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
     scores, -0.0 = +0.0, as one torch.argmax over all m nodes), the accept
     runs there over the gathered free capacity, and each shard subtracts
     the accepts on its own nodes; free_left comes back as Shards of the
-    [K * W, R] pieces. Without a mesh the same code runs over one piece."""
+    [K * W, R] pieces. Without a mesh the same code runs over one piece.
+    timer (a DeviceTimer): each round's Gumbel draw is timed as "gumbel"."""
     K, n, R = preq.shape
     dev = preq.device
     if mesh is None:
@@ -252,7 +263,9 @@ def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
             base_now = node_base_scores(cur[s][:, :sc_cols], cap[s],
                                         policy).view(K, w)
             u = (scores[s] + 0.05 * base_now[:, None, :]) * _LP_INV_TAU
-            noise = prng.gumbel(nm.put(round_keys, s), (n, m), cols=(lo, hi))
+            with _timed(timer, "gumbel"):
+                noise = prng.gumbel(nm.put(round_keys, s), (n, m),
+                                    cols=(lo, hi))
             masked = torch.where(ok, u + noise, NEG_INF)
             best = torch.argmax(masked, dim=2)                  # [K, n]
             top = masked.gather(2, best[..., None])[..., 0]
@@ -300,6 +313,7 @@ def pack_solve(
     score_cols: int = 0,
     device=None,
     mesh=None,
+    timer=None,
 ):
     """One global pack solve. Positional arguments are `assign.solve`'s
     (SOLVE_ARG_NAMES, numpy arrays or tensors) then the seed; they move to
@@ -314,7 +328,11 @@ def pack_solve(
     degrades to the row order. With n_shards > 1 the topo parts run in
     n_shards groups of K / n_shards, one a shard; mesh (a NodeMesh of
     n_shards devices, its lead replacing `device`) runs each group on its
-    shard's device, bit-identical to the single-device groups."""
+    shard's device, bit-identical to the single-device groups.
+
+    timer (a DeviceTimer, single device only): CUDA events on the current
+    stream around the relaxation ("relax"), the rounding ("round", the
+    Gumbel draws inside it also as "gumbel") and the repair ("repair")."""
     if loc is not None:
         raise PackUnsupported("locality batches take the greedy path")
     nm = _solve_mesh(device, mesh)
@@ -387,11 +405,14 @@ def pack_solve(
                                 policy).view(kg, m)
         preq_f = preq.float() * put(inv_scale)
         free_f = nfree.clamp(min=0).float() * put(inv_scale)
-        scores = _relax_part(preq_f, feas, pvalid, base, soft, free_f,
-                             lp_iters)
-        local, left = _round_part(preq, prank, pvalid, feas, scores, nfree,
-                                  ncap, _row_sum(preq_f), put(part_keys[ks]),
-                                  round_rounds, policy, sc)
+        with _timed(timer, "relax"):
+            scores = _relax_part(preq_f, feas, pvalid, base, soft, free_f,
+                                 lp_iters)
+        with _timed(timer, "round"):
+            local, left = _round_part(preq, prank, pvalid, feas, scores,
+                                      nfree, ncap, _row_sum(preq_f),
+                                      put(part_keys[ks]), round_rounds,
+                                      policy, sc, timer=timer)
         node_global.append(torch.where(
             local >= 0,
             torch.gather(part_nodes, 1, local.long().clamp(0, m - 1)),
@@ -409,12 +430,13 @@ def pack_solve(
     # repair: asks the partition stranded run the greedy round loop over
     # the full node set with the parts' residual capacity
     leftover = valid & (assigned < 0)
-    rep_assigned, _, free_after, _, _ = _solve_rounds(
-        req, group_id, rank, leftover, feas_p, soft_p, free_after,
-        cnt0, cap_p, None, None, max_rounds=repair_rounds,
-        chunk=min(chunk, N), policy=policy, use_pallas=False,
-        has_loc_soft=False, pallas_soft=False, score_cols=score_cols,
-        mesh=nm)
+    with _timed(timer, "repair"):
+        rep_assigned, _, free_after, _, _ = _solve_rounds(
+            req, group_id, rank, leftover, feas_p, soft_p, free_after,
+            cnt0, cap_p, None, None, max_rounds=repair_rounds,
+            chunk=min(chunk, N), policy=policy, use_pallas=False,
+            has_loc_soft=False, pallas_soft=False, score_cols=score_cols,
+            mesh=nm)
     free_after = nm.gather(free_after)
     assigned = torch.where(assigned >= 0, assigned, rep_assigned)
     # structural feasibility: placements only subtract what fits, so every
@@ -468,14 +490,15 @@ def pack_solve_batch(batch, node_arrays, *, policy: str = "binpacking",
                        if np_args[SOLVE_ARG_NAMES.index("topo")] is not None
                        else "random")
     args, _ = solve_args_from_numpy(np_args, static_kwargs, device)
+    timer = DeviceTimer() if device.type == "cuda" else None
     assigned, free_after, feasible = pack_solve(
         *args, seed, n_parts=n_parts, partitioner=partitioner,
         lp_iters=lp_iters, round_rounds=round_rounds,
         repair_rounds=repair_rounds, chunk=chunk, policy=policy,
-        score_cols=static_kwargs["score_cols"], device=device)
+        score_cols=static_kwargs["score_cols"], device=device, timer=timer)
     return PackResult(assigned=assigned, free_after=free_after,
                       feasible=feasible, n_parts=n_parts,
-                      partitioner=partitioner)
+                      partitioner=partitioner, timer=timer)
 
 
 def packed_utilization(assigned, req_i, valid, free0_i=None,

@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from yunikorn_tpu_torch.log.logger import log
+from yunikorn_tpu_torch.obs import trace
 from yunikorn_tpu_torch.robustness.faults import (
     FaultPlane,
     InjectedFault,
@@ -363,10 +364,14 @@ class SupervisedExecutor:
             return fn()
         box: dict = {}
         done = threading.Event()
+        # the caller's open tracer span: the worker's spans, collector
+        # pauses and CPU time belong to the stage that waits on it
+        spans = trace.inherit()
 
         def job():
             try:
-                box["result"] = fn()
+                with trace.adopted(spans):
+                    box["result"] = fn()
             except BaseException as e:  # delivered to the waiter
                 box["error"] = e
             finally:
