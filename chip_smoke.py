@@ -141,7 +141,10 @@ phase fails, and when no CUDA device is present):
           the card equal to the CPU's (keys, split, fold_in, bits, uniform,
           permutation(65,536)) and a Gumbel draw over [16, 4,096, 1,024]
           within 1e-6 of the CPU's on its first and last parts; the pack
-          arm at scripts/pack_bench.py's three shapes and the cvx arm at
+          rounding's pick kernel at full width (16 x 4,096 x 1,024, every
+          pair fitting) bit-equal to its plain version, with both ms and
+          the kernel's bound (`duel_pick`); the pack arm at
+          scripts/pack_bench.py's three shapes and the cvx arm at
           scripts/cvx_bench.py's four (client/synthetic.make_pack_nodes /
           make_pack_pods, arm seed 7): each plan feasible, greedy's plan
           exactly the JAX package's, each arm's normalized units within
@@ -159,8 +162,8 @@ phase fails, and when no CUDA device is present):
           optimal on the 1,024 x 128 fleet, pods in the cluster before
           start: pack_plans_total won >= 1, none failed, more bound than a
           greedy run; and a device profile of a full-width pack solve and
-          a cut cvx solve, with the Gumbel draw of one rounding round and
-          the row projection of one primal step timed alone
+          a cut cvx solve, the rounding's pick kernel read from the first
+          and the row projection of one primal step timed alone
   learned the learned policy (solver.policy=learned and all) with the
           committed checkpoint tests/data/policy_fragmented_v1 (the JAX
           package's trainer's output, hash LEARNED_HASH): learned_propose
@@ -680,6 +683,11 @@ KERNELS = [{
     "route": "cuda",
     "source": "yunikorn_tpu_torch/csrc/learned_propose.cu",
     "replaces": "yunikorn_tpu/ops/assign.py:821",
+}, {
+    "name": "pack_pick",
+    "route": "cuda",
+    "source": "yunikorn_tpu_torch/csrc/pack_pick.cu",
+    "replaces": "yunikorn_tpu/ops/pack_solve.py:229",
 }]
 
 
@@ -2442,6 +2450,72 @@ def warm_median_ms(fn, runs=5):
     return statistics.median(times), out
 
 
+# integer operations of one fitting pair in the pack pick kernel: the
+# threefry2x32 hash and the uniform's shift and or (as LEARNED_INT_OPS)
+PICK_INT_OPS = 74
+# the pack arm's full width: 16 parts of 4,096 asks x 1,024 nodes, R 8
+PICK_FULL = (16, 4_096, 1_024, 8)
+
+
+def pack_pick_bound_ms(feas, cur, req, clock_hz: float) -> dict:
+    """Least time for one pack_pick call: inputs read once and the keys
+    written once over HBM bandwidth, against R wrapping subtractions a pair
+    the feasibility admits and PICK_INT_OPS integer operations a fitting
+    pair at 64 a clock per SM, and 2 logf a fitting pair at SFU_PER_CLK_SM;
+    the pipes issue side by side, so the slower bounds."""
+    K, n, w = feas.shape
+    R = cur.shape[-1]
+    admitted = int(feas.sum())
+    fitting = 0
+    for k in range(K):
+        margin = (cur[k, None, :, :] - req[k, :, None, :]).amin(dim=2)
+        fitting += int((feas[k] & (margin >= 0)).sum())
+    sm_clk = SMS * clock_hz
+    int_s = (admitted * R + fitting * PICK_INT_OPS) / (CMP_PER_CLK_SM * sm_clk)
+    sfu_s = fitting * 2 / (SFU_PER_CLK_SM * sm_clk)
+    t_ops = max(int_s, sfu_s) * 1e3
+    nbytes = (K * n * w * 5 + K * w * R * 4 + K * n * R * 4 + K * w * 4
+              + K * 16 + K * n * 8)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": admitted, "fitting_pairs": fitting}
+
+
+def duel_pick(dev) -> dict:
+    """The pack arm's rounding pick at full width (PICK_FULL) on inputs
+    like the kwok burst's (every pair admitted and fitting; scores on a
+    coarse grid): the kernel bit-equal to its plain version, then the
+    CUDA-event ms of both and the kernel's bound."""
+    from yunikorn_tpu_torch.ops.pack_pick import (pack_pick,
+                                                  pack_pick_reference)
+    from yunikorn_tpu_torch.utils import prng
+
+    K, n, w, R = PICK_FULL
+    rng = np.random.default_rng(20261018)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (t(np.ones((K, n, w), bool)),
+            t(np.round(rng.standard_normal((K, n, w), dtype=np.float32) * 8)
+              / 8),
+            t(rng.integers(1_000, 2_000, (K, w, R)).astype(np.int32)),
+            t(rng.integers(0, 100, (K, n, R)).astype(np.int32)),
+            t((0.05 * rng.random((K, w), dtype=np.float32))
+              .astype(np.float32)),
+            prng.split(prng.prng_key(7, dev), K), 0, w, 8.0)
+    got = pack_pick(*args)
+    want = pack_pick_reference(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"pack_pick differs from its plain version in "
+                             f"{int((got != want).sum())} rows")
+    out = {"shape": list(PICK_FULL),
+           "kernel_ms": cuda_ms(lambda: pack_pick(*args), 50),
+           "plain_ms": cuda_ms(lambda: pack_pick_reference(*args), 3)}
+    out.update(pack_pick_bound_ms(args[0], args[2], args[3],
+                                  max_sm_clock_hz()))
+    out["share"] = out["bound_ms"] / out["kernel_ms"]
+    return out
+
+
 def duel_prng(dev):
     """The random streams on the card against the CPU's: keys, split,
     fold_in, random bits and permutation(65,536) bit for bit; a Gumbel
@@ -2704,29 +2778,24 @@ def duel_mock(dev, policy):
 def duel_profiles(dev):
     """Device time by kernel of one warm pack solve at full width (the
     pressure mix's batch, 16 parts of 4,096 x 1,024) and one warm cvx
-    solve at the cut (16,384 x 2,048), with the two stages named in
-    advance as kernel candidates timed alone: the Gumbel draw of one
-    rounding round and the row projection of one primal step."""
+    solve at the cut (16,384 x 2,048), with the rounding's pick kernel
+    read from the pack profile and the row projection of one primal step
+    (a kernel candidate) timed alone."""
     from yunikorn_tpu_torch.ops import cvx_solve, pack_solve
-    from yunikorn_tpu_torch.utils import prng
 
     out = {}
     enc, batch, _, _ = build_workload(MAIN_NODES, MAIN_PODS)
     pack = lambda: pack_solve.pack_solve_batch(  # noqa: E731
         batch, enc.nodes, seed=DUEL_SEED, device=dev)
     ms, res = warm_median_ms(pack, runs=3)
-    keys = prng.fold_in(prng.split(prng.prng_key(DUEL_SEED, dev),
-                                   res.n_parts), 0)
-    n = batch.req.shape[0] // res.n_parts
-    m = enc.nodes.capacity // res.n_parts
-    gumbel = cuda_ms(lambda: prng.gumbel(keys, (n, m)), 3)
-    prof = profile_solve(pack, top=12)
+    prof = profile_solve(pack, top=16)
+    pick = sum(op["ms"] for op in prof.get("top", [])
+               if "pick_kernel" in op["name"])
     out["pack_full"] = {"warm_ms": ms, "parts": res.n_parts,
-                        "profile": prof, "gumbel_round_ms": gumbel,
-                        "gumbel_share": (pack_solve.ROUND_ROUNDS * gumbel
-                                         / prof["device_busy_ms"]
-                                         if prof.get("device_busy_ms")
-                                         else None)}
+                        "profile": prof, "pick_ms": pick,
+                        "pick_share": (pick / prof["device_busy_ms"]
+                                       if prof.get("device_busy_ms")
+                                       else None)}
     enc, batch, _, _ = build_workload(CUT_NODES, CUT_PODS)
     cvx = lambda: cvx_solve.cvx_solve_batch(  # noqa: E731
         batch, enc.nodes, seed=DUEL_SEED, device=dev)
@@ -2753,7 +2822,7 @@ def phase_duel(dev, stats):
     labelled fleet (ICI-domain partitioner) and with solver.pack=cvx at
     the cut, MockScheduler optimal against greedy, and each arm's device
     profile."""
-    out = {"prng": duel_prng(dev)}
+    out = {"prng": duel_prng(dev), "pick": duel_pick(dev)}
     out["pack"] = [duel_shape(dev, n, m, 0, EXPECTED_PACK[(n, m)],
                               ("optimal",)) for n, m in PACK_SHAPES]
     last = out["pack"][-1]

@@ -477,12 +477,13 @@ def test_aot_build_and_smoke_child_on_the_cpu(stand_in_nvcc, capsys):
     tmp_path = stand_in_nvcc
     assert aot_build.main(["--store", str(tmp_path / "s")]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["kernels"] == list(KERNELS) and out["builds"] == 2
-    assert out["entries"] == 2 and out["aot"]["misses"] == 2
+    built = list(KERNELS) + ["pack_pick"]           # ops/assign.KERNELS
+    assert out["kernels"] == built and out["builds"] == 3
+    assert out["entries"] == 3 and out["aot"]["misses"] == 3
     assert aot.get_runtime() is None
     assert aot_build.main(["--store", str(tmp_path / "s")]) == 0
     again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert again["aot"]["hits"] == 2 and again["builds"] == 2   # no new one
+    assert again["aot"]["hits"] == 3 and again["builds"] == 3   # no new one
     child = aot_smoke.child_run(str(tmp_path / "s"), "16x40", True, 2,
                                 torch.device("cpu"))
     assert child["placed"] == 40 and child["aot_hits"] == 0

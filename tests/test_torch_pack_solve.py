@@ -11,6 +11,9 @@ same numpy-seeded inputs.
 - _round_part, fed the reference's scores and key: equal assigned and
   free_left (its Gumbel noise agrees to 1e-6; the pinned seeds flip no
   argmax), batched over parts as the port runs it.
+- The rounding's pick (ops/pack_pick): its plain version equals the
+  inline code it was factored out of, over a whole part and a column
+  window, and the wrapper refuses inputs the kernel does not take.
 - Whole solves on tests/test_pack_solve.py's eight randomized fragmented
   traces (selectors, required affinity, taints, cordoned nodes, priority
   skew), on a direct partitioned call (K = 4, random and ICI-domain
@@ -33,8 +36,12 @@ import torch
 
 from yunikorn_tpu.ops import pack_solve as jpack
 from yunikorn_tpu.ops.assign import prepare_solve_args as j_prepare
+from yunikorn_tpu_torch.models.policies import node_base_scores
 from yunikorn_tpu_torch.ops import assign as tassign
+from yunikorn_tpu_torch.ops import pack_pick as tpp
 from yunikorn_tpu_torch.ops import pack_solve as tpack
+from yunikorn_tpu_torch.ops.best_nodes import KEY_NONE, NEG_INF, exact_key
+from yunikorn_tpu_torch.utils import prng
 
 REF, PORT = "yunikorn_tpu", "yunikorn_tpu_torch"
 ZONES = ["z0", "z1", "z2"]
@@ -323,6 +330,94 @@ def test_round_part_equals_reference_on_its_scores(seed):
         np.testing.assert_array_equal(got_a[k].numpy(), a)
         np.testing.assert_array_equal(got_f[k].numpy(), f)
         assert (a >= 0).any()
+
+
+def inline_pick(feas, scores, cur, rq, ncap, round_keys, lo, hi, m, R, sc,
+                policy):
+    """The pick as _round_part computed it inline before ops/pack_pick:
+    one node piece lo..hi of m, cur [K * w, R] and ncap [K * w, R]."""
+    K, n = rq.shape[:2]
+    w = hi - lo
+    cur3 = cur.view(K, 1, w, R)
+    margin = cur3[..., 0] - rq[:, :, None, 0]
+    for r in range(1, R):
+        margin = torch.minimum(margin, cur3[..., r] - rq[:, :, None, r])
+    ok = feas & (margin >= 0)
+    base_now = node_base_scores(cur[:, :sc], ncap[:, :sc], policy).view(K, w)
+    u = (scores + 0.05 * base_now[:, None, :]) * tpack._LP_INV_TAU
+    noise = prng.gumbel(round_keys, (n, m), cols=(lo, hi))
+    masked = torch.where(ok, u + noise, NEG_INF)
+    best = torch.argmax(masked, dim=2)
+    top = masked.gather(2, best[..., None])[..., 0]
+    return torch.where(ok.any(dim=2), exact_key(top, best + lo, m), KEY_NONE)
+
+
+def pick_case(seed, cols):
+    """round_inputs' two parts stacked, as _round_part sees one round's
+    piece: (the inline pick's arguments, the wrapper's)."""
+    parts = [round_inputs(2 * seed + k) for k in range(2)]
+    t = {k: torch.from_numpy(np.stack([x[k] for x in parts]))
+         for k in parts[0]}
+    K, n, m = t["scores"].shape
+    R = t["preq"].shape[2]
+    lo, hi = cols
+    # a node driven negative, and planted ties among the scores
+    t["nfree"][0, lo, 0] = -3
+    t["scores"][:, ::3, lo:hi:2] = 0.5
+    cur = t["nfree"][:, lo:hi].reshape(-1, R)
+    ncap = t["ncap"][:, lo:hi].reshape(-1, R)
+    keys = prng.fold_in(prng.split(prng.prng_key(seed), K), 1)
+    feas = t["feas"][:, :, lo:hi].contiguous()
+    scores = t["scores"][:, :, lo:hi].contiguous()
+    inline = (feas, scores, cur, t["preq"], ncap, keys, lo, hi, m, R, R,
+              "binpacking")
+    tb = 0.05 * node_base_scores(cur, ncap, "binpacking").view(K, hi - lo)
+    wrapped = (feas, scores, cur.view(K, hi - lo, R), t["preq"], tb, keys,
+               lo, m, tpack._LP_INV_TAU)
+    return inline, wrapped
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("cols", [(0, 16), (4, 12)],
+                         ids=["whole", "window"])
+def test_plain_pick_equals_the_inline_pick(seed, cols):
+    inline, wrapped = pick_case(seed, cols)
+    want = inline_pick(*inline)
+    assert (want > KEY_NONE).any()
+    assert torch.equal(tpp.pack_pick_reference(*wrapped), want)
+    before = tpp.pack_pick.launches
+    assert torch.equal(tpp.pack_pick(*wrapped), want)     # CPU: the plain
+    assert tpp.pack_pick.launches == before
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguous", "keys",
+                                   "window"])
+def test_pick_wrapper_refuses_bad_inputs(monkeypatch, fault):
+    """The wrapper checks its inputs before it reaches the kernel's
+    library (which the CPU never loads)."""
+    _, wrapped = pick_case(0, (0, 16))
+    args = list(wrapped)
+    if fault == "dtype":
+        args[1] = args[1].double()
+    elif fault == "shape":
+        args[4] = args[4][:, :-1]
+    elif fault == "contiguous":
+        args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    elif fault == "keys":
+        args[5] = args[5].to(torch.int32)
+    else:
+        args[6] = 4          # 16 nodes from 4 overrun m = 16
+    monkeypatch.setattr(tpp, "_library", lambda: pytest.fail("launched"))
+    before = tpp.pack_pick.launches
+    with pytest.raises((TypeError, ValueError)):
+        tpp.pack_pick(*args)
+    assert tpp.pack_pick.launches == before
+
+
+def test_pack_solve_batch_counts_no_pick_launches_on_the_cpu():
+    _cache, enc, _nodes, _pods, batch = build_trace(PORT, 1)
+    res = tpack.pack_solve_batch(batch, enc.nodes, seed=3, device="cpu")
+    assert res.pick_launches == 0 and bool(res.feasible)
 
 
 # ------------------------------------------------------------- whole solves

@@ -392,6 +392,18 @@ def test_optimal_cycle_on_the_cpu_has_no_device_fields():
     assert not set(args(mat)) & set(PACK_DEVICE_KEYS)
 
 
+def test_optimal_cycle_on_the_cpu_counts_no_pick_launches():
+    """The entry and the materialize span name the rounding pick kernel's
+    launches in the cycle's pack solve: none off the card."""
+    core = make_core(policy="optimal")
+    core.tracer.clear()
+    pipelined_wave(core)
+    entry = core.metrics["last_cycle"]["default"]
+    assert entry["pack_pick_launches"] == 0
+    mat = next(s for s in core.tracer.spans() if s.name == "materialize")
+    assert args(mat)["pack_pick_launches"] == 0
+
+
 def test_chrome_export_loads_with_the_new_args():
     core = make_core(policy="optimal")
     core.tracer.clear()
@@ -437,6 +449,9 @@ def test_card_optimal_cycle_times_the_pack_stages():
             + ms["pack_repair_device_ms"]) <= entry["total_ms"]
     mat = next(s for s in core.tracer.spans() if s.name == "materialize")
     assert {k: args(mat)[k] for k in PACK_DEVICE_KEYS} == ms
+    # one pick launch a rounding round, each inside the "gumbel" stage
+    assert entry["pack_pick_launches"] == args(mat)["pack_pick_launches"] \
+        == 4
 
 
 @pytest.mark.cuda

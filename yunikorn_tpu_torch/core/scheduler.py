@@ -2119,6 +2119,7 @@ class CoreScheduler(SchedulerAPI):
                 "pack_placed": utils["optimal"]["placed"],
                 "greedy_placed": utils["greedy"]["placed"],
                 "partitioner": h.pack.partitioner,
+                "pack_pick_launches": h.pack.pick_launches,
             }
             for stage, ms in pack_device.items():
                 self._last_pack_stats[f"pack_{stage}_device_ms"] = round(ms, 3)
@@ -4308,10 +4309,12 @@ PACK_DEVICE_KEYS = tuple(f"pack_{stage}_device_ms"
 
 
 def _pack_device_extras(stats: dict) -> dict:
-    """The pack arm's device ms per stage, for the cycle entry and the
-    materialize span: absent off the card, and for a stage whose events
-    had not completed."""
-    return {k: stats[k] for k in PACK_DEVICE_KEYS if k in stats}
+    """The pack arm's device ms per stage (absent off the card, and for a
+    stage whose events had not completed) and the rounding pick kernel's
+    launches in its solve (`pack_pick_launches`, 0 off the card), for the
+    cycle entry and the materialize span."""
+    return {k: stats[k] for k in PACK_DEVICE_KEYS + ("pack_pick_launches",)
+            if k in stats}
 
 
 def _policy_extras(stats: dict) -> dict:

@@ -80,6 +80,7 @@ from yunikorn_tpu_torch.ops.learned import LIBRARY as LEARNED_LIBRARY
 from yunikorn_tpu_torch.ops.learned import (  # noqa: F401
     learned_prep, learned_propose, learned_propose_finish,
     learned_propose_shard, merge_proposals, node_embedding)
+from yunikorn_tpu_torch.ops.pack_pick import LIBRARY as PACK_PICK_LIBRARY
 from yunikorn_tpu_torch.ops.predicates import (
     group_feasibility,
     group_preferred_bonus,
@@ -114,8 +115,9 @@ SOLVE_ARG_NAMES = (
 _ARG_RANK = SOLVE_ARG_NAMES.index("rank")
 _ARG_LOC = SOLVE_ARG_NAMES.index("loc")
 _ARG_TOPO = SOLVE_ARG_NAMES.index("topo")
-# the CUDA kernel libraries the solve launches (csrc/<name>.cu)
-KERNELS = (LIBRARY, LEARNED_LIBRARY)
+# the CUDA kernel libraries the solve and its duel arms launch
+# (csrc/<name>.cu)
+KERNELS = (LIBRARY, LEARNED_LIBRARY, PACK_PICK_LIBRARY)
 
 
 @dataclasses.dataclass

@@ -36,7 +36,8 @@ part's [n, m] state; here the K parts run as one batched [K, n, m]
 computation (each part's noise still from its own key), which launches K
 times fewer kernels. Every random draw comes from utils/prng, the same
 threefry2x32 stream as the reference's: the partitions are exact, the
-Gumbel noise agrees to about 1e-6.
+Gumbel noise agrees to about 1e-6. On the card each rounding round's pick
+is one launch of the ops/pack_pick kernel.
 
 Scope, gated by the core before the dispatch: batches with locality or
 host-port requests keep the greedy plan (PackUnsupported names the
@@ -62,7 +63,6 @@ import torch
 from yunikorn_tpu_torch.models.policies import node_base_scores
 from yunikorn_tpu_torch.obs.trace import DeviceTimer
 from yunikorn_tpu_torch.ops.assign import (
-    NEG_INF,
     SOLVE_ARG_NAMES,
     _prepare,
     _segment_prefix_accept,
@@ -73,7 +73,8 @@ from yunikorn_tpu_torch.ops.assign import (
     solve_args_from_numpy,
     subtract_accepts,
 )
-from yunikorn_tpu_torch.ops.best_nodes import KEY_NONE, exact_key, merge_keys
+from yunikorn_tpu_torch.ops.best_nodes import merge_keys
+from yunikorn_tpu_torch.ops.pack_pick import pack_pick, thread_launches
 from yunikorn_tpu_torch.parallel.mesh import NodeMesh, Shards
 from yunikorn_tpu_torch.utils import prng
 from yunikorn_tpu_torch.utils.torchtools import resolve_device
@@ -148,6 +149,8 @@ class PackResult:
     # on the card: the CUDA events around the solve's stages (relax,
     # round, gumbel, repair), read once the plan is back
     timer: Optional[DeviceTimer] = None
+    # the rounding pick kernel's launches in this solve (0 on the CPU)
+    pick_launches: int = 0
 
 
 def _timed(timer: Optional[DeviceTimer], stage: str):
@@ -216,17 +219,21 @@ def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
     [K, 2]. Returns (assigned [K, n] int32 local node index or -1,
     free_left [K, m, R] int32).
 
+    Each round's pick (fit mask, Gumbel draw, masked argmax) is one
+    ops/pack_pick call a piece: the hand-written kernel on the card, which
+    never stores the [K, n, m] noise, the plain version on the CPU.
+
     mesh (a NodeMesh, for the cvx arm's one part over the whole fleet):
     feas, scores, nfree and ncap come one piece a shard ([K, n, W] and
-    [K, W, R], in shard order, on the shards' devices). Each shard masks
-    its columns by fit, adds its window of the round's Gumbel draw (prng's
-    cols) and takes its argmax there; the picks merge on the lead device as
-    exact keys (ops/best_nodes.merge_keys: the lowest node among equal
-    scores, -0.0 = +0.0, as one torch.argmax over all m nodes), the accept
-    runs there over the gathered free capacity, and each shard subtracts
-    the accepts on its own nodes; free_left comes back as Shards of the
-    [K * W, R] pieces. Without a mesh the same code runs over one piece.
-    timer (a DeviceTimer): each round's Gumbel draw is timed as "gumbel"."""
+    [K, W, R], in shard order, on the shards' devices). Each shard picks
+    over its columns with its window of the round's Gumbel draw (prng's
+    cols); the picks merge on the lead device as exact keys
+    (ops/best_nodes.merge_keys: the lowest node among equal scores, -0.0 =
+    +0.0, as one torch.argmax over all m nodes), the accept runs there over
+    the gathered free capacity, and each shard subtracts the accepts on its
+    own nodes; free_left comes back as Shards of the [K * W, R] pieces.
+    Without a mesh the same code runs over one piece.
+    timer (a DeviceTimer): each round's picks are timed as "gumbel"."""
     K, n, R = preq.shape
     dev = preq.device
     if mesh is None:
@@ -253,24 +260,13 @@ def _round_part(preq, prank, pvalid, feas, scores, nfree, ncap, size_key,
         round_keys = prng.fold_in(keys, i)
         picks = []
         for s, (lo, hi) in enumerate(bounds):
-            w, rq = hi - lo, req_p[s]
-            cur3 = cur[s].view(K, 1, w, R)
-            margin = cur3[..., 0] - rq[:, :, None, 0]
-            for r in range(1, R):
-                margin = torch.minimum(margin,
-                                       cur3[..., r] - rq[:, :, None, r])
-            ok = feas[s] & (margin >= 0)
-            base_now = node_base_scores(cur[s][:, :sc_cols], cap[s],
-                                        policy).view(K, w)
-            u = (scores[s] + 0.05 * base_now[:, None, :]) * _LP_INV_TAU
+            w = hi - lo
+            tb = 0.05 * node_base_scores(cur[s][:, :sc_cols], cap[s],
+                                         policy).view(K, w)
             with _timed(timer, "gumbel"):
-                noise = prng.gumbel(nm.put(round_keys, s), (n, m),
-                                    cols=(lo, hi))
-            masked = torch.where(ok, u + noise, NEG_INF)
-            best = torch.argmax(masked, dim=2)                  # [K, n]
-            top = masked.gather(2, best[..., None])[..., 0]
-            picks.append(torch.where(ok.any(dim=2),
-                                     exact_key(top, best + lo, m), KEY_NONE))
+                picks.append(pack_pick(
+                    feas[s], scores[s], cur[s].view(K, w, R), req_p[s], tb,
+                    nm.put(round_keys, s), lo, m, _LP_INV_TAU))
         best, found = merge_keys(nm.to_lead(picks), m)          # [K, n]
         cand = ~done & found.reshape(K * n)
         gnode = torch.where(cand, (best.long() + part_base).reshape(K * n),
@@ -332,7 +328,8 @@ def pack_solve(
 
     timer (a DeviceTimer, single device only): CUDA events on the current
     stream around the relaxation ("relax"), the rounding ("round", the
-    Gumbel draws inside it also as "gumbel") and the repair ("repair")."""
+    picks inside it, where its Gumbel draws run, also as "gumbel") and the
+    repair ("repair")."""
     if loc is not None:
         raise PackUnsupported("locality batches take the greedy path")
     nm = _solve_mesh(device, mesh)
@@ -491,6 +488,7 @@ def pack_solve_batch(batch, node_arrays, *, policy: str = "binpacking",
                        else "random")
     args, _ = solve_args_from_numpy(np_args, static_kwargs, device)
     timer = DeviceTimer() if device.type == "cuda" else None
+    launches0 = thread_launches()
     assigned, free_after, feasible = pack_solve(
         *args, seed, n_parts=n_parts, partitioner=partitioner,
         lp_iters=lp_iters, round_rounds=round_rounds,
@@ -498,7 +496,8 @@ def pack_solve_batch(batch, node_arrays, *, policy: str = "binpacking",
         score_cols=static_kwargs["score_cols"], device=device, timer=timer)
     return PackResult(assigned=assigned, free_after=free_after,
                       feasible=feasible, n_parts=n_parts,
-                      partitioner=partitioner, timer=timer)
+                      partitioner=partitioner, timer=timer,
+                      pick_launches=thread_launches() - launches0)
 
 
 def packed_utilization(assigned, req_i, valid, free0_i=None,

@@ -244,6 +244,7 @@ def pack_solve_sharded(batch, node_arrays, mesh: NodeMesh, *,
     that do not split into whole parts per shard."""
     from yunikorn_tpu_torch.ops import assign
     from yunikorn_tpu_torch.ops import pack_solve as pack_mod
+    from yunikorn_tpu_torch.ops.pack_pick import thread_launches
 
     pack_mod._unsupported_batch(batch, pack_mod.PackUnsupported)
     np_args, static = assign.prepare_solve_args(
@@ -257,12 +258,14 @@ def pack_solve_sharded(batch, node_arrays, mesh: NodeMesh, *,
             f"shape ({N} pods, {M} nodes) does not split into whole parts "
             f"per shard over {mesh.size} devices")
     n_parts = pack_mod.pick_parts(N, M, n_shards=mesh.size)
+    launches0 = thread_launches()
     assigned, free_after, feasible = pack_mod.pack_solve(
         *np_args, seed, n_parts=n_parts, partitioner="topo",
         n_shards=mesh.size, chunk=chunk, policy=policy,
         score_cols=static["score_cols"], mesh=mesh)
     return pack_mod.PackResult(assigned=assigned, free_after=free_after,
                                feasible=feasible, n_parts=n_parts,
+                               pick_launches=thread_launches() - launches0,
                                partitioner="topo")
 
 
