@@ -13,6 +13,9 @@ The faults are hooks that take the harness's Program before the run:
   key hashes even are never placed).
 - `alter_answers`: each placement is moved to the next node where the
   plan is produced, before the commit.
+- `preempt_one`: in each cycle that places pods, the program releases one
+  of them as a preemption's victim (PREEMPTED_BY_SCHEDULER) and sends the
+  release after the placements.
 """
 from __future__ import annotations
 
@@ -59,8 +62,28 @@ def alter_answers(prog) -> None:
     _on_commit(prog, change)
 
 
+def preempt_one(prog) -> None:
+    core, si = prog.core, prog.si
+    publish = core._publish_cycle
+
+    def wrapped(payload):
+        pinned, replaced, new, victims, skipped, fallback = payload
+        if new:
+            a = new[0]
+            with core._lock:
+                rel = core._release_allocation(si.AllocationRelease(
+                    a.application_id, a.allocation_key,
+                    si.TerminationType.PREEMPTED_BY_SCHEDULER))
+            if rel is not None:
+                payload = (pinned, replaced, new, list(victims) + [rel],
+                           skipped, fallback)
+        return publish(payload)
+
+    core._publish_cycle = wrapped
+
+
 FAULTS = {"release_unchanged": release_unchanged, "drop_half": drop_half,
-          "alter_answers": alter_answers}
+          "alter_answers": alter_answers, "preempt_one": preempt_one}
 
 
 def overrides(name: str) -> dict:

@@ -2,9 +2,9 @@
 check, and the metrics the cell reports.
 
 The cell names a configuration and a traffic mix; both are data files
-found by name (`configs/<config>.json`, `traffic/<mix>.json`), and each
-metric is a reader of its own (`metrics/<name>.py`). The traffic's `kind`
-picks the loop; the one there is, "waves", is lib/waves.py.
+found by name (`configs/<config>.json`, `traffic/<mix>.json`). The mix's
+`kind` names its loop, `loops/<kind>.py`, and each metric is a reader of
+its own (`metrics/<name>.py`).
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -26,7 +28,34 @@ def load_json(*parts) -> dict:
 
 @dataclasses.dataclass
 class Run:
-    """What a metric reader reads."""
+    """One run of a cell: what its loop fills and the metric readers read.
+
+    A loop (`loops/<kind>.py`) has `run(run, device, t_start, overrides)`,
+    which builds the program and its traffic from `cfg`, `mix` and `seed`,
+    runs the warm traffic and the window, stops the program, calls the
+    shared checks (lib/judge.py) and returns the result line's `device`
+    (`harness.device_info`). Before it returns it fills:
+
+    - `setup_s`: `t_start` (process start) to the window's first instant;
+    - `t0`, `t1` and `wall0`, `wall1`: the window's bounds on
+      time.perf_counter() and on time.time();
+    - `notes["placed_in_window"]`: the pods placed in the window;
+    - `window_profile`: with --trace 0 on the card, a profile of the device
+      alone over the whole window (lib/trace.start(host=False)), which
+      `device_ms_per_kpod` reads; `profile`: with --trace 1, a profile of a
+      stretch of the window, with the host, for the breakdown and
+      `busy_s` / `window_s`;
+    - `cycles`: the core's cycle entries inside the window, less those the
+      profiler ran beside (`cycles_outside`);
+    - `spans`, `traced_spans`: the core tracer's spans inside the window,
+      apart from and beside the profiled stretch (`read_spans`);
+    - `checks`: name -> (value, limit), from the shared checks and any of
+      the loop's own; `first_fault`: the first breach in words;
+    - `attempted`, `failed`: the asks due in the window, and those of them
+      never placed.
+
+    Readers find None where a loop leaves a field empty, and leave their
+    metric out of the line."""
     cell: str
     cfg: dict
     mix: dict
@@ -155,6 +184,21 @@ def metric_reader(name: str):
     return mod.read
 
 
+def loop_of(kind: str):
+    """The loop of a traffic kind: the module `loops/<kind>.py`."""
+    rel = f"loops/{kind}.py"
+    path = os.path.join(ROOT, rel)
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]*", str(kind)) \
+            or not os.path.isfile(path):
+        raise ValueError(f"traffic kind {kind!r}: no loop {rel} in {ROOT}")
+    name = "portbench_loop_" + kind
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def applies(metric: dict, cell: str, bench: dict) -> bool:
     return cell in metric.get("workloads", [w["name"]
                                             for w in bench["workloads"]])
@@ -176,10 +220,8 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     for k, v in (overrides or {}).get("traffic", {}).items():
         mix[k] = v
     run = Run(cell_name, cfg, mix, int(seed), float(seconds), bool(trace))
-    if mix["kind"] != "waves":
-        raise ValueError(f"unknown traffic kind {mix['kind']!r}")
-    from lib import waves as loop
-    device_info = loop.run(run, device, t_start, overrides or {})
+    device_info = loop_of(mix["kind"]).run(run, device, t_start,
+                                           overrides or {})
     group = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in bench[group]:

@@ -10,6 +10,7 @@ callback receives it.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, List, Tuple
@@ -19,24 +20,44 @@ from lib import fleet
 
 class Recorder:
     """The core's ResourceManagerCallback. Each allocation is logged with
-    the time it was received; the log (allocations, and the releases the
-    harness sends, each entered before it is sent) is what the reference
-    replays."""
+    the time it was received; the log (allocations, the releases the
+    program makes on its own, and the asks and releases the harness sends,
+    each entered before it is sent) is what the reference replays.
+
+    The core echoes each release of a live allocation that a request
+    carries, inside that request's call: a release that reaches the
+    callback on the thread of a harness request, of a key that request
+    releases, is that echo. It is counted in `echoes` and not logged, so
+    the log grows by no more than the harness's own release. Any other
+    release is the program's own."""
 
     def __init__(self):
         self.lock = threading.Lock()
         # ("ask", key) | ("alloc", key, node) | ("release", key)
+        # | ("program_release", key, termination type)
         self.log: List[tuple] = []
         self.placed_at: Dict[str, float] = {}
         self.rejected: List[str] = []
         self.listeners: List = []
+        self.echoes = 0
+        self._request = threading.local()
 
     def update_allocation(self, response):
         now = time.perf_counter()
+        sent = getattr(self._request, "releases", None) or set()
         with self.lock:
             for a in response.new:
                 self.log.append(("alloc", a.allocation_key, a.node_id))
                 self.placed_at[a.allocation_key] = now
+            for r in response.released:
+                if r.allocation_key in sent:
+                    sent.discard(r.allocation_key)
+                    self.echoes += 1
+                    continue
+                ttype = getattr(r.termination_type, "value",
+                                r.termination_type)
+                self.log.append(("program_release", r.allocation_key, ttype))
+                self.placed_at.pop(r.allocation_key, None)
             for r in response.rejected:
                 self.rejected.append(r.allocation_key)
             for fn in self.listeners:
@@ -47,6 +68,16 @@ class Recorder:
             for k in keys:
                 self.log.append(("release", k))
                 self.placed_at.pop(k, None)
+
+    @contextlib.contextmanager
+    def request(self, releases):
+        """Around a harness request on this thread: the keys it releases,
+        whose echoes the callback may receive until it returns."""
+        self._request.releases = set(releases)
+        try:
+            yield
+        finally:
+            self._request.releases = None
 
     def update_application(self, response):
         pass
@@ -158,10 +189,12 @@ class Program:
         si = self.si
         rel = [si.AllocationRelease(app, key, si.TerminationType.STOPPED_BY_RM)
                for app, key in releases]
+        keys = [k for _, k in releases]
         if rel:
-            self.recorder.note_release([k for _, k in releases])
-        self.core.update_allocation(si.AllocationRequest(asks=list(asks),
-                                                         releases=rel))
+            self.recorder.note_release(keys)
+        with self.recorder.request(keys):
+            self.core.update_allocation(si.AllocationRequest(
+                asks=list(asks), releases=rel))
 
     def live_allocations(self) -> Dict[str, str]:
         """The program's own record: allocation key -> node, over every

@@ -1,18 +1,19 @@
-"""The closed loop of bursts ("waves" mixes).
+"""The closed loop of bursts: the loop of "waves" mixes.
 
 Each wave submits the whole backlog in one request, together with the
 release of every pod of the wave before (a completed pod leaves, and an
 unplaced one is withdrawn), and waits until the core has placed the wave,
-or until no pod has been placed for `stall_s`. Then the next wave follows
-at once. Two sets of allocation keys alternate between waves, so the
-release of one wave and the asks of the next never share a key.
+or until `stall_cycles` cycles that admitted pods have ended since its last
+placement. Then the next wave follows at once. Two sets of allocation keys
+alternate between waves, so the release of one wave and the asks of the
+next never share a key.
 
-Set-up is the fleet, the pods and one warm wave at the cell's own shapes.
-The window opens at the second wave's submission and closes when the first
-wave that ends at or after `seconds` has ended, so that it holds whole
-waves only. With --trace 1, the profiler covers the window's first two
-waves; with --trace 0 on the card, a profile of the device alone covers the
-whole window.
+Set-up is the fleet, the pods and two warm waves (one a set of keys) at
+the cell's own shapes. The window opens at the third wave's submission and
+closes when the first wave that ends at or after `seconds` has ended, so
+that it holds whole waves only. With --trace 1, the profiler covers the
+window's first two waves; with --trace 0 on the card, a profile of the
+device alone covers the whole window.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import time
 from typing import Dict, List
 
 from lib import fleet, harness, trace, traffic
+from lib.judge import replay, sampled_cycles
 from lib.program import Program
-from reference import check, greedy
 
 WARM_WAVES = 2          # one a set of keys
 MAX_WAIT_S = 300.0
@@ -109,6 +110,8 @@ def run(run: harness.Run, device, t_start: float, overrides: dict) -> dict:
             rec.log.extend(("ask", key) for key in keys)
             counter.reset(s + "-", len(keys), t_sub)
         prog.submit(wave_asks, prev)
+        # the core answers a request's releases inside the call
+        echoes = rec.echoes
         # the wave has stalled once `stall_cycles` cycles that admitted pods
         # have ended after its last placement (a cycle that compiles may
         # take long: time alone decides nothing)
@@ -130,7 +133,7 @@ def run(run: harness.Run, device, t_start: float, overrides: dict) -> dict:
         return {"k": k, "order": order, "set": s, "keys": keys,
                 "t_sub": t_sub, "wall_sub": wall_sub, "t_done": t_done,
                 "wall_done": time.time(), "placed": placed,
-                "first": first, "log_at": log_at}
+                "first": first, "log_at": log_at, "echoes": echoes}
 
     prog.core.start()
     try:
@@ -192,6 +195,11 @@ def run(run: harness.Run, device, t_start: float, overrides: dict) -> dict:
     if run.window_profile is not None:
         run.notes["window_busy_s"] = run.window_profile.busy_s
     run.notes["waves"] = len(window)
+    # the program's echo of each release the harness sent, a wave each
+    # since the first, warm waves included
+    run.notes["release_echoes"] = [
+        w["echoes"] - (waves[k - 1]["echoes"] if k else 0)
+        for k, w in enumerate(waves)]
     run.notes["wave_s"] = [round(w["t_done"] - w["t_sub"], 4) for w in window]
     run.cycles = harness.cycles_outside(
         cycles.between(run.wall0, run.wall1), run.profile)
@@ -216,23 +224,13 @@ def torch_device_is_cuda(device) -> bool:
 def judge(run, waves, nodes, shapes, plan, plain, log, live, inflight,
           entries, device) -> None:
     """The reference's check, once the window has closed and the program
-    is stopped: every event replayed on the reference's ledger, the
-    program's final record against it, every wave's unplaced pods against
-    the ledger at the wave's end, and the first cycle of sampled waves
-    against the greedy replay and the duel's rule."""
-    ledger = check.Ledger(nodes, plain)
-    ends = {w["log_at"]: w for w in waves}
-    unplaced_fit = 0
-    for i, ev in enumerate(log):
-        ledger.apply(ev)
-        w = ends.get(i + 1)
-        if w is not None and w["placed"] < len(w["keys"]):
-            left = [k for k in w["keys"] if k not in ledger.live][:200]
-            unplaced_fit += sum(1 for k in left if ledger.fits_anywhere(k))
-    run.first_fault = ledger.first_fault
-    checks = {k: (v, 0) for k, v in ledger.counts.items()}
-    checks["state_gap"] = (check.state_gap(ledger, live, inflight), 0)
-    checks["unplaced_fit"] = (unplaced_fit, 0)
+    is stopped (lib/judge.py): every event replayed on the reference's
+    ledger, the program's final record against it, every wave's unplaced
+    pods against the ledger at the wave's end, and the first cycle of
+    sampled waves against the greedy replay and the duel's rule."""
+    replay(run, nodes, plain, log,
+           {w["log_at"]: w["keys"] for w in waves
+            if w["placed"] < len(w["keys"])}, live, inflight)
     # sampled waves: the window's first, one drawn from the seed, and the
     # traced ones
     first = WARM_WAVES
@@ -241,60 +239,18 @@ def judge(run, waves, nodes, shapes, plan, plain, log, live, inflight,
     if run.trace:
         pick |= {first, first + 1}
     pick = sorted(k for k in pick if k < len(waves))
-    # ties between equal scores go to the node first in name order
-    nodes = sorted(nodes, key=lambda n: n.name)
-    g_of, feas, soft = greedy.group_tables(nodes, shapes, device)
-    import torch
-
-    cap = torch.tensor([greedy.cap_row(n.cpu_milli, n.memory, n.pods,
-                                       int(run.cfg["node_volume_limit"]))
-                        for n in nodes], dtype=torch.int64, device=device)
-    cap_mean = cap.double().mean(dim=0).tolist()
-    row_of = {n.name: m for m, n in enumerate(nodes)}
-    gate_gap = greedy_gap = duel_loss = 0
     deps = plan["deployments"]
+    qname = [f"root.q{d['queue']}" for d in deps]
+    samples = []
     for k in pick:
         w = waves[k]
         # the gate's order: queues by name (every queue's share is 0 at a
         # wave's start: the wave before is released in the same request),
         # then the submission order within each queue
-        qname = [f"root.q{d['queue']}" for d in deps]
         ranked = sorted(range(len(w["order"])),
                         key=lambda j: (qname[w["order"][j][0]], j))
-        pods = [w["order"][j] for j in ranked]
-        keys = [w["keys"][j] for j in ranked]
-        rows = [greedy.req_row(shapes[deps[d]["shape"]].cpu_milli,
-                               shapes[deps[d]["shape"]].memory)
-                for d, _ in pods]
-        req = torch.tensor(rows, dtype=torch.int64, device=device)
-        grp = torch.tensor([g_of[deps[d]["shape"]] for d, _ in pods],
-                           dtype=torch.int64, device=device)
-        ref = greedy.replay(req, grp, feas, soft, cap.clone(), cap)
-        committed = [row_of.get(w["first"].get(key), -1) for key in keys]
-        entry = next((e for e in entries if e.get("at", 0) >= w["wall_sub"]
-                      and e.get("pods")), None)
-        gate_gap += abs((entry or {}).get("pods", 0) - len(keys))
-        ref_placed = sum(1 for a in ref.assigned if a >= 0)
-        if entry is not None and "greedy_placed" in entry:
-            greedy_gap += abs(int(entry["greedy_placed"]) - ref_placed)
-        if committed != ref.assigned:
-            scale = max(greedy.units(committed, rows, cap_mean),
-                        greedy.units(ref.assigned, rows, cap_mean), 1e-12)
-            if not (greedy.duel_key(committed, rows, cap_mean, scale)
-                    > greedy.duel_key(ref.assigned, rows, cap_mean, scale)):
-                duel_loss += 1
-                if run.first_fault is None:
-                    run.first_fault = (f"wave {k}: committed plan places "
-                                       f"{sum(1 for a in committed if a >= 0)}"
-                                       f", greedy {ref_placed}, and does not"
-                                       " win the duel")
-        run.notes.setdefault("greedy", []).append(
-            {"wave": k, "ref_placed": ref_placed, "rounds": ref.rounds,
-             "committed_placed": sum(1 for a in committed if a >= 0),
-             "entry": {x: (entry or {}).get(x) for x in (
-                 "pods", "greedy_placed", "solver_policy", "pack_placed",
-                 "pack_plan_ms")}})
-    checks["gate_gap"] = (gate_gap, 0)
-    checks["greedy_gap"] = (greedy_gap, 0)
-    checks["duel_loss"] = (duel_loss, 0)
-    run.checks = checks
+        samples.append({"wave": k, "keys": [w["keys"][j] for j in ranked],
+                        "shapes": [deps[w["order"][j][0]]["shape"]
+                                   for j in ranked],
+                        "first": w["first"], "wall_sub": w["wall_sub"]})
+    sampled_cycles(run, samples, entries, nodes, shapes, device)

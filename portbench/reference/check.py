@@ -1,7 +1,7 @@
 """The plain reference's judgement of a run: it replays, in the order they
-happened, the asks and releases the benchmark sent and the allocations the
-program returned, on its own copy of the fleet, and counts every breach of
-what the configuration guarantees.
+happened, the asks and releases the benchmark sent and the allocations and
+releases the program returned, on its own copy of the fleet, and counts
+every breach of what the configuration guarantees.
 
 Imports neither the program nor JAX: the fleet and pods come as the
 benchmark's plain tuples (`lib/fleet.py`), the program's answers as
@@ -9,23 +9,28 @@ benchmark's plain tuples (`lib/fleet.py`), the program's answers as
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 
 class Ledger:
     """The reference's cluster: per node its used cpu, memory and pod
     slots; the pending and the live (placed, not released) asks."""
 
-    def __init__(self, nodes, pods: Dict[str, Tuple]):
-        # pods: key -> (cpu milli, memory bytes, node selector dict)
+    def __init__(self, nodes, pods: Dict[str, Tuple],
+                 program_releases: Iterable[str] = ()):
+        # pods: key -> (cpu milli, memory bytes, node selector dict);
+        # program_releases: the termination types of the releases the
+        # program may make on its own (a preemption's victims, a replaced
+        # placeholder), as the configuration lists them
         self.nodes = {n.name: n for n in nodes}
         self.order = [n.name for n in nodes]
         self.used = {n.name: [0, 0, 0] for n in nodes}
         self.pods = pods
         self.pending: set = set()
         self.live: Dict[str, str] = {}
+        self.allowed = frozenset(program_releases)
         self.counts = {"unknown_or_double": 0, "overcommit": 0,
-                       "selector_taint": 0}
+                       "selector_taint": 0, "program_release": 0}
         self.first_fault: Optional[str] = None
 
     def _fault(self, what: str, msg: str) -> None:
@@ -44,19 +49,35 @@ class Ledger:
         return (u[0] + cpu <= n.cpu_milli and u[1] + mem <= n.memory
                 and u[2] + 1 <= n.pods)
 
+    def _free(self, key: str) -> bool:
+        node = self.live.pop(key, None)
+        if node is None:
+            return False
+        cpu, mem, _ = self.pods[key]
+        u = self.used[node]
+        u[0] -= cpu
+        u[1] -= mem
+        u[2] -= 1
+        return True
+
     def apply(self, event: tuple) -> None:
+        """One event: ("ask", key) and ("release", key) as the benchmark
+        sent them; ("alloc", key, node) and ("program_release", key,
+        termination type) as the program answered."""
         kind, key = event[0], event[1]
         if kind == "ask":
             self.pending.add(key)
         elif kind == "release":
             self.pending.discard(key)
-            node = self.live.pop(key, None)
-            if node is not None:
-                cpu, mem, _ = self.pods[key]
-                u = self.used[node]
-                u[0] -= cpu
-                u[1] -= mem
-                u[2] -= 1
+            self._free(key)
+        elif kind == "program_release":
+            if event[2] not in self.allowed:
+                self._fault("program_release",
+                            f"the program released {key} ({event[2]}), which"
+                            " the configuration does not allow")
+            if not self._free(key):
+                self._fault("unknown_or_double",
+                            f"program release of {key}: not live")
         elif kind == "alloc":
             node = event[2]
             if key not in self.pending or key in self.live \

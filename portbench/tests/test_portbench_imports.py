@@ -38,8 +38,9 @@ def test_top_level_names_compared_whole():
 
 def test_harness_and_program_load_no_jax():
     names = loaded_after(
-        "import run\nfrom lib import harness, waves, program, trace, "
-        "faults\nimport yunikorn_tpu_torch.core.scheduler")
+        "import run\nfrom lib import harness, judge, program, trace, "
+        "faults\nharness.loop_of('waves')\n"
+        "import yunikorn_tpu_torch.core.scheduler")
     assert "yunikorn_tpu_torch" in names
     assert not names & imports.FORBIDDEN
 

@@ -62,6 +62,24 @@ def test_overcommit_and_release():
     assert lg.live == {"c": "n0"}
 
 
+@pytest.mark.parametrize("allowed", [(), ("PREEMPTED_BY_SCHEDULER",)])
+def test_program_release_frees_and_is_held_to_the_allowed_types(allowed):
+    pods = {"a": (3000, GI, {}), "b": (3000, GI, {})}
+    lg = check.Ledger([node("n0")], pods, allowed)
+    for k in pods:
+        lg.apply(("ask", k))
+    lg.apply(("alloc", "a", "n0"))
+    lg.apply(("program_release", "a", "PREEMPTED_BY_SCHEDULER"))
+    lg.apply(("alloc", "b", "n0"))          # the victim's capacity came back
+    assert lg.counts["overcommit"] == 0
+    assert lg.counts["program_release"] == (0 if allowed else 1)
+    assert lg.live == {"b": "n0"}
+    lg.apply(("program_release", "a", "PREEMPTED_BY_SCHEDULER"))  # not live
+    lg.apply(("release", "a"))              # the harness's release after it
+    assert lg.counts["unknown_or_double"] == 1
+    assert lg.live == {"b": "n0"}
+
+
 def test_pod_slots_count():
     pods = {k: (10, 1, {}) for k in "abcd"}
     lg = ledger([node("n0", pods=3)], pods)

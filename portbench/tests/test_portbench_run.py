@@ -74,3 +74,27 @@ def test_broken_path_is_not_correct(cell, fault):
     out, r = run(cell, planted=fault)
     assert not out["correct"], (fault, out["checks"])
     assert r.first_fault or any(c["value"] for c in out["checks"].values())
+
+
+@pytest.mark.parametrize("allowed", [False, True])
+def test_program_release_is_held_to_the_configuration(allowed):
+    """The program releases one placed pod a cycle as a preemption's
+    victim (lib/faults.preempt_one), on a fleet one pod short of a wave:
+    the freed slots hold the rest. The kwok configuration allows no
+    release of the program's own; with PREEMPTED_BY_SCHEDULER allowed, the
+    run is correct, and the ledger, which frees each victim's slot, sees
+    no overcommit from its reuse."""
+    cell = "kwok-10k-pack.burst"
+    cfg = {"nodes": 15, "node_pods": 100, "backlog_pods": 1505}
+    if allowed:
+        cfg["program_releases"] = ["PREEMPTED_BY_SCHEDULER"]
+    out, r = harness.run_cell(bench(), cell, 2**31 + 9, SECONDS, False,
+                              "cpu", time.perf_counter(),
+                              {"config": cfg, "hooks": [faults.preempt_one]})
+    got = {k: c["value"] for k, c in out["checks"].items()}
+    assert out["correct"] == allowed, got
+    assert (got["program_release"] == 0) == allowed, got
+    assert got["overcommit"] == got["state_gap"] == 0, got
+    assert got["unknown_or_double"] == 0, got
+    # every pod of every wave placed on a fleet that holds all but 5
+    assert out["failed"] == 0 and out["attempted"] > 0
